@@ -1,0 +1,27 @@
+"""Deconvolutional heatmap decoder. Port of fast3dhpe_tpu/models/decoder.py:
+3 x (ConvTranspose2d k4 s2 p1 + BN + ReLU), then a 1x1 conv with bias to
+the joints."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .layers import BatchNorm2d, Conv2d, ConvTranspose2d
+
+
+class PoseDecoder(nn.Module):
+    def __init__(self, in_channels, num_joints, num_deconv_filters=256):
+        super().__init__()
+        ch = in_channels
+        for i in (1, 2, 3):
+            setattr(self, f"deconv{i}", nn.Sequential(
+                ConvTranspose2d(ch, num_deconv_filters),
+                BatchNorm2d(num_deconv_filters)))
+            ch = num_deconv_filters
+        self.final_layer = Conv2d(ch, num_joints, 1, 1, 0, bias=True)
+
+    def forward(self, x):
+        for i in (1, 2, 3):
+            x = torch.relu(getattr(self, f"deconv{i}")(x))
+        return self.final_layer(x)
