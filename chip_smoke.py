@@ -3,19 +3,31 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the kernels (nvcc for the
-   CUDA sources, Triton's JIT for the Triton kernel), timing the build.
-2. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card, at the shapes the main path gives it and at batch 32 pairs.
-3. Path phase: serves three requests of four uint8 stereo pairs through
+   CUDA sources, Triton's JIT for the Triton kernels), timing the build.
+2. Kernel phase: holds each kernel (K1 soft-argmax forward, K2 its
+   backward, K3 fused bottleneck) against its plain PyTorch version on the
+   card, at the shapes the main paths give it and at batch 32 pairs.
+3. Serving path: three requests of four uint8 stereo pairs through
    `CDRNetInferencer.predict_batch` at the width of configs/mads_3d.yaml
    (CDRNet-101, 256 px, 19 joints), bf16 with fused_inference=True, from
    seeded random weights. Checks shapes, finite values, that each request
-   launched the soft-argmax kernel once and the fused bottleneck once per
-   fused block, and one request against the same module on the CPU.
+   launched K1 once, K2 never and K3 once per fused block, and one request
+   against the same module on the CPU.
 4. Times each kernel beside its bound, its plain version and its library
-   comparison, the geometry's share, and predict_batch at batch 1-64, and
-   splits predict_batch's device time by kernel group (torch.profiler).
-5. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
+   comparison, predict_batch at batch 1-64 and the geometry's share, and
+   splits a request's device time by kernel group (torch.profiler).
+5. Training path: four CDR train steps (two warmup, two with the 3D loss)
+   of CDRNet-101 at full width, fp32, on a synthetic batch of 32 pairs with
+   4 padded rows. Checks finite metrics, the loss arithmetic, that the
+   parameters and BN statistics moved, that three BN sites updated their
+   running statistics from the valid rows with the biased variance, and
+   that each step launched K1 and K2 once and K3 never. Times the step and
+   splits one step's device time by kernel group.
+6. Card vs CPU: one train step with and one without the 3D loss at 2
+   pairs (one padded), full width, from the same weights and batch on the
+   card and on the CPU: losses, grad_norm, every gradient and the BN
+   statistics, beside how far rounding-sized noise moves them on the CPU.
+7. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
 
 It needs one CUDA device. Without one, or when any phase fails, it exits
 non-zero and prints no result.
@@ -37,8 +49,11 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 SEED = 0
-REQUESTS, PAIRS = 3, 4            # the path phase: 3 requests of 4 pairs
+REQUESTS, PAIRS = 3, 4            # the serving path: 3 requests of 4 pairs
 TIMING_PAIRS = 32                 # kernel timings at batch 32 pairs
+TRAIN_PAIRS, TRAIN_PAD = 32, 4    # the training path: TRAIN.BATCH_SIZE pairs
+TRAIN_MODES = (False, False, True, True)   # use_3d of the checked steps
+TIMED_STEPS = 4                   # further use_3d steps, timed only
 
 
 def require(cond, msg):
@@ -131,6 +146,70 @@ def check_softargmax(dev, gen):
                            atol=tol_px), f"soft-argmax peak recovery: {kp}")
     print(f"# K1 soft-argmax: max |kernel - plain| = {err:.3g} px "
           f"(tolerance {tol_px} px)")
+    return err
+
+
+# K2 against its plain version, relative to max|plain|. fp32: both compute
+# in fp32 from the same logits and differ only in the order of the H*W-term
+# sums for cx and cy (~1e-6 relative), which multiplies p * g: 1e-5 (the
+# first H100 runs measured 1.8e-6). bf16: both round an fp32 value once;
+# where those values straddle a rounding boundary the results differ by one
+# bf16 ulp (<= 2^-7 of a value, so of max|plain|). Such elements are rare
+# (under 1e-3 of them), which the mean bound of 2^-17 holds (measured
+# 1e-10).
+K2_FP32_MAX = 1e-5
+K2_BF16_MAX, K2_BF16_MEAN = 2.0 ** -7, 2.0 ** -17
+
+
+def _k2_bounds(got, ref, dt, what):
+    scale = ref.abs().max().item()
+    d = (got.float() - ref.float()).abs()
+    dmax, dmean = d.max().item() / scale, d.mean().item() / scale
+    if dt == torch.float32:
+        ok = dmax <= K2_FP32_MAX
+        bound = f"max {K2_FP32_MAX}"
+    else:
+        ok = dmax <= K2_BF16_MAX and dmean <= K2_BF16_MEAN
+        bound = f"max {K2_BF16_MAX} / mean {K2_BF16_MEAN}"
+    require(ok, f"{what} differs from its plain version: max {dmax:.3g}, "
+                f"mean {dmean:.3g} of max|plain| (bound {bound})")
+    return d.max().item(), dmax, dmean
+
+
+def check_softargmax_bwd(dev, gen):
+    """K2 against soft_argmax_bwd, and the gradient of soft_argmax_fused by
+    autograd against autograd through the plain forward, on the decoder's
+    layout: (N, 19, 64, 64) channels_last viewed as (N, 64, 64, 19)."""
+    from fast3dhpe_tpu_torch.ops.heatmap import soft_argmax, soft_argmax_bwd
+    from fast3dhpe_tpu_torch.ops.softargmax import (soft_argmax_bwd_fused,
+                                                    soft_argmax_fused)
+    err = 0.0
+    for n in (2 * PAIRS, 2 * TIMING_PAIRS):
+        for dt in (torch.float32, torch.bfloat16):
+            h = (torch.randn((n, 19, 64, 64), generator=gen) * 3).to(dt)
+            h = h.to(dev).contiguous(memory_format=torch.channels_last)
+            hm = h.permute(0, 2, 3, 1)
+            g = torch.randn((n, 19, 2), generator=gen).to(dev)
+            got = soft_argmax_bwd_fused(hm, g)
+            ref = soft_argmax_bwd(hm, g)
+            torch.cuda.synchronize()
+            require(got.dtype == dt and got.stride() == hm.stride(),
+                    f"K2 output {got.dtype} {got.stride()}, logits {dt} "
+                    f"{hm.stride()}")
+            e, dmax, dmean = _k2_bounds(got, ref, dt, f"K2 (n={n}, {dt})")
+            # autograd through the Function against autograd through the
+            # plain forward
+            a = hm.detach().clone().requires_grad_(True)
+            (soft_argmax_fused(a) * g).sum().backward()
+            b = hm.detach().clone().requires_grad_(True)
+            (soft_argmax(b) * g).sum().backward()
+            torch.cuda.synchronize()
+            _, gmax, gmean = _k2_bounds(a.grad, b.grad, dt,
+                                        f"autograd through K2 (n={n}, {dt})")
+            print(f"# K2 n={n} {dt}: kernel vs plain max {dmax:.3g} / mean "
+                  f"{dmean:.3g} of max|plain|; autograd max {gmax:.3g} / "
+                  f"mean {gmean:.3g}")
+            err = max(err, e)
     return err
 
 
@@ -229,7 +308,8 @@ def normalized(img_l, img_r, device):
 def run_path(cfg, dev):
     from fast3dhpe_tpu_torch.geometry.triangulation import dlt_triangulate
     from fast3dhpe_tpu_torch.ops.bottleneck import fused_bottleneck
-    from fast3dhpe_tpu_torch.ops.softargmax import soft_argmax_fused
+    from fast3dhpe_tpu_torch.ops.softargmax import (soft_argmax_bwd_fused,
+                                                    soft_argmax_fused)
 
     t0 = time.perf_counter()
     inf = seeded_inferencer(cfg, "cuda")
@@ -255,16 +335,21 @@ def run_path(cfg, dev):
           f"{time.perf_counter() - t0:.1f} s; fused blocks {fused}")
 
     soft_argmax_fused.launches = 0
+    soft_argmax_bwd_fused.launches = 0
     fused_bottleneck.launches = 0
     outs = [inf.predict_batch(*req) for req in requests]
     torch.cuda.synchronize()
     launches = {"soft_argmax": soft_argmax_fused.launches,
+                "soft_argmax_bwd": soft_argmax_bwd_fused.launches,
                 "fused_bottleneck": fused_bottleneck.launches}
     print(f"# path: {REQUESTS} requests x {PAIRS} pairs, launches "
           f"{launches}")
     require(launches["soft_argmax"] == REQUESTS,
             f"soft-argmax kernel launched {launches['soft_argmax']} times "
             f"for {REQUESTS} requests")
+    require(launches["soft_argmax_bwd"] == 0,
+            f"soft-argmax backward launched {launches['soft_argmax_bwd']} "
+            f"times while serving")
     require(launches["fused_bottleneck"] == REQUESTS * len(fused),
             f"fused bottleneck launched {launches['fused_bottleneck']} times "
             f"for {REQUESTS} requests x {len(fused)} blocks")
@@ -317,6 +402,309 @@ def run_path(cfg, dev):
     return inf, launches, requests
 
 
+# ---------------------------------------------------------------- training
+
+def converging_rig(batch, size=256):
+    """bench.py's intrinsics and camera centres (x = -+400 mm, 3000 mm from
+    the origin), each camera turned toward the origin. bench.py's own rig
+    keeps the axes parallel, and at 3 m each camera sees only
+    128 * 3000 / 1100 = 349 mm either side of its axis, which lies 400 mm
+    off the origin: no pose near the origin projects into both views."""
+    f, c = 1100.0 * size / 256, size / 2
+    K = np.array([[f, 0.0, c], [0.0, f, c], [0.0, 0.0, 1.0]])
+    Ps = []
+    for cx in (-400.0, 400.0):
+        centre = np.array([cx, 0.0, -3000.0])
+        z = -centre / np.linalg.norm(centre)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        Ps.append(K @ np.hstack([R, -R @ centre[:, None]]))
+    return np.broadcast_to(np.stack(Ps), (batch, 2, 3, 4)).astype(np.float32)
+
+
+def train_batch(rng, pairs, pad, size=256):
+    """Normalised random images, 3D poses within +-250 mm of the origin,
+    their exact projections as target_2d, target weights 1, and the last
+    `pad` rows marked padded (a final batch)."""
+    proj = converging_rig(pairs, size)
+    p3 = rng.uniform(-250, 250, (pairs, 19, 3)).astype(np.float32)
+    hom = np.concatenate([p3, np.ones((pairs, 19, 1), np.float32)], -1)
+    uvw = np.einsum("bvij,bkj->bvki", proj, hom)
+    t2d = (uvw[..., :2] / uvw[..., 2:]).astype(np.float32)
+    require(t2d.min() > 0 and t2d.max() < size,
+            "a target joint projects outside the image")
+    row_valid = np.ones(pairs, np.float32)
+    row_valid[pairs - pad:] = 0.0
+    return {"image": rng.randn(pairs, 2, size, size, 3).astype(np.float32),
+            "proj": proj, "target_3d": p3, "target_2d": t2d,
+            "target_weight": np.ones((pairs, 19), np.float32),
+            "row_valid": row_valid}
+
+
+def on_device(batch, dev):
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def calibrate_train_head(model, batch):
+    """Scale the N(0, 0.001) heatmap head so that the train-mode logits
+    have unit spread on this batch, as the serving phase does in eval mode:
+    the views then decode apart and the DLT is well conditioned. The BN
+    running statistics are left as they were."""
+    saved = {k: v.clone() for k, v in model.named_buffers()}
+    model.train()
+    with torch.no_grad():
+        _, _, hm = model(batch["image"], batch["proj"], return_heatmaps=True,
+                         row_valid=batch["row_valid"])
+        model.decoder.final_layer.weight.mul_(1.0 / hm.float().std().item())
+        for k, v in model.named_buffers():
+            v.copy_(saved[k])
+
+
+# BN sites whose first update the training phase recomputes, and whether
+# their rows are the view-stacked (B*V) batch. encoder.bn1 has 917k valid
+# values a channel, so its mean shows which rows were taken; the CF sites
+# have 56 x 64 and 28 x 64, where an unbiased variance is 2.8e-4 and
+# 5.6e-4 larger than the biased one.
+BN_SITES = {"encoder.bn1": True, "CF.conv_layer1.1": True,
+            "CF.out_layer.0.1": False}
+BN_MEAN_TOL, BN_VAR_TOL = 1e-5, 1e-4     # of the batch std and variance
+
+
+class BNUpdateCheck:
+    """Holds the first running-statistic update of the BN_SITES against an
+    independent computation: torch.var_mean in fp64 (two-pass, biased)
+    over the rows that this script marks valid (np.repeat per view for the
+    stacked sites). The port's batch statistics are read back from the
+    update, (new - (1 - m) * old) / m."""
+
+    def __init__(self, model, row_valid):
+        self.mods = dict(model.named_modules())
+        self.valid, self.old, self.inputs, self.handles = {}, {}, {}, []
+        for name, stacked in BN_SITES.items():
+            m = self.mods[name]
+            rv = np.repeat(row_valid, 2) if stacked else row_valid
+            self.valid[name] = torch.as_tensor(rv > 0)
+            self.old[name] = (m.running_mean.double().clone(),
+                              m.running_var.double().clone())
+            self.handles.append(m.register_forward_pre_hook(self._hook(name)))
+
+    def _hook(self, name):
+        def hook(mod, args):
+            self.inputs.setdefault(name, args[0].detach())
+        return hook
+
+    def check(self):
+        for h in self.handles:
+            h.remove()
+        worst = 0.0
+        for name in BN_SITES:
+            m, x = self.mods[name], self.inputs[name]
+            var, mean = torch.var_mean(
+                x[self.valid[name].to(x.device)].double(), dim=(0, 2, 3),
+                correction=0)
+            mom = m.momentum
+            old_mean, old_var = self.old[name]
+            got_mean = (m.running_mean.double() - (1 - mom) * old_mean) / mom
+            got_var = (m.running_var.double() - (1 - mom) * old_var) / mom
+            e_mean = ((got_mean - mean).abs() / var.sqrt()).max().item()
+            e_var = ((got_var - var) / var).abs().max().item()
+            print(f"# train BN {name}: batch mean within {e_mean:.3g} std, "
+                  f"variance within {e_var:.3g} of fp64 over the valid rows")
+            require(e_mean <= BN_MEAN_TOL and e_var <= BN_VAR_TOL,
+                    f"BN {name} updated its running statistics from other "
+                    f"statistics than the biased ones of the valid rows: "
+                    f"mean {e_mean:.3g} std (bound {BN_MEAN_TOL}), variance "
+                    f"{e_var:.3g} (bound {BN_VAR_TOL})")
+            worst = max(worst, e_var)
+        return worst
+
+
+def seeded_train_model(cfg):
+    from fast3dhpe_tpu_torch.models.cdrnet import CDRNet
+    from fast3dhpe_tpu_torch.models.layers import init_weights
+    model = CDRNet.from_config(cfg)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    return model
+
+
+def train_step_fn(cfg):
+    from fast3dhpe_tpu_torch.models.losses import make_loss
+    from fast3dhpe_tpu_torch.train.steps import make_train_step_cdr
+    return make_train_step_cdr(
+        make_loss(cfg.LOSS.TYPE, cfg.LOSS.USE_TARGET_WEIGHT),
+        loss_3d_weight=cfg.TRAIN.LOSS_3D_WEIGHT,
+        num_joints=cfg.MODEL.NUM_JOINTS)
+
+
+def run_train(cfg, dev):
+    """The training path: CDRNet-101 at full width, fp32, the config's
+    Adam, loss and 3D weight, TRAIN_PAIRS pairs with TRAIN_PAD padded."""
+    from fast3dhpe_tpu_torch.ops.bottleneck import fused_bottleneck
+    from fast3dhpe_tpu_torch.ops.softargmax import (soft_argmax_bwd_fused,
+                                                    soft_argmax_fused)
+    from fast3dhpe_tpu_torch.train.state import TrainState
+
+    t0 = time.perf_counter()
+    batch = train_batch(np.random.RandomState(SEED + 2), TRAIN_PAIRS,
+                        TRAIN_PAD, cfg.MODEL.IMAGE_SIZE[0])
+    db = on_device(batch, dev)
+    model = seeded_train_model(cfg).to(dev)
+    calibrate_train_head(model, db)
+    start_sd = {k: v.detach().cpu().clone()
+                for k, v in model.state_dict().items()}
+    state = TrainState.create(model, cfg, steps_per_epoch=1)
+    step = train_step_fn(cfg)
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()
+              if "running" in n}
+    bn_check = BNUpdateCheck(model, batch["row_valid"])
+    torch.cuda.synchronize()
+    print(f"# train: CDRNet-{cfg.MODEL.NUM_LAYERS} fp32 built and "
+          f"calibrated in {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = (soft_argmax_fused, soft_argmax_bwd_fused, fused_bottleneck)
+    for c in counters:
+        c.launches = 0
+    times, per_step, metrics = [], [], []
+    for i, use_3d in enumerate(TRAIN_MODES):
+        before = [c.launches for c in counters]
+        t = time.perf_counter()
+        m = step(state, db, use_3d)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        per_step.append(tuple(c.launches - b for c, b in zip(counters, before)))
+        metrics.append({k: v.item() for k, v in m.items()})
+        print(f"# train step {i} use_3d={use_3d}: {times[-1]:.1f} ms, "
+              f"launches K1/K2/K3 {per_step[-1]}, "
+              + ", ".join(f"{k} {v:.6g}" for k, v in metrics[-1].items()))
+        if i == 0:
+            bn_err = bn_check.check()
+    launches = {"soft_argmax": soft_argmax_fused.launches,
+                "soft_argmax_bwd": soft_argmax_bwd_fused.launches,
+                "fused_bottleneck": fused_bottleneck.launches}
+
+    for i, (use_3d, m, n) in enumerate(zip(TRAIN_MODES, metrics, per_step)):
+        require(n == (1, 1, 0), f"train step {i} launched K1/K2/K3 {n} "
+                                f"times, not (1, 1, 0)")
+        require(all(np.isfinite(v) for v in m.values()),
+                f"train step {i}: non-finite metrics {m}")
+        if use_3d:
+            want = m["loss_2d"] + cfg.TRAIN.LOSS_3D_WEIGHT * m["loss_3d"]
+            require(abs(m["loss"] - want) <= 1e-6 * abs(want),
+                    f"train step {i}: loss {m['loss']} is not loss_2d + "
+                    f"{cfg.TRAIN.LOSS_3D_WEIGHT} loss_3d = {want}")
+        else:
+            require(m["loss"] == m["loss_2d"],
+                    f"warmup step {i}: loss {m['loss']} != loss_2d "
+                    f"{m['loss_2d']}")
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), params0[n])]
+    still += [n for n, b in model.named_buffers()
+              if n in stats0 and torch.equal(b, stats0[n])]
+    require(not still, f"unchanged after {len(TRAIN_MODES)} steps: {still}")
+
+    for _ in range(TIMED_STEPS):
+        t = time.perf_counter()
+        step(state, db, True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    step_ms = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"# train step at {TRAIN_PAIRS} pairs: median {step_ms:.1f} ms "
+          f"over steps 2-{len(times)} ({TRAIN_PAIRS / step_ms * 1e3:.1f} "
+          f"pairs/s); steps {[round(t, 1) for t in times]} ms; peak device "
+          f"memory {peak:.2f} GiB")
+    return {"state": state, "step": step, "batch": db, "start_sd": start_sd,
+            "launches": launches, "bn_err": bn_err,
+            "summary": {"pairs": TRAIN_PAIRS, "step_ms": step_ms,
+                        "pairs_per_s": TRAIN_PAIRS / step_ms * 1e3,
+                        "step_times_ms": times, "peak_gib": peak,
+                        "metrics": metrics}}
+
+
+# Card vs CPU: one train step with and one without the 3D loss, at 2 pairs
+# (one padded), full width, from the same weights and batch. The losses are
+# fp32 sums in another order: CPU_LOSS_TOL relative. grad_norm, the
+# gradients and the BN running statistics pass through ReLUs, whose units
+# within rounding of zero switch between devices, and, with the 3D loss,
+# through the Jacobi-SVD DLT, whose backward at untrained weights amplifies
+# rounding a millionfold (grad_norm ~1e6). So each is held to CPU_NOISE_X
+# times the change that rounding-sized noise makes on the CPU itself (its
+# images x (1 + 1e-7)), and never looser than that noise allows: at least
+# CPU_FLOOR.
+CPU_LOSS_TOL, CPU_NOISE_X, CPU_FLOOR = 1e-4, 3.0, 1e-3
+
+
+def _step_errors(a, b):
+    """How far run a is from run b: losses (relative), grad_norm
+    (relative), the gradients (of their norm), the BN running statistics
+    (per buffer, of its range; the worst buffers named)."""
+    (am, ag, ast), (bm, bg, bst) = a, b
+    num = sum(float(((ag[n] - bg[n]) ** 2).sum()) for n in bg)
+    stats = sorted(((float((ast[n] - bst[n]).abs().max())
+                     / float(bst[n].abs().max()), n) for n in bst),
+                   reverse=True)
+    return {"loss": max(abs(am[k] - bm[k]) / abs(bm[k])
+                        for k in ("loss", "loss_2d", "loss_3d")),
+            "grad_norm": abs(am["grad_norm"] - bm["grad_norm"])
+            / bm["grad_norm"],
+            "grads": (num / sum(float((bg[n] ** 2).sum()) for n in bg))
+            ** 0.5,
+            "bn_stats": stats[0][0],
+            "bn_worst": [f"{n} {e:.3g}" for e, n in stats[:3]]}
+
+
+def train_vs_cpu(cfg, start_sd, dev):
+    from fast3dhpe_tpu_torch.models.cdrnet import CDRNet
+    from fast3dhpe_tpu_torch.train.state import TrainState
+
+    t0 = time.perf_counter()
+    batch = train_batch(np.random.RandomState(SEED + 3), 2, 1,
+                        cfg.MODEL.IMAGE_SIZE[0])
+    step = train_step_fn(cfg)
+
+    def one_step(device, use_3d, images_scale=1.0):
+        model = CDRNet.from_config(cfg)
+        model.load_state_dict(start_sd, strict=True)
+        model.to(device)
+        # lr 0: the gradients are compared, the parameters stay put
+        state = TrainState(model, torch.optim.SGD(model.parameters(),
+                                                  lr=0.0))
+        b = dict(batch, image=batch["image"] * np.float32(images_scale))
+        m = step(state, on_device(b, device), use_3d)
+        return ({k: v.item() for k, v in m.items()},
+                {n: p.grad.detach().cpu() for n, p in
+                 model.named_parameters()},
+                {n: t.detach().cpu() for n, t in model.named_buffers()
+                 if "running" in n})
+
+    out = {}
+    for use_3d in (True, False):
+        cpu = one_step("cpu", use_3d)
+        err = _step_errors(one_step(dev, use_3d), cpu)
+        noise = _step_errors(one_step("cpu", use_3d, 1.0 + 1e-7), cpu)
+        label = "use_3d" if use_3d else "warmup"
+        print(f"# train card vs CPU, {label} step: "
+              + ", ".join(f"{k} {err[k]:.3g} (CPU noise {noise[k]:.3g})"
+                          for k in ("loss", "grad_norm", "grads",
+                                    "bn_stats"))
+              + f"; worst BN buffers {err['bn_worst']}")
+        require(err["loss"] <= CPU_LOSS_TOL,
+                f"{label} losses differ from the CPU's by {err['loss']:.3g} "
+                f"(bound {CPU_LOSS_TOL})")
+        for k in ("grad_norm", "grads", "bn_stats"):
+            bound = max(CPU_FLOOR, CPU_NOISE_X * noise[k])
+            require(err[k] <= bound,
+                    f"{label} {k} differs from the CPU's by {err[k]:.3g}, "
+                    f"beyond {CPU_NOISE_X} x the CPU's own noise "
+                    f"{noise[k]:.3g} (bound {bound:.3g})")
+        out[label] = {"card_vs_cpu": err, "cpu_noise": noise}
+    print(f"# train card vs CPU: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------ timing
 
 def time_softargmax(dev, gen):
@@ -334,6 +722,32 @@ def time_softargmax(dev, gen):
           f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by})")
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
+
+
+def time_softargmax_bwd(dev, gen):
+    """K2 at 64 images of 64x64x19 in the decoder's layout, fp32 (the
+    training path's type) and bf16. Bound: read the logits and g once,
+    write dh once; ~12 fp32 operations a logit."""
+    from fast3dhpe_tpu_torch.ops.heatmap import soft_argmax_bwd
+    from fast3dhpe_tpu_torch.ops.softargmax import soft_argmax_bwd_fused
+    n = 2 * TIMING_PAIRS
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        h = (torch.randn((n, 19, 64, 64), generator=gen) * 3).to(dt)
+        hm = h.to(dev).contiguous(memory_format=torch.channels_last).permute(
+            0, 2, 3, 1)
+        g = torch.randn((n, 19, 2), generator=gen).to(dev)
+        ms = cuda_ms(lambda: soft_argmax_bwd_fused(hm, g))
+        plain = cuda_ms(lambda: soft_argmax_bwd(hm, g))
+        nbytes = 2 * hm.numel() * hm.element_size() + g.numel() * 4
+        bound, by = bound_ms(nbytes, 12 * hm.numel(), FP32_FLOPS)
+        print(f"# K2 at {n} images ({dt} 64x64x19, channels_last): kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
+              f"({by}, {nbytes / 1e6:.1f} MB)")
+        out[str(dt).replace("torch.", "")] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+    return out
 
 
 def time_bottleneck(dev, gen):
@@ -383,6 +797,7 @@ def time_bottleneck(dev, gen):
 def time_serving(inf, dev):
     from fast3dhpe_tpu_torch.geometry.triangulation import (dlt_triangulate,
                                                             pinv_projection)
+    torch.cuda.reset_peak_memory_stats()
     rng = np.random.RandomState(SEED + 1)
     serving = {}
     for pairs in (1, 16, 32, 64):
@@ -406,15 +821,15 @@ def time_serving(inf, dev):
               f"{pairs / ms * 1e3:.1f} pairs/s; pinv + Jacobi DLT alone "
               f"{geo:.3f} ms ({100 * geo / ms:.0f}%)")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"# peak device memory {peak:.2f} GiB")
+    print(f"# peak device memory while serving {peak:.2f} GiB")
     return serving
 
 
+CONV_KERNELS = ("xmma", "cutlass", "nvjet", "cudnn", "gemm", "conv")
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel's name)
     ("K3 fused bottleneck", ("bottleneck_kernel",)),
     ("K1 soft-argmax", ("softargmax_fwd",)),
-    ("cuDNN/cuBLAS conv and matmul", ("xmma", "cutlass", "nvjet", "cudnn",
-                                      "gemm", "conv")),
+    ("cuDNN/cuBLAS conv and matmul", CONV_KERNELS),
     ("batch norm", ("batch_norm",)),
 )
 
@@ -456,13 +871,130 @@ def profile_serving(inf, dev, pairs, wall_ms, calls=3):
             "launches": launches // calls, "groups": groups}
 
 
+TRAIN_GROUPS = (  # (group, substrings of the CUDA kernel's name)
+    ("K1 soft-argmax", ("softargmax_fwd",)),
+    ("K2 soft-argmax backward", ("softargmax_bwd",)),
+    ("cuDNN/cuBLAS conv and matmul", CONV_KERNELS),
+)
+# CPU ranges whose kernels are train-mode BN: the forward, wrapped in a
+# record_function range while profiling, and the backward node
+BN_RANGES = ("train_bn", "MaskedBatchNormBackward")
+
+
+def profile_train(train, wall_ms):
+    """Device time of one use_3d train step by kernel group, and the
+    device's idle share against the unprofiled median step. Train-mode BN
+    runs as elementwise and reduction kernels, so it is told apart by the
+    CPU range that launched them: each kernel is linked to the CPU op that
+    launched it, and that op to the BN forward or backward range around it
+    on the same thread."""
+    import bisect
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from fast3dhpe_tpu_torch.models.layers import BatchNorm2d
+
+    def traced(self, *args, **kwargs):
+        with record_function("train_bn"):
+            return bn_forward(self, *args, **kwargs)
+
+    flops = []              # forward FLOPs of each convolution, from shapes
+
+    def count(mod, args, out):
+        if isinstance(mod, torch.nn.ConvTranspose2d):
+            x = args[0]             # every input pixel meets every tap
+            flops.append(2 * x.numel() * mod.out_channels
+                         * mod.weight[0, 0].numel())
+        else:
+            flops.append(2 * out.numel() * mod.weight[0].numel())
+
+    hooks = [m.register_forward_hook(count)
+             for m in train["state"].model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    bn_forward = BatchNorm2d.forward
+    BatchNorm2d.forward = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            train["step"](train["state"], train["batch"], True)
+            torch.cuda.synchronize()
+    finally:
+        BatchNorm2d.forward = bn_forward
+        for h in hooks:
+            h.remove()
+    # the backward takes the weight gradient and, for every convolution but
+    # the first (whose input is the images), the input gradient
+    conv_flop = 3 * sum(flops) - flops[0]
+
+    def group(name):
+        return next((g for g, subs in TRAIN_GROUPS
+                     if any(s in name for s in subs)), None)
+
+    events = prof.events()
+    groups = {g: 0.0 for g, _ in TRAIN_GROUPS}
+    rest, launches = 0.0, 0
+    for e in events:
+        # a record_function range also shows on the device's timeline
+        if (e.device_type == DeviceType.CUDA and e.name not in BN_RANGES
+                and not getattr(e, "is_user_annotation", False)):
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            launches += 1
+            g = group(e.name)
+            if g is None:
+                rest += ms
+            else:
+                groups[g] += ms
+    ranges = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and any(r in e.name
+                                                   for r in BN_RANGES):
+            ranges.setdefault(e.thread, []).append(
+                (e.time_range.start, e.time_range.end))
+    for thread, spans in ranges.items():     # the union of nested ranges
+        merged = []
+        for a, b in sorted(spans):
+            if merged and a <= merged[-1][1]:
+                merged[-1] = (merged[-1][0], max(merged[-1][1], b))
+            else:
+                merged.append((a, b))
+        ranges[thread] = merged
+    bn = linked = 0.0
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        spans = ranges.get(e.thread, [])
+        i = bisect.bisect_right(spans, (e.time_range.start, float("inf")))
+        in_bn = i > 0 and spans[i - 1][1] >= e.time_range.end
+        for k in e.kernels:
+            linked += k.duration / 1e3
+            if in_bn and group(k.name) is None:
+                bn += k.duration / 1e3
+    groups["train-mode BN (elementwise, reductions)"] = bn
+    groups["other (elementwise, copies, reductions, geometry)"] = rest - bn
+    busy = sum(groups.values())
+    require(busy > 0, "the profiler recorded no device time")
+    print(f"# profile train step ({TRAIN_PAIRS} pairs, use_3d): device busy "
+          f"{busy:.3f} ms of {wall_ms:.3f} ms wall (idle "
+          f"{100 * (1 - busy / wall_ms):.0f}%), {launches} kernel launches; "
+          f"{100 * linked / busy:.0f}% of device time linked to a CPU op")
+    for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"#   {name}: {ms:.3f} ms ({100 * ms / busy:.0f}%)")
+    conv_ms = groups["cuDNN/cuBLAS conv and matmul"]
+    print(f"# train step convolutions: {conv_flop / 1e12:.3f} TFLOP forward "
+          f"and backward, {conv_flop / conv_ms / 1e9:.1f} TFLOP/s in the "
+          f"cuDNN/cuBLAS group (fp32 peak {FP32_FLOPS / 1e12:.0f})")
+    return {"busy_ms": busy, "wall_ms": wall_ms, "launches": launches,
+            "linked_ms": linked, "groups": groups,
+            "conv_tflop": conv_flop / 1e12}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs a CUDA device")
     from fast3dhpe_tpu_torch.config import load_config
     from fast3dhpe_tpu_torch.ops._build import build
-    from fast3dhpe_tpu_torch.ops.softargmax import soft_argmax_fused
+    from fast3dhpe_tpu_torch.ops.softargmax import (soft_argmax_bwd_fused,
+                                                    soft_argmax_fused)
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -472,7 +1004,7 @@ def main():
     print(smi)
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    # fp32 references run in full fp32
+    # fp32 references and the fp32 train step run in full fp32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -485,39 +1017,77 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"# nvcc {name}: {line.strip()}")
     t0 = time.perf_counter()
-    soft_argmax_fused(torch.zeros((1, 64, 64, 19), device=dev))
+    z = torch.zeros((1, 64, 64, 19), device=dev)
+    soft_argmax_fused(z)
+    soft_argmax_bwd_fused(z, torch.zeros((1, 19, 2), device=dev))
     torch.cuda.synchronize()
     print(f"# build: nvcc {t_nvcc:.1f} s, Triton JIT "
           f"{time.perf_counter() - t0:.1f} s")
 
+    phases = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phases[name] = time.perf_counter() - t
+        return out
+
     gen = torch.Generator().manual_seed(SEED)
-    err_k1 = check_softargmax(dev, gen)
-    err_k3 = check_bottleneck(dev, gen)
+    err_k1 = phase("K1 check", check_softargmax, dev, gen)
+    err_k2 = phase("K2 check", check_softargmax_bwd, dev, gen)
+    err_k3 = phase("K3 check", check_bottleneck, dev, gen)
 
     cfg = load_config("configs/mads_3d.yaml")
-    inf, launches, _ = run_path(cfg, dev)
+    inf, serve_launches, _ = phase("serving path", run_path, cfg, dev)
+    k1 = phase("K1 timing", time_softargmax, dev, gen)
+    k2 = phase("K2 timing", time_softargmax_bwd, dev, gen)
+    k3 = phase("K3 timing", time_bottleneck, dev, gen)
+    serving = phase("serving timing", time_serving, inf, dev)
+    prof = phase("serving profile", profile_serving, inf, dev, TIMING_PAIRS,
+                 serving[TIMING_PAIRS]["ms"])
 
-    k1 = time_softargmax(dev, gen)
-    k3 = time_bottleneck(dev, gen)
-    serving = time_serving(inf, dev)
-    prof = profile_serving(inf, dev, TIMING_PAIRS,
-                           serving[TIMING_PAIRS]["ms"])
+    train = phase("training path", run_train, cfg, dev)
+    train_launches, train_summary = train["launches"], train["summary"]
+    train_prof = phase("train profile", profile_train, train,
+                       train["summary"]["step_ms"])
+    start_sd = train["start_sd"]
+    del inf, train
+    vs_cpu = phase("train card vs CPU", train_vs_cpu, cfg, start_sd, dev)
+
+    def launch_counts(key):
+        by_path = {"serving": serve_launches[key],
+                   "training": train_launches[key]}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
 
     kernels = [
         dict(name="soft_argmax_fwd", route="triton",
              source="fast3dhpe_tpu_torch/ops/softargmax.py",
              replaces="fast3dhpe_tpu/ops/pallas_softargmax.py:64",
-             launches=launches["soft_argmax"], max_abs_err=err_k1,
-             shape=f"({2 * TIMING_PAIRS}, 64, 64, 19) bf16", **k1),
+             max_abs_err=err_k1, shape=f"({2 * TIMING_PAIRS}, 64, 64, 19) bf16",
+             **launch_counts("soft_argmax"), **k1),
+        dict(name="soft_argmax_bwd", route="triton",
+             source="fast3dhpe_tpu_torch/ops/softargmax.py",
+             replaces="fast3dhpe_tpu/ops/pallas_softargmax.py:79",
+             max_abs_err=err_k2,
+             shape=f"({2 * TIMING_PAIRS}, 64, 64, 19) float32 (bf16: "
+                   f"bfloat16 key)",
+             **launch_counts("soft_argmax_bwd"), **k2["float32"],
+             bfloat16=k2["bfloat16"]),
         dict(name="fused_bottleneck", route="cuda",
              source="fast3dhpe_tpu_torch/csrc/fused_bottleneck.cu",
              replaces="fast3dhpe_tpu/ops/pallas_bottleneck.py:191",
-             launches=launches["fused_bottleneck"], max_abs_err=err_k3,
+             max_abs_err=err_k3,
              shape=(f"one forward's launches at {2 * TIMING_PAIRS} images: "
-                    f"layer1.0 + 3 x layer2.x"), **k3),
+                    f"layer1.0 + 3 x layer2.x"),
+             **launch_counts("fused_bottleneck"), **k3),
     ]
     print(json.dumps({"serving": {str(k): v for k, v in serving.items()},
                       "profile": prof}))
+    print(json.dumps({"train": train_summary, "train_profile": train_prof,
+                      "train_vs_cpu": vs_cpu}))
+    print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                       for k, v in phases.items()))
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """The part of the YAML config (the reference schema, as read by
-fast3dhpe_tpu/config.py) that the model and the inferencer read:
-MODEL.NAME / IMAGE_SIZE / NUM_JOINTS / NUM_LAYERS and
-MODEL.EXTRA.HEATMAP_SIZE / DLT_METHOD. Other keys are accepted and ignored.
+fast3dhpe_tpu/config.py) that the model, the inferencer and the train
+steps read: MODEL.NAME / IMAGE_SIZE / NUM_JOINTS / NUM_LAYERS,
+MODEL.EXTRA.HEATMAP_SIZE / DLT_METHOD, TRAIN.BATCH_SIZE / WARMUP / EPOCH /
+LR / LR_STEP / LR_FACTOR / LOSS_3D_WEIGHT and LOSS.USE_TARGET_WEIGHT /
+TYPE. Other keys are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -29,8 +31,27 @@ class ModelConfig:
 
 
 @dataclass
+class TrainConfig:
+    BATCH_SIZE: int = 32
+    WARMUP: int = 0          # 2D-only warmup epochs of the CDR loop
+    EPOCH: int = 50
+    LR: float = 1e-4
+    LR_STEP: List[int] = field(default_factory=lambda: [40])
+    LR_FACTOR: float = 0.1
+    LOSS_3D_WEIGHT: float = 4.0
+
+
+@dataclass
+class LossConfig:
+    USE_TARGET_WEIGHT: bool = True
+    TYPE: str = "JointsMSE"  # "JointsMSE" | "JointsMSESmooth" | "MPJPE"
+
+
+@dataclass
 class Config:
     MODEL: ModelConfig = field(default_factory=ModelConfig)
+    TRAIN: TrainConfig = field(default_factory=TrainConfig)
+    LOSS: LossConfig = field(default_factory=LossConfig)
 
 
 def _pick(cls, data):
@@ -39,9 +60,14 @@ def _pick(cls, data):
 
 
 def config_from_dict(data: dict) -> Config:
-    model = _pick(ModelConfig, (data or {}).get("MODEL"))
+    data = data or {}
+    model = _pick(ModelConfig, data.get("MODEL"))
     model["EXTRA"] = ExtraConfig(**_pick(ExtraConfig, model.get("EXTRA")))
-    cfg = Config(MODEL=ModelConfig(**model))
+    cfg = Config(MODEL=ModelConfig(**model),
+                 TRAIN=TrainConfig(**_pick(TrainConfig, data.get("TRAIN"))),
+                 LOSS=LossConfig(**_pick(LossConfig, data.get("LOSS"))))
+    if cfg.LOSS.TYPE not in ("JointsMSE", "JointsMSESmooth", "MPJPE"):
+        raise ValueError(f"Unknown LOSS.TYPE {cfg.LOSS.TYPE}")
     if cfg.MODEL.NUM_LAYERS not in (18, 34, 50, 101, 152):
         raise ValueError(f"NUM_LAYERS must be a ResNet depth, got "
                          f"{cfg.MODEL.NUM_LAYERS}")

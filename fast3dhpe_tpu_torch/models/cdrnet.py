@@ -14,7 +14,7 @@ from torch import nn
 from ..geometry.triangulation import dlt_triangulate, pinv_projection
 from ..ops.softargmax import soft_argmax_fused
 from .decoder import PoseDecoder
-from .layers import BatchNorm2d, Conv2d
+from .layers import BatchNorm2d, Conv2d, bn_row_mask, run_seq
 from .resnet import ResNetEncoder
 
 # CanonicalFusion widths and views, as the JAX package's defaults
@@ -55,19 +55,27 @@ class CanonicalFusion(nn.Module):
             nn.Sequential(*_conv_bn_relu(HID_CH1, in_dim))
             for _ in range(N_VIEWS))
 
-    def forward(self, zs, proj, proj_inv):
-        """zs: (B*V, C, h, w), view-major rows; proj (B, V, 3, 4);
-        proj_inv (B, V, 4, 3). Returns (B*V, C, h, w)."""
+    def forward(self, zs, proj, proj_inv, mask=None):
+        """zs: (B*V, C, h, w), rows b-major (row b * V + v); proj
+        (B, V, 3, 4); proj_inv (B, V, 4, 3); mask: the (B,) BN row mask
+        (layers.bn_row_mask) or None. Returns (B*V, C, h, w).
+
+        The view-stacked BN site (conv_layer1) takes the mask repeated per
+        view, b-major as the rows; conv_layer2 and out_layer take (B,).
+        """
         B, V = proj.shape[:2]
-        x = self.conv_layer1(zs)
+        mask_bv = None if mask is None else mask.repeat_interleave(V, dim=0)
+        x = run_seq(self.conv_layer1, zs, mask_bv)
         z = ftl(x, proj_inv.reshape(B * V, 4, 3), HID_CH1 // 3)
         # concat the views along channels, view-major (cdrnet.py:104-106)
         z = z.reshape(B, V * HID_CH2, *z.shape[2:])
-        f = self.conv_layer2(z.contiguous(memory_format=torch.channels_last))
+        f = run_seq(self.conv_layer2,
+                    z.contiguous(memory_format=torch.channels_last), mask)
         back = ftl(f.repeat_interleave(V, dim=0), proj.reshape(B * V, 3, 4),
                    HID_CH2 // 4)
         back = back.unflatten(0, (B, V))
-        outs = [self.out_layer[i](back[:, i]) for i in range(V)]
+        outs = [run_seq(self.out_layer[i], back[:, i], mask)
+                for i in range(V)]
         out = torch.stack(outs, dim=1).flatten(0, 1)
         return out.contiguous(memory_format=torch.channels_last)
 
@@ -77,7 +85,9 @@ class CDRNet(nn.Module):
     -> pred_2d (B, V, J, 2) image pixels, pred_3d (B, J, 3).
 
     Parameters are fp32; `dtype` is the compute dtype of the encoder,
-    fusion and decoder. The decode and the geometry run in fp32.
+    fusion and decoder. The decode and the geometry run in fp32. In train
+    mode (`.train()`) every BN takes batch statistics over the valid rows
+    of `row_valid`; training runs in fp32 only.
     """
 
     def __init__(self, num_joints=19, num_layers=101, dlt_method="jacobi",
@@ -98,8 +108,10 @@ class CDRNet(nn.Module):
                    dlt_method=cfg.MODEL.EXTRA.DLT_METHOD,
                    fused_inference=fused_inference, dtype=dtype)
 
-    def forward(self, imgs, projs, return_heatmaps: bool = False):
-        """imgs (B, V, H, W, 3) normalised; projs (B, V, 3, 4).
+    def forward(self, imgs, projs, return_heatmaps: bool = False,
+                row_valid=None):
+        """imgs (B, V, H, W, 3) normalised; projs (B, V, 3, 4); row_valid
+        optional (B,) 0/1, read by train-mode BN only.
 
         Returns (pred_2d, pred_3d), plus the raw heatmaps (B, V, h, w, J)
         in the compute dtype with return_heatmaps=True.
@@ -107,12 +119,16 @@ class CDRNet(nn.Module):
         B, V, H, W, _ = imgs.shape
         if V != N_VIEWS:
             raise ValueError(f"expected {N_VIEWS} views, got {V}")
+        mask = bn_row_mask(row_valid)                  # (B,)
+        # the views are stacked b-major, so the mask repeats per view
+        # (jnp.repeat(mask, V, axis=0)), not tiled
+        mask_bv = None if mask is None else mask.repeat_interleave(V, dim=0)
         projs = projs.float()
         x = imgs.reshape(B * V, H, W, 3).to(self.dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
-        z = self.encoder(x)
-        fused = self.CF(z, projs, pinv_projection(projs))
-        h = self.decoder(fused)                        # (B*V, J, hh, hw)
+        z = self.encoder(x, mask_bv)
+        fused = self.CF(z, projs, pinv_projection(projs), mask)
+        h = self.decoder(fused, mask_bv)               # (B*V, J, hh, hw)
         hm = h.permute(0, 2, 3, 1)                     # (B*V, hh, hw, J)
         kp = soft_argmax_fused(hm) * (H / hm.shape[1])
         kp = kp.reshape(B, V, self.num_joints, 2)

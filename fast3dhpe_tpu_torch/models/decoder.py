@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import BatchNorm2d, Conv2d, ConvTranspose2d
+from .layers import BatchNorm2d, Conv2d, ConvTranspose2d, run_seq
 
 
 class PoseDecoder(nn.Module):
@@ -21,7 +21,8 @@ class PoseDecoder(nn.Module):
             ch = num_deconv_filters
         self.final_layer = Conv2d(ch, num_joints, 1, 1, 0, bias=True)
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
+        """mask: the (B,) BN row mask (layers.bn_row_mask) of x's rows."""
         for i in (1, 2, 3):
-            x = torch.relu(getattr(self, f"deconv{i}")(x))
+            x = torch.relu(run_seq(getattr(self, f"deconv{i}"), x, mask))
         return self.final_layer(x)

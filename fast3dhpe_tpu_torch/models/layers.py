@@ -7,6 +7,9 @@ its bias in bf16; eval-mode BN computes in fp32 from the bf16 input and
 rounds once. (Autocast would keep BN in fp32 and round elsewhere.)
 
 Activations are NCHW tensors in channels_last memory, so cuDNN runs NHWC.
+
+Train mode follows the module's `.training` flag; the BN row mask (padded
+loader rows) is passed explicitly to every BatchNorm2d.
 """
 
 from __future__ import annotations
@@ -29,17 +32,110 @@ class Conv2d(nn.Conv2d):
         return y
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d(eps=1e-5) with running statistics: fp32 arithmetic, the
-    result in x.dtype."""
+def bn_row_mask(row_valid):
+    """(B,) 0/1 row validity -> the (B,) fp32 BN mask (layers.py:47-64).
 
-    def forward(self, x):
-        if self.training:
+    Padded loader rows stay out of train-mode batch statistics. An
+    all-invalid mask falls back to the whole batch instead of empty-set NaN
+    statistics. No host sync: the fallback is a tensor op.
+    """
+    if row_valid is None:
+        return None
+    m = torch.as_tensor(row_valid) > 0
+    return (m | ~m.any()).float()
+
+
+class _MaskedBatchNorm(torch.autograd.Function):
+    """Train-mode BN over NCHW with batch statistics from the masked rows,
+    as flax's BatchNorm computes them with `mask=` (flax 0.12.3
+    `_compute_stats`, `_normalize`): fp32 mean and E[x^2] over the valid
+    rows x H x W, var = max(E[x^2] - E[x]^2, 0), then
+    y = (x - mean) * (rsqrt(var + eps) * weight) + bias over every row.
+
+    The backward is the closed form of that expression, gradients through
+    the batch statistics included. It saves the input and per-channel
+    vectors only, as the native BN does.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mask, eps):
+        B, C, H, W = x.shape
+        dims = (0, 2, 3)
+        if mask is None:
+            count = B * H * W
+            mean = x.sum(dims) / count
+            mu2 = (x * x).sum(dims) / count
+        else:
+            xm = x * mask.view(B, 1, 1, 1)
+            count = mask.sum() * (H * W)
+            mean = xm.sum(dims) / count
+            mu2 = (xm * x).sum(dims) / count
+        var_raw = mu2 - mean * mean
+        var = var_raw.clamp_min(0.0)
+        r = torch.rsqrt(var + eps)
+        y = ((x - mean.view(1, C, 1, 1)) * (r * weight).view(1, C, 1, 1)
+             + bias.view(1, C, 1, 1))
+        ctx.save_for_backward(x, weight, mean, r, var_raw > 0, mask)
+        ctx.count = count
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, r, var_pos, mask = ctx.saved_tensors
+        B, C, H, W = x.shape
+        dims = (0, 2, 3)
+
+        def ch(v):
+            return v.view(1, C, 1, 1)
+
+        s = (dy * (x - ch(mean))).sum(dims)
+        dbias = dy.sum(dims)
+        dweight = s * r
+        g = weight * r
+        # through var = max(mu2 - mean^2, 0) into mean and mu2 = E[x^2]
+        dvar = torch.where(var_pos, -0.5 * s * weight * r * r * r, 0.0)
+        dmean = -dbias * g - 2.0 * mean * dvar
+        stat = ch(dmean / ctx.count) + x * ch(2.0 * dvar / ctx.count)
+        if mask is not None:
+            stat = stat * mask.view(B, 1, 1, 1)
+        return dy * ch(g) + stat, dweight, dbias, None, None
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d(eps=1e-5, momentum=0.1) with running statistics.
+
+    Eval mode: fp32 arithmetic from the running statistics, the result in
+    x.dtype. Train mode (fp32 only): batch statistics over the rows that
+    `mask` (bn_row_mask) marks valid, and running = 0.9 * running + 0.1 *
+    batch with the biased batch variance, as flax updates it.
+    `num_batches_tracked` is kept for the state-dict keys and not used.
+    """
+
+    def forward(self, x, mask=None):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        if x.dtype != torch.float32:
             raise NotImplementedError(
-                "train-mode BatchNorm (masked batch statistics) is not "
-                "ported yet; call .eval()")
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+                f"train-mode BatchNorm on {x.dtype}: bf16 training is not "
+                f"ported yet (ROADMAP A, item 12b); train in float32")
+        y, mean, var = _MaskedBatchNorm.apply(x, self.weight, self.bias,
+                                              mask, self.eps)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                self.momentum * var)
+        return y
+
+
+def run_seq(seq: nn.Sequential, x, mask=None):
+    """Apply an nn.Sequential, handing the BN row mask to its BatchNorm2d
+    children (Sequential itself passes one argument)."""
+    for m in seq:
+        x = m(x, mask) if isinstance(m, BatchNorm2d) else m(x)
+    return x
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

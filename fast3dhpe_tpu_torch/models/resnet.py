@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..ops.bottleneck import fold_bn, fused_bottleneck
-from .layers import BatchNorm2d, Conv2d, max_pool
+from .layers import BatchNorm2d, Conv2d, max_pool, run_seq
 
 # depth -> (block type, blocks per stage)
 RESNET_SPEC = {
@@ -45,10 +45,11 @@ class BasicBlock(nn.Module):
         self.downsample = (_downsample(inplanes, planes, stride)
                            if downsample else None)
 
-    def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        residual = x if self.downsample is None else self.downsample(x)
+    def forward(self, x, mask=None):
+        out = torch.relu(self.bn1(self.conv1(x), mask))
+        out = self.bn2(self.conv2(out), mask)
+        residual = (x if self.downsample is None
+                    else run_seq(self.downsample, x, mask))
         return torch.relu(out + residual)
 
 
@@ -100,13 +101,14 @@ class Bottleneck(nn.Module):
         return fused_bottleneck(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
                                 wd, sd, bd)
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         if self.fusable(x.shape[2], x.shape[3], x.dtype):
             return self._fused(x)
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
+        out = torch.relu(self.bn1(self.conv1(x), mask))
+        out = torch.relu(self.bn2(self.conv2(out), mask))
+        out = self.bn3(self.conv3(out), mask)
+        residual = (x if self.downsample is None
+                    else run_seq(self.downsample, x, mask))
         return torch.relu(out + residual)
 
 
@@ -156,8 +158,9 @@ class ResNetEncoder(nn.Module):
             H, W = (_conv_out(d, 3, blk.stride, 1) for d in (H, W))
         return names
 
-    def forward(self, x):
-        x = max_pool(torch.relu(self.bn1(self.conv1(x))))
+    def forward(self, x, mask=None):
+        """mask: the (B,) BN row mask (layers.bn_row_mask) of x's rows."""
+        x = max_pool(torch.relu(self.bn1(self.conv1(x), mask)))
         for _, blk in self.blocks():
-            x = blk(x)
+            x = blk(x, mask)
         return x
