@@ -6,7 +6,9 @@
    CUDA sources, Triton's JIT for the Triton kernels), timing the build.
 2. Kernel phase: holds each kernel (K1 soft-argmax forward, K2 its
    backward, K3 fused bottleneck) against its plain PyTorch version on the
-   card, at the shapes the main paths give it and at batch 32 pairs.
+   card, at the shapes the main paths give it and at batch 32 pairs; K3
+   also at batch 1 pair, at layer1.1 and on a plane that is not a multiple
+   of its tile.
 3. Serving path: three requests of four uint8 stereo pairs through
    `CDRNetInferencer.predict_batch` at the width of configs/mads_3d.yaml
    (CDRNet-101, 256 px, 19 joints), bf16 with fused_inference=True, from
@@ -14,8 +16,11 @@
    launched K1 once, K2 never and K3 once per fused block, and one request
    against the same module on the CPU.
 4. Times each kernel beside its bound, its plain version and its library
-   comparison, predict_batch at batch 1-64 and the geometry's share, and
-   splits a request's device time by kernel group (torch.profiler).
+   comparison (K3 also at batch 1 pair and at layer1.1, which the gate
+   leaves unfused, with its TFLOP/s and share of the bound; it fails if K3
+   is not faster than the unfused cuDNN block at the main path's shapes),
+   predict_batch at batch 1-64 and the geometry's share, and splits a
+   request's device time by kernel group (torch.profiler).
 5. Training path: four CDR train steps (two warmup, two with the 3D loss)
    of CDRNet-101 at full width, fp32, on a synthetic batch of 32 pairs with
    4 padded rows. Checks finite metrics, the loss arithmetic, that the
@@ -33,6 +38,7 @@ It needs one CUDA device. Without one, or when any phase fails, it exits
 non-zero and prints no result.
 """
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -215,8 +221,10 @@ def check_softargmax_bwd(dev, gen):
 
 def bottleneck_case(gen, dev, n, cin, planes, downsample, hw):
     """Random bf16 block inputs with b1 > 0, so that a halo taken from
-    relu(b1) instead of 0 shows at the image border."""
+    relu(b1) instead of 0 shows at the image border. hw: H (square) or
+    (H, W)."""
     cout = 4 * planes
+    h, w = (hw, hw) if isinstance(hw, int) else hw
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen) * scale
@@ -224,7 +232,7 @@ def bottleneck_case(gen, dev, n, cin, planes, downsample, hw):
     def pos(c, lo, hi):
         return torch.rand(c, generator=gen) * (hi - lo) + lo
 
-    x = rnd(n, cin, hw, hw)
+    x = rnd(n, cin, h, w)
     args = [rnd(cin, planes, scale=cin ** -0.5), pos(planes, 0.5, 1.5),
             pos(planes, 0.5, 1.5),
             rnd(3, 3, planes, planes, scale=(9 * planes) ** -0.5),
@@ -247,40 +255,62 @@ BLOCK_SHAPES = {  # name -> (Cin, P, downsample, H) on the main path at 256 px
     "layer1.0": (64, 64, True, 64),
     "layer2.x": (512, 128, False, 32),
 }
+# measured beside them, off the main path: layer1.1, which the gate leaves
+# unfused at 256 px (exactly 13 MiB by the JAX VMEM estimate), and a plane
+# that is not a multiple of the 8x16 tile in either direction
+LAYER11 = (256, 64, False, 64)
+RAGGED = (64, 64, True, (36, 44))
 
 
 def check_bottleneck(dev, gen):
     """K3 against its plain version (same rounding points) at the two block
-    shapes that fuse at 256 px."""
+    shapes that fuse at 256 px, at 2, 8 and 64 images; at layer1.1; on a
+    ragged plane, through the entry the model serves and the timing runs
+    (weights packed once). Also holds ops/bottleneck.py's shared-memory
+    formula against the kernel's own."""
+    from fast3dhpe_tpu_torch.ops._build import load_library
     from fast3dhpe_tpu_torch.ops.bottleneck import (bottleneck_plain,
-                                                    fused_bottleneck)
+                                                    fused_bottleneck_packed,
+                                                    pack_weights, smem_bytes)
+    kernel_smem = load_library("fused_bottleneck").fused_bottleneck_smem_bytes
+    kernel_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    kernel_smem.restype = ctypes.c_int
+    for planes in (64, 128, 256):
+        for ds in (False, True):
+            got = kernel_smem(planes, int(ds))
+            require(got == smem_bytes(planes, ds),
+                    f"K3 shared memory at P={planes}, downsample={ds}: the "
+                    f"kernel says {got}, ops/bottleneck.py "
+                    f"{smem_bytes(planes, ds)}")
     # both sum in fp32 in different orders, so a value next to a bf16
     # rounding boundary can round to the other neighbour in h1, h2, h3 or
     # the output: a few elements differ by a few bf16 ulps (2^-7 relative),
     # the mean barely moves. A wrong halo moves every border pixel by
     # ~relu(b1)-sized terms and fails the mean bound.
     max_rel, mean_rel = 2.0 ** -5, 2.0 ** -11
+    cases = [(name, n, shape) for name, shape in BLOCK_SHAPES.items()
+             for n in (2, 2 * PAIRS, 2 * TIMING_PAIRS)]
+    cases += [("layer1.1", 2 * PAIRS, LAYER11), ("ragged 36x44", 2, RAGGED)]
     err = 0.0
-    for name, (cin, planes, ds, hw) in BLOCK_SHAPES.items():
-        for n in (2 * PAIRS, 2 * TIMING_PAIRS):
-            x, args = bottleneck_case(gen, dev, n, cin, planes, ds, hw)
-            got = fused_bottleneck(x, *args).float()
-            ref = bottleneck_plain(x, *args).float()
-            torch.cuda.synchronize()
-            scale = ref.abs().max().item()
-            d = (got - ref).abs()
-            border = torch.cat([d[:, :, 0], d[:, :, -1], d[:, :, :, 0],
-                                d[:, :, :, -1]], dim=-1)
-            print(f"# K3 {name} n={n}: max|d| {d.max().item():.4g}, "
-                  f"mean|d| {d.mean().item():.3g}, border mean "
-                  f"{border.mean().item():.3g}, max|ref| {scale:.4g}")
-            require(d.max().item() <= max_rel * scale
-                    and d.mean().item() <= mean_rel * scale
-                    and border.mean().item() <= mean_rel * scale,
-                    f"fused bottleneck {name} (n={n}) differs from its plain "
-                    f"version beyond max {max_rel} / mean {mean_rel} of "
-                    f"max|ref|")
-            err = max(err, d.max().item())
+    for name, n, (cin, planes, ds, hw) in cases:
+        x, args = bottleneck_case(gen, dev, n, cin, planes, ds, hw)
+        got = fused_bottleneck_packed(x, pack_weights(*args)).float()
+        ref = bottleneck_plain(x, *args).float()
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        d = (got - ref).abs()
+        border = torch.cat([d[:, :, 0].flatten(), d[:, :, -1].flatten(),
+                            d[:, :, :, 0].flatten(), d[:, :, :, -1].flatten()])
+        print(f"# K3 {name} n={n}: max|d| {d.max().item():.4g}, "
+              f"mean|d| {d.mean().item():.3g}, border mean "
+              f"{border.mean().item():.3g}, max|ref| {scale:.4g}")
+        require(d.max().item() <= max_rel * scale
+                and d.mean().item() <= mean_rel * scale
+                and border.mean().item() <= mean_rel * scale,
+                f"fused bottleneck {name} (n={n}) differs from its plain "
+                f"version beyond max {max_rel} / mean {mean_rel} of "
+                f"max|ref|")
+        err = max(err, d.max().item())
     print(f"# K3 fused bottleneck: max |kernel - plain| = {err:.4g}")
     return err
 
@@ -750,47 +780,77 @@ def time_softargmax_bwd(dev, gen):
     return out
 
 
-def time_bottleneck(dev, gen):
+def _time_block(dev, gen, n, cin, planes, ds, hw, plain=False):
+    """K3 at one shape with its weights packed once (as the model runs
+    it), beside the unfused block on cuDNN: the port's Bottleneck module,
+    bf16, BN in eval mode. Bound: x and the weights read once, the output
+    written once; the block's FLOPs at the bf16 tensor-core peak."""
     from fast3dhpe_tpu_torch.models.resnet import Bottleneck
     from fast3dhpe_tpu_torch.ops.bottleneck import (bottleneck_plain,
-                                                    fused_bottleneck)
+                                                    fused_bottleneck_packed,
+                                                    pack_weights)
+    x, args = bottleneck_case(gen, dev, n, cin, planes, ds, hw)
+    packed = pack_weights(*args)
+    cout = 4 * planes
+    ms = cuda_ms(lambda: fused_bottleneck_packed(x, packed))
+    blk = Bottleneck(cin, planes, 1, ds).to(dev).eval()
+    with torch.inference_mode():
+        lib = cuda_ms(lambda: blk(x))
+    flops = 2 * n * hw * hw * planes * (
+        cin + 9 * planes + cout + (cin * cout // planes if ds else 0))
+    wbytes = 2 * (cin * planes + 9 * planes * planes + planes * cout
+                  + (cin * cout if ds else 0))
+    nbytes = 2 * n * hw * hw * (cin + cout) + wbytes
+    bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    out = {"n": n, "ms": ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": lib, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+           "tflops": flops / ms / 1e9, "share_of_bound": bound / ms}
+    if plain:
+        out["plain_ms"] = cuda_ms(lambda: bottleneck_plain(x, *args), iters=5)
+    return out
+
+
+def time_bottleneck(dev, gen):
+    """K3 at the forward's launches at 64 images (layer1.0 + 3 x
+    layer2.x), at batch 1 pair (2 images), and at layer1.1, which the gate
+    leaves unfused."""
     n = 2 * TIMING_PAIRS
     per_forward = {"layer1.0": 1, "layer2.x": 3}
     parts, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                         "library_ms": 0.0}
     bytes_t = ops_t = 0.0
+    extra = {}
+
+    def show(name, t):
+        print(f"# K3 {name} at {t['n']} images: kernel {t['ms']:.4f} ms "
+              f"({t['tflops']:.1f} TFLOP/s, {100 * t['share_of_bound']:.1f}% "
+              f"of the bound), unfused cuDNN block {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+              f"{t['gflop']:.2f} GFLOP, {t['mbytes']:.1f} MB)"
+              + (f", plain {t['plain_ms']:.4f} ms" if "plain_ms" in t
+                 else ""))
+
     for name, (cin, planes, ds, hw) in BLOCK_SHAPES.items():
-        x, args = bottleneck_case(gen, dev, n, cin, planes, ds, hw)
-        cout = 4 * planes
-        ms = cuda_ms(lambda: fused_bottleneck(x, *args))
-        plain = cuda_ms(lambda: bottleneck_plain(x, *args), iters=5)
-        # the unfused block as cuDNN runs it without the kernel: the port's
-        # Bottleneck module, bf16, BN in eval mode
-        blk = Bottleneck(cin, planes, 1, ds).to(dev).eval()
-        with torch.inference_mode():
-            lib = cuda_ms(lambda: blk(x))
-        flops = 2 * n * hw * hw * planes * (
-            cin + 9 * planes + cout + (cin * cout // planes if ds else 0))
-        wbytes = 2 * (cin * planes + 9 * planes * planes + planes * cout
-                      + (cin * cout if ds else 0))
-        nbytes = 2 * n * hw * hw * (cin + cout) + wbytes
-        bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        t = _time_block(dev, gen, n, cin, planes, ds, hw, plain=True)
+        show(name, t)
+        require(t["ms"] < t["library_ms"],
+                f"K3 {name} at {n} images takes {t['ms']:.4f} ms, the "
+                f"unfused cuDNN block {t['library_ms']:.4f} ms")
         k = per_forward[name]
-        bytes_t += k * nbytes / HBM_BPS * 1e3
-        ops_t += k * flops / BF16_FLOPS * 1e3
-        for key, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
-                         ("library_ms", lib)):
-            total[key] += k * val
-        parts.append({"block": name, "per_forward": k, "ms": ms,
-                      "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                      "library_ms": lib, "gflop": flops / 1e9,
-                      "mbytes": nbytes / 1e6})
-        print(f"# K3 {name} at {n} images: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, unfused cuDNN block {lib:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB)")
+        bytes_t += k * t["mbytes"] * 1e6 / HBM_BPS * 1e3
+        ops_t += k * t["gflop"] * 1e9 / BF16_FLOPS * 1e3
+        for key in total:
+            total[key] += k * t[key]
+        parts.append(dict(block=name, per_forward=k, **t))
+        t1 = _time_block(dev, gen, 2, cin, planes, ds, hw)
+        show(name, t1)
+        extra[f"{name} batch 1 pair"] = t1
+    t = _time_block(dev, gen, n, *LAYER11)
+    show("layer1.1 (unfused by the gate)", t)
+    extra["layer1.1"] = t
     total["bound_by"] = "bytes" if bytes_t >= ops_t else "operations"
     total["parts"] = parts
+    total["measured_only"] = extra
     return total
 
 

@@ -13,7 +13,8 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
-from ..ops.bottleneck import fold_bn, fused_bottleneck
+from ..ops.bottleneck import (PackedBottleneck, fold_bn,
+                              fused_bottleneck_packed, pack_weights)
 from .layers import BatchNorm2d, Conv2d, max_pool, run_seq
 
 # depth -> (block type, blocks per stage)
@@ -70,6 +71,7 @@ class Bottleneck(nn.Module):
         self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = (_downsample(inplanes, planes * 4, stride)
                            if downsample else None)
+        self._k3_packed = None      # (key, storages, PackedBottleneck)
 
     def fusable(self, H: int, W: int, dtype) -> bool:
         """The fused-kernel gate: whether an input of this spatial size and
@@ -83,23 +85,53 @@ class Bottleneck(nn.Module):
         vmem = 2 * H * W * (2 * cin + 2 * 4 * P + 9 * P + P)
         return vmem < 13 * 2 ** 20 and H * W >= 1024
 
-    def _fused(self, x):
+    def _k3_sources(self):
+        mods = [self.conv1, self.bn1, self.conv2, self.bn2, self.conv3,
+                self.bn3] + (list(self.downsample) if self.downsample
+                             is not None else [])
+        return [t for m in mods for t in (m.weight, getattr(m, "bias", None),
+                                          getattr(m, "running_mean", None),
+                                          getattr(m, "running_var", None))
+                if t is not None]
+
+    def packed_weights(self, device) -> PackedBottleneck:
+        """The fused kernel's weights on `device`: BNs folded, weights in
+        the JAX layouts, packed (ops/bottleneck.py pack_weights). Built once
+        and kept while every source tensor keeps its (data_ptr, _version).
+        The cache holds the sources' storages, so no new tensor can take
+        one of their addresses while it lives: load_state_dict, an in-place
+        edit, .to() or a dtype round trip rebuilds it. An edit made through
+        `.data` has a version counter of its own and is not seen: edit the
+        parameter itself, under torch.no_grad()."""
+        sources = self._k3_sources()
+        key = (torch.device(device),) + tuple(
+            (t.data_ptr(), t._version) for t in sources)
+        if self._k3_packed is not None and self._k3_packed[0] == key:
+            return self._k3_packed[2]
+
         def folded(bn):
             return fold_bn(bn.weight, bn.bias, bn.running_mean,
                            bn.running_var, bn.eps)
 
-        s1, b1 = folded(self.bn1)
-        s2, b2 = folded(self.bn2)
-        s3, b3 = folded(self.bn3)
-        w1 = self.conv1.weight[:, :, 0, 0].t()              # (Cin, P)
-        w2 = self.conv2.weight.permute(2, 3, 1, 0)          # (3, 3, P, P)
-        w3 = self.conv3.weight[:, :, 0, 0].t()              # (P, 4P)
-        wd = sd = bd = None
-        if self.downsample is not None:
-            wd = self.downsample[0].weight[:, :, 0, 0].t()  # (Cin, 4P)
-            sd, bd = folded(self.downsample[1])
-        return fused_bottleneck(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
-                                wd, sd, bd)
+        with torch.no_grad():
+            s1, b1 = folded(self.bn1)
+            s2, b2 = folded(self.bn2)
+            s3, b3 = folded(self.bn3)
+            w1 = self.conv1.weight[:, :, 0, 0].t()          # (Cin, P)
+            w2 = self.conv2.weight.permute(2, 3, 1, 0)      # (3, 3, P, P)
+            w3 = self.conv3.weight[:, :, 0, 0].t()          # (P, 4P)
+            wd = sd = bd = None
+            if self.downsample is not None:
+                wd = self.downsample[0].weight[:, :, 0, 0].t()  # (Cin, 4P)
+                sd, bd = folded(self.downsample[1])
+            packed = pack_weights(w1, s1, b1, w2, s2, b2, w3, s3, b3, wd, sd,
+                                  bd, device=device)
+        self._k3_packed = (key, [t.untyped_storage() for t in sources],
+                           packed)
+        return packed
+
+    def _fused(self, x):
+        return fused_bottleneck_packed(x, self.packed_weights(x.device))
 
     def forward(self, x, mask=None):
         if self.fusable(x.shape[2], x.shape[3], x.dtype):

@@ -1,4 +1,5 @@
-"""Fused eval-mode ResNet Bottleneck: wrapper, plain version, BN folding.
+"""Fused eval-mode ResNet Bottleneck: wrapper, plain version, BN folding,
+weight packing.
 
 Port of fast3dhpe_tpu/ops/pallas_bottleneck.py. The kernel is
 csrc/fused_bottleneck.cu (CUDA C++ for sm_90a, built by ops/_build.py); it
@@ -7,14 +8,19 @@ The TPU kernel's `conv2_mode` and `samples_per_cell` choose between VMEM
 layouts of the same function, so the port has neither.
 
 Weights keep the JAX package's layouts: w1 (Cin, P), w2 (3, 3, P, P) HWIO,
-w3 (P, 4P), wd (Cin, 4P). Activations are NCHW tensors in channels_last
-memory, i.e. NHWC bytes, as the kernel reads them.
+w3 (P, 4P), wd (Cin, 4P). The kernel reads them packed into one bf16
+buffer and the folded BNs into one fp32 buffer (`pack_weights`, index map
+`weight_layout`); `models/resnet.py` packs once per weight version.
+Activations are NCHW tensors in channels_last memory, i.e. NHWC bytes, as
+the kernel reads them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +28,16 @@ import torch.nn.functional as F
 from ._build import load_library
 
 _SMEM_LIMIT = 232448          # bytes of shared memory one H100 block may use
+# the kernel's tiling (the constants of csrc/fused_bottleneck.cu, which a
+# CPU test holds these against): an 8x16 output tile and its 10x18 halo,
+# conv1 in passes of 96 halo rows, K in chunks of 32 through a 3-stage
+# ring, the residual and conv3 in passes of 128 channels, shared-memory
+# rows padded by 8 bf16
+_TILE_PIX, _HALO_PIX, _ROWS1, _KC, _STAGES, _N3, _PAD = (128, 180, 96, 32, 3,
+                                                        128, 8)
+_RULES = ("Cin % 32 == 0", "P == 64 or P % 128 == 0", "Cout % 128 == 0",
+          "Cin == Cout without a downsample", "1 <= B <= 65535",
+          f"shared memory <= {_SMEM_LIMIT} bytes")
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
@@ -63,6 +79,110 @@ def bottleneck_plain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
     return torch.relu(h3 + r)
 
 
+def smem_bytes(planes: int, downsample: bool) -> int:
+    """Dynamic shared memory of one launch (the kernel's `smem_bytes`):
+    the h1 tile, or later the output tile and the downsample's ring of x
+    chunks; conv1's ring of x chunks, or later the h2 tile; the ring of
+    weight chunks."""
+    ldp = planes + _PAD
+    a_stage, b_stage = _TILE_PIX * (_KC + _PAD), _KC * (_N3 + _PAD)
+    r1 = max(_HALO_PIX * ldp, _TILE_PIX * (_N3 + _PAD)
+             + (_STAGES * a_stage if downsample else 0))
+    r2 = max(_TILE_PIX * ldp, _STAGES * _ROWS1 * (_KC + _PAD))
+    return 2 * (r1 + r2 + _STAGES * b_stage)
+
+
+def check_launch(batch: int, cin: int, planes: int, cout: int,
+                 downsample: bool) -> int:
+    """The kernel's rules on a block's sizes. Returns the launch's dynamic
+    shared memory in bytes; raises ValueError naming every rule and the
+    ones broken."""
+    smem = smem_bytes(planes, downsample)
+    ok = (cin % _KC == 0, planes == 64 or (planes > 0 and planes % 128 == 0),
+          cout % _N3 == 0, downsample or cin == cout, 1 <= batch <= 65535,
+          smem <= _SMEM_LIMIT)
+    if not all(ok):
+        broken = [r for r, good in zip(_RULES, ok) if not good]
+        raise ValueError(
+            f"fused_bottleneck: the kernel needs {', '.join(_RULES)}; got "
+            f"B={batch} Cin={cin} P={planes} Cout={cout} "
+            f"downsample={downsample}, {smem} bytes of shared memory; "
+            f"broken: {', '.join(broken)}")
+    return smem
+
+
+def weight_layout(cin: int, planes: int, cout: int, downsample: bool
+                  ) -> Tuple[Dict[str, Tuple[int, tuple]],
+                             Dict[str, Tuple[int, int]]]:
+    """The packed buffers' index map: name -> (offset, JAX shape) in the
+    bf16 weight buffer, and name -> (offset, length) in the fp32 buffer of
+    folded BNs. w2 (3, 3, P, P) HWIO is the kernel's (9 P, P) with rows
+    (ky, kx, cin)."""
+    shapes = {"w1": (cin, planes), "w2": (3, 3, planes, planes),
+              "w3": (planes, cout)}
+    lengths = {"s1": planes, "b1": planes, "s2": planes, "b2": planes,
+               "s3": cout, "b3": cout}
+    if downsample:
+        shapes["wd"] = (cin, cout)
+        lengths.update(sd=cout, bd=cout)
+    weights, vectors, off = {}, {}, 0
+    for name, shape in shapes.items():
+        weights[name] = (off, shape)
+        off += int(torch.Size(shape).numel())
+    off = 0
+    for name, n in lengths.items():
+        vectors[name] = (off, n)
+        off += n
+    return weights, vectors
+
+
+@dataclass(frozen=True)
+class PackedBottleneck:
+    """A block's weights as the kernel reads them: `w` bf16 and `sb` fp32,
+    laid out by `weight_layout`."""
+    w: torch.Tensor
+    sb: torch.Tensor
+    cin: int
+    planes: int
+    cout: int
+    downsample: bool
+
+    def unpack(self) -> Dict[str, torch.Tensor]:
+        """Views of every weight (JAX layout) and folded-BN vector, read
+        back through the index map."""
+        weights, vectors = weight_layout(self.cin, self.planes, self.cout,
+                                         self.downsample)
+        out = {name: self.w[off:off + torch.Size(shape).numel()].view(shape)
+               for name, (off, shape) in weights.items()}
+        out.update({name: self.sb[off:off + n]
+                    for name, (off, n) in vectors.items()})
+        return out
+
+    def args(self):
+        """(w1, s1, b1, w2, s2, b2, w3, s3, b3, wd, sd, bd), as
+        `bottleneck_plain` takes them."""
+        u = self.unpack()
+        return tuple(u.get(k) for k in ("w1", "s1", "b1", "w2", "s2", "b2",
+                                        "w3", "s3", "b3", "wd", "sd", "bd"))
+
+
+def pack_weights(w1, s1, b1, w2, s2, b2, w3, s3, b3, wd=None, sd=None,
+                 bd=None, device=None) -> PackedBottleneck:
+    """Pack a block's weights (JAX layouts) and folded BNs for the kernel,
+    on `device` (default: w1's)."""
+    device = w1.device if device is None else device
+    cin, planes = w1.shape
+    cout = w3.shape[1]
+    ws = [w1, w2, w3] + ([wd] if wd is not None else [])
+    vs = [s1, b1, s2, b2, s3, b3] + ([sd, bd] if wd is not None else [])
+    w = torch.cat([t.detach().to(device, torch.bfloat16).reshape(-1)
+                   for t in ws])
+    sb = torch.cat([t.detach().to(device, torch.float32).reshape(-1)
+                    for t in vs])
+    return PackedBottleneck(w, sb, int(cin), int(planes), int(cout),
+                            wd is not None)
+
+
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
@@ -70,24 +190,23 @@ def _ptr(t):
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = load_library("fused_bottleneck").fused_bottleneck_bf16
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def fused_bottleneck(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
-                     wd=None, sd=None, bd=None):
-    """One stride-1 eval-mode Bottleneck as one kernel launch.
+def fused_bottleneck_packed(x, packed: PackedBottleneck):
+    """One stride-1 eval-mode Bottleneck as one kernel launch, with the
+    weights packed by `pack_weights`.
 
     x: (B, Cin, H, W), channels_last. On a CPU tensor this runs
-    `bottleneck_plain`; on a CUDA tensor it launches
+    `bottleneck_plain` on the packed weights; on a CUDA tensor it launches
     csrc/fused_bottleneck.cu (bf16 only) or raises.
-    Returns (B, 4P, H, W) in x.dtype, channels_last.
+    Returns (B, Cout, H, W) in x.dtype, channels_last.
     """
     if x.device.type == "cpu":
-        return bottleneck_plain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
-                                wd, sd, bd)
+        return bottleneck_plain(x, *packed.args())
     if x.device.type != "cuda":
         raise ValueError(f"fused_bottleneck: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
@@ -97,6 +216,44 @@ def fused_bottleneck(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
         raise ValueError("fused_bottleneck: x must be a 4-d channels_last "
                          "tensor")
     B, Cin, H, W = x.shape
+    if Cin != packed.cin:
+        raise ValueError(f"fused_bottleneck: x has {Cin} channels, the "
+                         f"weights take {packed.cin}")
+    if packed.w.device != x.device or packed.sb.device != x.device:
+        raise ValueError(f"fused_bottleneck: weights on {packed.w.device}, "
+                         f"x on {x.device}")
+    check_launch(B, Cin, packed.planes, packed.cout, packed.downsample)
+    if x.data_ptr() % 16:
+        raise ValueError("fused_bottleneck: x must be 16-byte aligned")
+    out = torch.empty((B, packed.cout, H, W), dtype=torch.bfloat16,
+                      device=x.device, memory_format=torch.channels_last)
+    err = _entry()(_ptr(x), _ptr(packed.w), _ptr(packed.sb), _ptr(out), B, H,
+                   W, Cin, packed.planes, packed.cout, int(packed.downsample),
+                   ctypes.c_void_p(
+                       torch.cuda.current_stream(x.device).cuda_stream))
+    if err:
+        raise RuntimeError(f"fused_bottleneck: CUDA error {err} at launch")
+    fused_bottleneck.launches += 1
+    return out
+
+
+def fused_bottleneck(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
+                     wd=None, sd=None, bd=None):
+    """One stride-1 eval-mode Bottleneck as one kernel launch, from the
+    weights in the JAX layouts, packed on every call: a helper for one-off
+    calls. The model packs once and calls `fused_bottleneck_packed`
+    (models/resnet.py).
+
+    x: (B, Cin, H, W), channels_last. On a CPU tensor this runs
+    `bottleneck_plain`; on a CUDA tensor it launches
+    csrc/fused_bottleneck.cu (bf16 only) or raises.
+    Returns (B, 4P, H, W) in x.dtype, channels_last.
+    `fused_bottleneck.launches` counts the kernel's launches.
+    """
+    if x.device.type == "cpu":
+        return bottleneck_plain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
+                                wd, sd, bd)
+    Cin = x.shape[1]
     P = w1.shape[1]
     Cout = w3.shape[1]
     if (w1.shape != (Cin, P) or w2.shape != (3, 3, P, P)
@@ -104,43 +261,11 @@ def fused_bottleneck(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
         raise ValueError(f"fused_bottleneck: weight shapes {tuple(w1.shape)}, "
                          f"{tuple(w2.shape)}, {tuple(w3.shape)} do not fit "
                          f"Cin={Cin}")
-    if wd is None and Cin != Cout:
-        raise ValueError("fused_bottleneck: identity residual needs "
-                         "Cin == 4P")
     if wd is not None and wd.shape != (Cin, Cout):
         raise ValueError(f"fused_bottleneck: wd shape {tuple(wd.shape)}")
-    if Cin % 8 or P % 32 or Cout % 128:
-        raise ValueError(f"fused_bottleneck: the kernel needs Cin % 8 == 0, "
-                         f"P % 32 == 0 and Cout % 128 == 0, got Cin={Cin} "
-                         f"P={P} Cout={Cout}")
-    smem = 2 * (100 * Cin + 164 * P)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"fused_bottleneck: {smem} bytes of shared memory "
-                         f"exceed the {_SMEM_LIMIT} a block may use")
-
-    dev = x.device
-
-    def w(t):
-        return t.to(device=dev, dtype=torch.bfloat16).contiguous()
-
-    def v(t):
-        return t.to(device=dev, dtype=torch.float32).contiguous()
-
-    args = [w(w1), v(s1), v(b1), w(w2.reshape(9 * P, P)), v(s2), v(b2),
-            w(w3), v(s3), v(b3)]
-    if wd is not None:
-        args += [w(wd), v(sd), v(bd)]
-    out = torch.empty((B, Cout, H, W), dtype=torch.bfloat16, device=dev,
-                      memory_format=torch.channels_last)
-    ptrs = [_ptr(a) for a in args]
-    if wd is None:
-        ptrs += [None, None, None]
-    err = _entry()(_ptr(x), *ptrs, _ptr(out), B, H, W, Cin, P, Cout,
-                   ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if err:
-        raise RuntimeError(f"fused_bottleneck: CUDA error {err} at launch")
-    fused_bottleneck.launches += 1
-    return out
+    return fused_bottleneck_packed(
+        x, pack_weights(w1, s1, b1, w2, s2, b2, w3, s3, b3, wd, sd, bd,
+                        device=x.device))
 
 
 fused_bottleneck.launches = 0

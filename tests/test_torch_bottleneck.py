@@ -1,7 +1,8 @@
 """Fused bottleneck of the PyTorch port (fast3dhpe_tpu_torch/ops/
 bottleneck.py, models/resnet.py) against the JAX package's Pallas kernel in
 interpret mode, on the CPU: the plain version at the kernel's rounding
-points, BN folding, the wrapper's CPU path, and the fusion gate."""
+points, BN folding, the wrapper's CPU path, the fusion gate, the packed
+weights and their cache, and the kernel's launch rules."""
 
 import numpy as np
 import pytest
@@ -11,9 +12,14 @@ import jax.numpy as jnp
 
 from fast3dhpe_tpu.ops.pallas_bottleneck import fold_bn as jax_fold_bn
 from fast3dhpe_tpu.ops.pallas_bottleneck import fused_bottleneck as jax_fused
-from fast3dhpe_tpu_torch.models.resnet import ResNetEncoder
-from fast3dhpe_tpu_torch.ops.bottleneck import (bottleneck_plain, fold_bn,
-                                                fused_bottleneck)
+from fast3dhpe_tpu_torch.convert import jax_variables_to_state_dict
+from fast3dhpe_tpu_torch.models.resnet import Bottleneck, ResNetEncoder
+from fast3dhpe_tpu_torch.ops.bottleneck import (bottleneck_plain,
+                                                check_launch, fold_bn,
+                                                fused_bottleneck,
+                                                fused_bottleneck_packed,
+                                                pack_weights, smem_bytes,
+                                                weight_layout)
 
 torch.set_num_threads(2)
 
@@ -148,3 +154,192 @@ def test_gate_at_256px_fuses_the_jax_blocks():
     assert enc.train().fused_blocks((256, 256), torch.bfloat16) == []
     off = ResNetEncoder(101).eval()
     assert off.fused_blocks((256, 256), torch.bfloat16) == []
+
+
+def _jax_block_variables(ds, seed, P=16):
+    """One JAX Bottleneck's variables ("layer1_0" of an encoder) in its own
+    layouts: HWIO kernels, BN scale/bias and mean/var."""
+    x, w, bns = _block(ds, seed, P=P)
+    names = {"1": "bn1", "2": "bn2", "3": "bn3", "d": "downsample_bn"}
+    params = {"conv1": {"kernel": w["w1"][None, None]},
+              "conv2": {"kernel": w["w2"]},
+              "conv3": {"kernel": w["w3"][None, None]}}
+    stats = {}
+    if ds:
+        params["downsample_conv"] = {"kernel": w["wd"][None, None]}
+    for k, (scale, bias, mean, var) in bns.items():
+        params[names[k]] = {"scale": scale, "bias": bias}
+        stats[names[k]] = {"mean": mean, "var": var}
+    v = {"params": {"encoder": {"layer1_0": params}},
+         "batch_stats": {"encoder": {"layer1_0": stats}}}
+    return x, w, bns, v
+
+
+def _port_block(v, ds, P=16):
+    prefix = "encoder.layer1.0."
+    sd = {k[len(prefix):]: t for k, t in jax_variables_to_state_dict(v).items()}
+    cin = 64 if ds else 4 * P
+    blk = Bottleneck(cin, P, 1, ds, fused_inference=True)
+    blk.load_state_dict(sd, strict=True)
+    return blk.eval()
+
+
+@pytest.mark.parametrize("ds", [True, False])
+def test_packed_layout_reads_back_the_jax_layouts(ds):
+    """The module's packed weights, read back through the index map, are
+    the JAX kernel's operands: w1/w3/wd as conv kernel[0, 0], w2 HWIO (the
+    kernel's (9P, P) rows ordered (ky, kx, cin)), bf16; and fold_bn of each
+    BN, as the JAX model's `_fused` hands them to the Pallas kernel."""
+    P = 16
+    x, w, bns, v = _jax_block_variables(ds, seed=4, P=P)
+    packed = _port_block(v, ds, P).packed_weights("cpu")
+    assert packed.w.dtype == torch.bfloat16
+    assert packed.sb.dtype == torch.float32
+    got = packed.unpack()
+    assert set(got) == ({"w1", "w2", "w3", "s1", "b1", "s2", "b2", "s3",
+                         "b3"} | ({"wd", "sd", "bd"} if ds else set()))
+    for name in ("w1", "w2", "w3") + (("wd",) if ds else ()):
+        want = np.asarray(jnp.asarray(w[name], jnp.bfloat16), np.float32)
+        np.testing.assert_array_equal(got[name].float().numpy(), want)
+    for k in bns:
+        js, jb = jax_fold_bn(*map(jnp.asarray, bns[k]))
+        np.testing.assert_allclose(got["s" + k].numpy(), np.asarray(js),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(got["b" + k].numpy(), np.asarray(jb),
+                                   rtol=1e-6, atol=1e-7)
+    # the flat buffer through the index map: w2 row (ky * 3 + kx) * P + cin
+    weights, vectors = weight_layout(packed.cin, P, packed.cout, ds)
+    off = weights["w2"][0]
+    flat = packed.w.float().numpy()
+    r = np.random.RandomState(0)
+    for ky, kx, ci, co in r.randint(0, [3, 3, P, P], (20, 4)):
+        assert flat[off + ((ky * 3 + kx) * P + ci) * P + co] == \
+            got["w2"][ky, kx, ci, co].float().item()
+    assert packed.w.numel() == sum(int(np.prod(s)) for _, s in
+                                   weights.values())
+    assert packed.sb.numel() == sum(n for _, n in vectors.values())
+
+
+@pytest.mark.parametrize("ds", [True, False])
+def test_module_fused_path_matches_pallas_interpret(ds):
+    """The module's fused path (packed weights, the kernel's plain version
+    on the CPU) against the Pallas kernel in interpret mode, bf16."""
+    x, w, bns, v = _jax_block_variables(ds, seed=5)
+    blk = _port_block(v, ds)
+    _, ref = _run_both(x, w, bns, jnp.bfloat16, torch.bfloat16)
+    xt = torch.from_numpy(x).to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    before = fused_bottleneck.launches
+    with torch.inference_mode():
+        got = blk._fused(xt).float().permute(0, 2, 3, 1).numpy()
+    assert fused_bottleneck.launches == before
+    denom = max(np.abs(ref).max(), 1e-3)
+    assert np.abs(got - ref).max() / denom < 0.05
+    assert np.abs(got - ref).mean() / denom < 0.005
+
+
+def test_packed_weights_are_rebuilt_per_weight_version():
+    x, w, bns, v = _jax_block_variables(True, seed=6)
+    blk = _port_block(v, True)
+    p1 = blk.packed_weights("cpu")
+    assert blk.packed_weights("cpu") is p1          # packed once
+    with torch.no_grad():                            # an in-place edit
+        blk.conv2.weight[3, 5, 1, 2] += 1.0
+    p2 = blk.packed_weights("cpu")
+    assert p2 is not p1
+    assert p2.unpack()["w2"][1, 2, 5, 3].float().item() == pytest.approx(
+        float(torch.tensor(w["w2"][1, 2, 5, 3] + 1.0).bfloat16().float()))
+    with torch.no_grad():                            # a BN statistic
+        blk.downsample[1].running_var.mul_(4.0)
+    p3 = blk.packed_weights("cpu")
+    assert p3 is not p2
+    torch.testing.assert_close(p3.unpack()["sd"], p2.unpack()["sd"] / 2,
+                               rtol=1e-2, atol=0)
+    blk.load_state_dict(_port_block(v, True).state_dict())   # load
+    p4 = blk.packed_weights("cpu")
+    assert p4 is not p3
+    torch.testing.assert_close(p4.w, p1.w, rtol=0, atol=0)
+    torch.testing.assert_close(p4.sb, p1.sb, rtol=0, atol=0)
+    blk.to(torch.float64)                            # .to() makes new tensors
+    p5 = blk.packed_weights("cpu")
+    assert p5 is not p4
+    torch.testing.assert_close(p5.w, p1.w, rtol=0, atol=0)
+    # a dtype round trip: the new tensors' version counters start again and
+    # the allocator may hand them freed addresses, which the cache holds on to
+    blk.half().float()
+    p6 = blk.packed_weights("cpu")
+    assert p6 is not p5
+    torch.testing.assert_close(
+        p6.unpack()["w2"], blk.conv2.weight.permute(2, 3, 1, 0).bfloat16(),
+        rtol=0, atol=0)
+    assert blk.packed_weights("cpu") is p6
+
+
+def test_python_tiling_matches_the_kernel_source():
+    """ops/bottleneck.py's launch check and shared-memory formula use the
+    kernel's tiling constants: evaluate csrc/fused_bottleneck.cu's
+    `constexpr int` lines and hold the Python copies against them."""
+    import re
+    from pathlib import Path
+
+    import fast3dhpe_tpu_torch.ops.bottleneck as bn
+    src = (Path(bn.__file__).parent.parent / "csrc" /
+           "fused_bottleneck.cu").read_text()
+    ns = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src,
+                                 re.M):
+        ns[name] = eval(expr.replace("/", "//"), {}, dict(ns))
+    assert (ns["kTilePix"], ns["kHaloPix"], ns["kRows1"], ns["kKC"],
+            ns["kStages"], ns["kN3"], ns["kPad"], ns["kSmemLimit"]) == (
+        bn._TILE_PIX, bn._HALO_PIX, bn._ROWS1, bn._KC, bn._STAGES, bn._N3,
+        bn._PAD, bn._SMEM_LIMIT)
+    # the C entry's rules name the same constants
+    assert "Cin % kKC != 0" in src and "Cout % kN3 != 0" in src
+
+
+def test_packed_cpu_path_is_plain_on_the_packed_weights():
+    x, w, bns = _block(False, seed=7)
+    tf = {k: fold_bn(*map(torch.from_numpy, v)) for k, v in bns.items()}
+    args = [torch.from_numpy(w["w1"]), *tf["1"], torch.from_numpy(w["w2"]),
+            *tf["2"], torch.from_numpy(w["w3"]), *tf["3"]]
+    xt = torch.from_numpy(x).to(torch.bfloat16).permute(0, 3, 1, 2)
+    packed = pack_weights(*args)
+    assert packed.args()[9:] == (None, None, None)
+    torch.testing.assert_close(fused_bottleneck_packed(xt, packed),
+                               bottleneck_plain(xt, *args), rtol=0, atol=0)
+
+
+# (Cin, P, Cout, downsample) -> dynamic shared memory: the main path's two
+# shapes, layer1.1, and stage 3's widths
+LAUNCHES = {(64, 64, 256, True): 114688, (512, 128, 512, False): 109888,
+            (256, 64, 256, False): 83968, (1024, 256, 1024, False): 188736}
+
+
+@pytest.mark.parametrize("shape", sorted(LAUNCHES))
+def test_check_launch_takes_the_encoder_blocks(shape):
+    cin, planes, cout, ds = shape
+    assert check_launch(64, cin, planes, cout, ds) == LAUNCHES[shape]
+    assert smem_bytes(planes, ds) == LAUNCHES[shape]
+    # two CTAs of P <= 128 fit the SM's 228 KB (1 KB reserved a CTA)
+    if planes <= 128:
+        assert 2 * (LAUNCHES[shape] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("case,broken", [
+    ((8, 48, 64, 256, True), "Cin % 32 == 0"),
+    ((8, 64, 96, 384, True), "P == 64 or P % 128 == 0"),
+    ((8, 64, 64, 192, True), "Cout % 128 == 0"),
+    ((8, 64, 64, 256, False), "Cin == Cout without a downsample"),
+    ((0, 256, 64, 256, False), "1 <= B <= 65535"),
+    ((70000, 256, 64, 256, False), "1 <= B <= 65535"),
+    ((8, 2048, 512, 2048, False), "shared memory <= 232448 bytes"),
+])
+def test_check_launch_names_every_rule(case, broken):
+    with pytest.raises(ValueError) as err:
+        check_launch(*case)
+    msg = str(err.value)
+    for rule in ("Cin % 32 == 0", "P == 64 or P % 128 == 0",
+                 "Cout % 128 == 0", "Cin == Cout without a downsample",
+                 "1 <= B <= 65535", "shared memory <= 232448 bytes"):
+        assert rule in msg
+    assert msg.split("broken: ")[1] == broken
