@@ -1,14 +1,18 @@
 """Drive the PyTorch/CUDA port (fast3dhpe_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # everything below
+    python3 chip_smoke.py --kernels   # steps 1, 2 and the kernel timings
 
-1. Prints the card's name and power limit, builds the kernels (nvcc for the
-   CUDA sources, Triton's JIT for the Triton kernels), timing the build.
+1. Prints the card's name and power limit, builds the kernels
+   (csrc/softargmax.cu and csrc/fused_bottleneck.cu, one nvcc each, in
+   parallel), timing the build.
 2. Kernel phase: holds each kernel (K1 soft-argmax forward, K2 its
    backward, K3 fused bottleneck) against its plain PyTorch version on the
-   card, at the shapes the main paths give it and at batch 32 pairs; K3
-   also at batch 1 pair, at layer1.1 and on a plane that is not a multiple
-   of its tile.
+   card, at the shapes the main paths give it and at batch 32 pairs; K1
+   and K2 also at batch 1 pair, on a ragged plane, with one chunk's logits
+   120 above the rest, and (K1) at J = 2, and shows that their wrappers
+   refuse strided or misaligned logits; K3 also at batch 1 pair, at
+   layer1.1 and on a plane that is not a multiple of its tile.
 3. Serving path: three requests of four uint8 stereo pairs through
    `CDRNetInferencer.predict_batch` at the width of configs/mads_3d.yaml
    (CDRNet-101, 256 px, 19 joints), bf16 with fused_inference=True, from
@@ -16,9 +20,14 @@
    launched K1 once, K2 never and K3 once per fused block, and one request
    against the same module on the CPU.
 4. Times each kernel beside its bound, its plain version and its library
-   comparison (K3 also at batch 1 pair and at layer1.1, which the gate
-   leaves unfused, with its TFLOP/s and share of the bound; it fails if K3
-   is not faster than the unfused cuDNN block at the main path's shapes),
+   comparison: `device_ms`, the kernel's own duration under torch.profiler
+   with L2 cold (a 128 MiB read between launches; `ms` in the kernels
+   line) and warm, and `call_ms`, CUDA events around one wrapper call
+   (host plus device). K1 at 2 and 64 images bf16 and 64 fp32, K2 at 64
+   images fp32 and bf16, K3 also at batch 1 pair and at layer1.1, which
+   the gate leaves unfused, with its TFLOP/s and share of the bound (it
+   fails if a K3 call is not faster than the unfused cuDNN block's at the
+   main path's shapes),
    predict_batch at batch 1-64 and the geometry's share, and splits a
    request's device time by kernel group (torch.profiler).
 5. Training path: four CDR train steps (two warmup, two with the 3D loss)
@@ -67,8 +76,11 @@ def require(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Median device time of fn() in ms, by CUDA events around each call."""
+def call_ms(fn, iters=20, warmup=3):
+    """Median time of one fn() call in ms, by CUDA events recorded around
+    it: host plus device. The host's share of the call (checks, allocation,
+    the launch itself) lies between the two events, so for a kernel shorter
+    than its launch this measures the host."""
     for _ in range(warmup):
         fn()
     pairs = []
@@ -81,6 +93,52 @@ def cuda_ms(fn, iters=20, warmup=3):
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+L2_FLUSH_BYTES = 128 * 2 ** 20     # read between launches: > the 50 MB L2
+
+
+def device_ms(fn, kernel, cold, iters=30, warmup=3):
+    """Median device duration in ms of the CUDA kernels whose name contains
+    `kernel`, one a call of fn(), under torch.profiler (CUPTI). cold: a
+    128 MiB buffer is read before each call, so the kernel finds its
+    inputs in HBM and not in the 50 MB L2, and the L2 holds no dirty lines
+    whose write-back would bill the kernel (the number held against the
+    HBM bound); warm: the calls run back to back. The profile sometimes
+    holds fewer kernel records than calls (25 of 30 in one H100 run), so
+    the median is taken over those it holds; it fails if they are fewer
+    than half the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = (torch.zeros(L2_FLUSH_BYTES // 4, device="cuda") if cold
+             else None)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    times = [(e.time_range.end - e.time_range.start) / 1e3
+             for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    require(2 * len(times) >= iters,
+            f"the profile holds {len(times)} kernels named *{kernel}* for "
+            f"{iters} calls")
+    if len(times) < iters:
+        print(f"# device_ms: {len(times)} records of *{kernel}* for "
+              f"{iters} calls")
+    return statistics.median(times)
+
+
+def kernel_times(fn, kernel):
+    """device_ms L2 cold and warm, and call_ms, of one kernel's wrapper."""
+    return {"device_ms_cold": device_ms(fn, kernel, cold=True),
+            "device_ms_warm": device_ms(fn, kernel, cold=False),
+            "call_ms": call_ms(fn)}
 
 
 def host_ms(fn, iters=10, warmup=2):
@@ -121,28 +179,90 @@ def stereo_request(rng, pairs, size=256):
 
 # ----------------------------------------------------------------- kernels
 
+# K1 and K2 are checked at a request's and a train step's images, at
+# batch 1 pair and on a ragged plane: (name, (N, H, W, J))
+SOFTARGMAX_SHAPES = (("2 images", (2, 64, 64, 19)),
+                     ("8 images", (2 * PAIRS, 64, 64, 19)),
+                     ("64 images", (2 * TIMING_PAIRS, 64, 64, 19)),
+                     ("ragged", (2, 36, 44, 17)))
+# row 0, columns 0-31 of the logits (in K1's first chunk of an image) lie
+# 120 above the rest, so that e^{m_c - M} of every other chunk, and of the
+# first chunk's other runs, underflows to 0 in fp32 where K1 combines them
+UNDERFLOW = ("chunk 120 above", (2, 64, 64, 19))
+
+
+def _nhwc_logits(gen, dev, shape, dt, underflow=False):
+    """Random logits in the decoder's layout: (N, J, H, W) channels_last
+    viewed as (N, H, W, J)."""
+    n, hh, ww, j = shape
+    h = torch.randn((n, j, hh, ww), generator=gen) * 3
+    if underflow:
+        h[:, :, 0, :32] += 120.0
+    h = h.to(dt).to(dev).contiguous(memory_format=torch.channels_last)
+    return h.permute(0, 2, 3, 1)
+
+
+def _softargmax_cases(gen, dev):
+    for name, shape in SOFTARGMAX_SHAPES + (UNDERFLOW,):
+        for dt in (torch.float32, torch.bfloat16):
+            yield (f"{name} {str(dt).replace('torch.', '')}",
+                   _nhwc_logits(gen, dev, shape, dt, name == UNDERFLOW[0]))
+
+
+def _raises(fn):
+    try:
+        fn()
+    except ValueError:
+        return True
+    return False
+
+
 def check_softargmax(dev, gen):
-    """K1 against its plain version on the decoder's output layout: NCHW
-    channels_last (N, J, 64, 64) viewed as (N, 64, 64, J)."""
+    """K1 against its plain version on the decoder's layout, fp32 and bf16,
+    at SOFTARGMAX_SHAPES and the UNDERFLOW case; its statistics against
+    their definition; peak recovery at J = 2; the wrappers' refusals; the
+    shared-memory formula of ops/softargmax.py against the kernel's."""
+    from fast3dhpe_tpu_torch.ops._build import load_library
     from fast3dhpe_tpu_torch.ops.heatmap import soft_argmax
-    from fast3dhpe_tpu_torch.ops.softargmax import soft_argmax_fused
+    from fast3dhpe_tpu_torch.ops.softargmax import (fwd_smem_bytes,
+                                                    soft_argmax_bwd_fused,
+                                                    soft_argmax_fused,
+                                                    soft_argmax_fwd_fused)
+    kernel_smem = load_library("softargmax").softargmax_fwd_smem_bytes
+    kernel_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    kernel_smem.restype = ctypes.c_int
+    for j in (1, 2, 17, 19, 64):
+        for elt in (2, 4):
+            require(kernel_smem(j, elt) == fwd_smem_bytes(j, elt),
+                    f"K1 shared memory at J={j}, {elt}-byte logits: the "
+                    f"kernel says {kernel_smem(j, elt)}, ops/softargmax.py "
+                    f"{fwd_smem_bytes(j, elt)}")
     # tests/test_pallas_kernels.py:28 holds the Pallas kernel to 1e-3 px of
     # its jnp version; fp32 sums in another order stay well inside that
     tol_px = 1e-3
     err = 0.0
-    for n in (2 * PAIRS, 2 * TIMING_PAIRS):
-        for dt in (torch.float32, torch.bfloat16):
-            h = (torch.randn((n, 19, 64, 64), generator=gen) * 3).to(dt)
-            h = h.to(dev).contiguous(memory_format=torch.channels_last)
-            hm = h.permute(0, 2, 3, 1)
-            got = soft_argmax_fused(hm)
-            ref = soft_argmax(hm)
-            torch.cuda.synchronize()
-            e = (got - ref).abs().max().item()
-            require(got.shape == (n, 19, 2) and e <= tol_px,
-                    f"soft-argmax kernel differs from its plain version by "
-                    f"{e} px (n={n}, {dt}; tolerance {tol_px} px)")
-            err = max(err, e)
+    for what, hm in _softargmax_cases(gen, dev):
+        got, stats = soft_argmax_fwd_fused(hm)
+        ref = soft_argmax(hm)
+        flat = hm.float().flatten(1, 2)
+        m = flat.amax(dim=1)
+        s = (flat - m[:, None]).exp().sum(dim=1)
+        torch.cuda.synchronize()
+        e = (got - ref).abs().max().item()
+        e_s = ((stats[..., 1] * s - 1).abs().max().item())
+        require(got.shape == ref.shape and e <= tol_px,
+                f"K1 {what} differs from its plain version by {e} px "
+                f"(tolerance {tol_px} px)")
+        # m is the exact max; 1/S within fp32 sums' rounding; (cx, cy) the
+        # output itself
+        require(torch.equal(stats[..., 0], m)
+                and torch.equal(stats[..., 2:], got) and e_s <= 1e-5,
+                f"K1 {what} statistics: m exact "
+                f"{torch.equal(stats[..., 0], m)}, (cx, cy) = output "
+                f"{torch.equal(stats[..., 2:], got)}, |S/S_plain - 1| {e_s}")
+        print(f"# K1 {what}: max |kernel - plain| {e:.3g} px, "
+              f"|S/S_plain - 1| {e_s:.3g}")
+        err = max(err, e)
     # peak recovery (tests/test_pallas_kernels.py:52-58)
     peak = torch.zeros((1, 32, 32, 2), device=dev)
     peak[0, 7, 21, 0] = 40.0
@@ -150,14 +270,30 @@ def check_softargmax(dev, gen):
     kp = soft_argmax_fused(peak).cpu()
     require(torch.allclose(kp, torch.tensor([[[21.0, 7.0], [3.0, 30.0]]]),
                            atol=tol_px), f"soft-argmax peak recovery: {kp}")
+    # on CUDA the wrappers take only a contiguous (N, H, W, J) tensor at a
+    # 16-byte aligned address, and launch nothing otherwise
+    before = (soft_argmax_fused.launches, soft_argmax_bwd_fused.launches)
+    strided = torch.randn((2, 19, 64, 64), device=dev).permute(0, 2, 3, 1)
+    buf = torch.randn(2 * 64 * 64 * 19 + 1, device=dev)
+    shifted = buf[1:].view(2, 64, 64, 19)
+    g = torch.zeros((2, 19, 2), device=dev)
+    for what, bad in (("(N, J, H, W) memory viewed as NHWC", strided),
+                      ("a storage offset of 4 bytes", shifted)):
+        require(_raises(lambda: soft_argmax_fused(bad))
+                and _raises(lambda: soft_argmax_bwd_fused(bad, g)),
+                f"the K1/K2 wrappers took {what}")
+    require((soft_argmax_fused.launches,
+             soft_argmax_bwd_fused.launches) == before,
+            "a refused call launched a kernel")
     print(f"# K1 soft-argmax: max |kernel - plain| = {err:.3g} px "
-          f"(tolerance {tol_px} px)")
+          f"(tolerance {tol_px} px); peak recovered; strided and "
+          f"misaligned logits refused")
     return err
 
 
 # K2 against its plain version, relative to max|plain|. fp32: both compute
 # in fp32 from the same logits and differ only in the order of the H*W-term
-# sums for cx and cy (~1e-6 relative), which multiplies p * g: 1e-5 (the
+# sums for S, cx and cy (~1e-6 relative), which multiplies p * g: 1e-5 (the
 # first H100 runs measured 1.8e-6). bf16: both round an fp32 value once;
 # where those values straddle a rounding boundary the results differ by one
 # bf16 ulp (<= 2^-7 of a value, so of max|plain|). Such elements are rare
@@ -183,39 +319,43 @@ def _k2_bounds(got, ref, dt, what):
 
 
 def check_softargmax_bwd(dev, gen):
-    """K2 against soft_argmax_bwd, and the gradient of soft_argmax_fused by
-    autograd against autograd through the plain forward, on the decoder's
-    layout: (N, 19, 64, 64) channels_last viewed as (N, 64, 64, 19)."""
+    """K2 against soft_argmax_bwd at SOFTARGMAX_SHAPES and the UNDERFLOW
+    case, fp32 and bf16, three ways: standalone from K1's statistics,
+    standalone without them (the wrapper runs K1 first), and the gradient
+    of soft_argmax_fused by autograd (statistics saved by the Function)
+    against autograd through the plain forward. Not at the J = 2 peak:
+    there p*(x - cx) is rounding noise of cx, and so is max|plain|."""
     from fast3dhpe_tpu_torch.ops.heatmap import soft_argmax, soft_argmax_bwd
     from fast3dhpe_tpu_torch.ops.softargmax import (soft_argmax_bwd_fused,
-                                                    soft_argmax_fused)
+                                                    soft_argmax_fused,
+                                                    soft_argmax_fwd_fused)
     err = 0.0
-    for n in (2 * PAIRS, 2 * TIMING_PAIRS):
-        for dt in (torch.float32, torch.bfloat16):
-            h = (torch.randn((n, 19, 64, 64), generator=gen) * 3).to(dt)
-            h = h.to(dev).contiguous(memory_format=torch.channels_last)
-            hm = h.permute(0, 2, 3, 1)
-            g = torch.randn((n, 19, 2), generator=gen).to(dev)
-            got = soft_argmax_bwd_fused(hm, g)
-            ref = soft_argmax_bwd(hm, g)
-            torch.cuda.synchronize()
-            require(got.dtype == dt and got.stride() == hm.stride(),
-                    f"K2 output {got.dtype} {got.stride()}, logits {dt} "
-                    f"{hm.stride()}")
-            e, dmax, dmean = _k2_bounds(got, ref, dt, f"K2 (n={n}, {dt})")
-            # autograd through the Function against autograd through the
-            # plain forward
-            a = hm.detach().clone().requires_grad_(True)
-            (soft_argmax_fused(a) * g).sum().backward()
-            b = hm.detach().clone().requires_grad_(True)
-            (soft_argmax(b) * g).sum().backward()
-            torch.cuda.synchronize()
-            _, gmax, gmean = _k2_bounds(a.grad, b.grad, dt,
-                                        f"autograd through K2 (n={n}, {dt})")
-            print(f"# K2 n={n} {dt}: kernel vs plain max {dmax:.3g} / mean "
-                  f"{dmean:.3g} of max|plain|; autograd max {gmax:.3g} / "
-                  f"mean {gmean:.3g}")
-            err = max(err, e)
+    for what, hm in _softargmax_cases(gen, dev):
+        dt = hm.dtype
+        g = torch.randn((hm.shape[0], hm.shape[3], 2), generator=gen).to(dev)
+        ref = soft_argmax_bwd(hm, g)
+        _, stats = soft_argmax_fwd_fused(hm)
+        got = soft_argmax_bwd_fused(hm, g, stats)
+        alone = soft_argmax_bwd_fused(hm, g)
+        torch.cuda.synchronize()
+        require(got.dtype == dt and got.stride() == hm.stride(),
+                f"K2 output {got.dtype} {got.stride()}, logits {dt} "
+                f"{hm.stride()}")
+        require(torch.equal(alone, got),
+                f"K2 {what}: the call without statistics differs from the "
+                f"one with K1's")
+        e, dmax, dmean = _k2_bounds(got, ref, dt, f"K2 {what}")
+        a = hm.detach().clone().requires_grad_(True)
+        (soft_argmax_fused(a) * g).sum().backward()
+        b = hm.detach().clone().requires_grad_(True)
+        (soft_argmax(b) * g).sum().backward()
+        torch.cuda.synchronize()
+        _, gmax, gmean = _k2_bounds(a.grad, b.grad, dt,
+                                    f"autograd through K2 ({what})")
+        print(f"# K2 {what}: kernel vs plain max {dmax:.3g} / mean "
+              f"{dmean:.3g} of max|plain|; autograd max {gmax:.3g} / "
+              f"mean {gmean:.3g}")
+        err = max(err, e)
     return err
 
 
@@ -737,47 +877,79 @@ def train_vs_cpu(cfg, start_sd, dev):
 
 # ------------------------------------------------------------------ timing
 
+def _decoder_logits(gen, dev, n, dt):
+    """Random logits in the decoder's layout: (n, 19, 64, 64) channels_last
+    viewed as (n, 64, 64, 19)."""
+    h = (torch.randn((n, 19, 64, 64), generator=gen) * 3).to(dt)
+    return h.to(dev).contiguous(memory_format=torch.channels_last).permute(
+        0, 2, 3, 1)
+
+
+def _show_times(what, t):
+    print(f"# {what}: device {t['device_ms_cold']:.4f} ms L2 cold, "
+          f"{t['device_ms_warm']:.4f} ms L2 warm "
+          f"({100 * t['share_of_bound']:.1f}% of the bound cold); call "
+          f"{t['call_ms']:.4f} ms (host + device); plain "
+          f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}, {t['mbytes']:.2f} MB)")
+
+
+def _timed_row(times, plain, nbytes, flops):
+    bound, by = bound_ms(nbytes, flops, FP32_FLOPS)
+    return dict(times, ms=times["device_ms_cold"], plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                mbytes=nbytes / 1e6,
+                share_of_bound=bound / times["device_ms_cold"])
+
+
+# (images, dtype) at which K1 and K2 are timed; the first is the row's
+K1_TIMED = ((2 * TIMING_PAIRS, torch.bfloat16), (2, torch.bfloat16),
+            (2 * TIMING_PAIRS, torch.float32))
+K2_TIMED = ((2 * TIMING_PAIRS, torch.float32),
+            (2 * TIMING_PAIRS, torch.bfloat16))
+
+
 def time_softargmax(dev, gen):
+    """K1 at a batch-32 request (64 images, bf16), at batch 1 pair (2
+    images) and at a train step's fp32 (64 images). Bound: read the logits
+    once, write (x, y) and the statistics once; ~6 fp32 operations a
+    logit."""
     from fast3dhpe_tpu_torch.ops.heatmap import soft_argmax
     from fast3dhpe_tpu_torch.ops.softargmax import soft_argmax_fused
-    n = 2 * TIMING_PAIRS
-    h = (torch.randn((n, 19, 64, 64), generator=gen) * 3).to(torch.bfloat16)
-    hm = h.to(dev).contiguous(memory_format=torch.channels_last).permute(
-        0, 2, 3, 1)
-    ms = cuda_ms(lambda: soft_argmax_fused(hm))
-    plain = cuda_ms(lambda: soft_argmax(hm))
-    nbytes = hm.numel() * hm.element_size() + n * 19 * 2 * 4
-    bound, by = bound_ms(nbytes, 6 * hm.numel(), FP32_FLOPS)
-    print(f"# K1 at {n} images (bf16 64x64x19, channels_last): kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by})")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}
+    rows = []
+    for n, dt in K1_TIMED:
+        hm = _decoder_logits(gen, dev, n, dt)
+        t = kernel_times(lambda: soft_argmax_fused(hm), "softargmax_fwd")
+        nbytes = hm.numel() * hm.element_size() + n * 19 * 6 * 4
+        row = _timed_row(t, call_ms(lambda: soft_argmax(hm)), nbytes,
+                         6 * hm.numel())
+        row["shape"] = f"({n}, 64, 64, 19) {str(dt).replace('torch.', '')}"
+        _show_times(f"K1 {row['shape']}", row)
+        rows.append(row)
+    return dict(rows[0], variants=rows[1:])
 
 
 def time_softargmax_bwd(dev, gen):
     """K2 at 64 images of 64x64x19 in the decoder's layout, fp32 (the
-    training path's type) and bf16. Bound: read the logits and g once,
-    write dh once; ~12 fp32 operations a logit."""
+    training path's type) and bf16. Bound: read the logits, g and the
+    statistics once, write dh once; ~12 fp32 operations a logit."""
     from fast3dhpe_tpu_torch.ops.heatmap import soft_argmax_bwd
-    from fast3dhpe_tpu_torch.ops.softargmax import soft_argmax_bwd_fused
-    n = 2 * TIMING_PAIRS
-    out = {}
-    for dt in (torch.float32, torch.bfloat16):
-        h = (torch.randn((n, 19, 64, 64), generator=gen) * 3).to(dt)
-        hm = h.to(dev).contiguous(memory_format=torch.channels_last).permute(
-            0, 2, 3, 1)
+    from fast3dhpe_tpu_torch.ops.softargmax import (soft_argmax_bwd_fused,
+                                                    soft_argmax_fwd_fused)
+    rows = []
+    for n, dt in K2_TIMED:
+        hm = _decoder_logits(gen, dev, n, dt)
         g = torch.randn((n, 19, 2), generator=gen).to(dev)
-        ms = cuda_ms(lambda: soft_argmax_bwd_fused(hm, g))
-        plain = cuda_ms(lambda: soft_argmax_bwd(hm, g))
-        nbytes = 2 * hm.numel() * hm.element_size() + g.numel() * 4
-        bound, by = bound_ms(nbytes, 12 * hm.numel(), FP32_FLOPS)
-        print(f"# K2 at {n} images ({dt} 64x64x19, channels_last): kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
-              f"({by}, {nbytes / 1e6:.1f} MB)")
-        out[str(dt).replace("torch.", "")] = {
-            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}
-    return out
+        _, stats = soft_argmax_fwd_fused(hm)
+        t = kernel_times(lambda: soft_argmax_bwd_fused(hm, g, stats),
+                         "softargmax_bwd")
+        nbytes = 2 * hm.numel() * hm.element_size() + n * 19 * 6 * 4
+        row = _timed_row(t, call_ms(lambda: soft_argmax_bwd(hm, g)), nbytes,
+                         12 * hm.numel())
+        row["shape"] = f"({n}, 64, 64, 19) {str(dt).replace('torch.', '')}"
+        _show_times(f"K2 {row['shape']}", row)
+        rows.append(row)
+    return dict(rows[0], variants=rows[1:])
 
 
 def _time_block(dev, gen, n, cin, planes, ds, hw, plain=False):
@@ -792,21 +964,23 @@ def _time_block(dev, gen, n, cin, planes, ds, hw, plain=False):
     x, args = bottleneck_case(gen, dev, n, cin, planes, ds, hw)
     packed = pack_weights(*args)
     cout = 4 * planes
-    ms = cuda_ms(lambda: fused_bottleneck_packed(x, packed))
+    t = kernel_times(lambda: fused_bottleneck_packed(x, packed),
+                     "bottleneck_kernel")
+    ms = t["device_ms_cold"]
     blk = Bottleneck(cin, planes, 1, ds).to(dev).eval()
     with torch.inference_mode():
-        lib = cuda_ms(lambda: blk(x))
+        lib = call_ms(lambda: blk(x))
     flops = 2 * n * hw * hw * planes * (
         cin + 9 * planes + cout + (cin * cout // planes if ds else 0))
     wbytes = 2 * (cin * planes + 9 * planes * planes + planes * cout
                   + (cin * cout if ds else 0))
     nbytes = 2 * n * hw * hw * (cin + cout) + wbytes
     bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
-    out = {"n": n, "ms": ms, "bound_ms": bound, "bound_by": by,
-           "library_ms": lib, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-           "tflops": flops / ms / 1e9, "share_of_bound": bound / ms}
+    out = dict(t, n=n, ms=ms, bound_ms=bound, bound_by=by, library_ms=lib,
+               gflop=flops / 1e9, mbytes=nbytes / 1e6,
+               tflops=flops / ms / 1e9, share_of_bound=bound / ms)
     if plain:
-        out["plain_ms"] = cuda_ms(lambda: bottleneck_plain(x, *args), iters=5)
+        out["plain_ms"] = call_ms(lambda: bottleneck_plain(x, *args), iters=5)
     return out
 
 
@@ -816,26 +990,30 @@ def time_bottleneck(dev, gen):
     leaves unfused."""
     n = 2 * TIMING_PAIRS
     per_forward = {"layer1.0": 1, "layer2.x": 3}
-    parts, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                        "library_ms": 0.0}
+    parts, total = [], {"ms": 0.0, "device_ms_cold": 0.0,
+                        "device_ms_warm": 0.0, "call_ms": 0.0,
+                        "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     bytes_t = ops_t = 0.0
     extra = {}
 
     def show(name, t):
-        print(f"# K3 {name} at {t['n']} images: kernel {t['ms']:.4f} ms "
-              f"({t['tflops']:.1f} TFLOP/s, {100 * t['share_of_bound']:.1f}% "
-              f"of the bound), unfused cuDNN block {t['library_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
-              f"{t['gflop']:.2f} GFLOP, {t['mbytes']:.1f} MB)"
+        print(f"# K3 {name} at {t['n']} images: device {t['ms']:.4f} ms L2 "
+              f"cold, {t['device_ms_warm']:.4f} ms warm ({t['tflops']:.1f} "
+              f"TFLOP/s, {100 * t['share_of_bound']:.1f}% of the bound cold);"
+              f" call {t['call_ms']:.4f} ms, unfused cuDNN block call "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; {t['gflop']:.2f} GFLOP, "
+              f"{t['mbytes']:.1f} MB)"
               + (f", plain {t['plain_ms']:.4f} ms" if "plain_ms" in t
                  else ""))
 
     for name, (cin, planes, ds, hw) in BLOCK_SHAPES.items():
         t = _time_block(dev, gen, n, cin, planes, ds, hw, plain=True)
         show(name, t)
-        require(t["ms"] < t["library_ms"],
-                f"K3 {name} at {n} images takes {t['ms']:.4f} ms, the "
-                f"unfused cuDNN block {t['library_ms']:.4f} ms")
+        # like for like: both by CUDA events around one call
+        require(t["call_ms"] < t["library_ms"],
+                f"K3 {name} at {n} images takes {t['call_ms']:.4f} ms a "
+                f"call, the unfused cuDNN block {t['library_ms']:.4f} ms")
         k = per_forward[name]
         bytes_t += k * t["mbytes"] * 1e6 / HBM_BPS * 1e3
         ops_t += k * t["gflop"] * 1e9 / BF16_FLOPS * 1e3
@@ -922,6 +1100,9 @@ def profile_serving(inf, dev, pairs, wall_ms, calls=3):
         groups[key] += ms
     busy = sum(groups.values())
     require(busy > 0, "the profiler recorded no device time")
+    for name in ("K3 fused bottleneck", "K1 soft-argmax"):
+        require(groups[name] > 0, f"no kernel of the group {name} in the "
+                                  f"profile of predict_batch")
     print(f"# profile predict_batch batch {pairs}: device busy {busy:.3f} ms "
           f"of {wall_ms:.3f} ms wall (idle {100 * (1 - busy / wall_ms):.0f}%)"
           f", {launches // calls} kernel launches a call")
@@ -1032,6 +1213,9 @@ def profile_train(train, wall_ms):
     groups["other (elementwise, copies, reductions, geometry)"] = rest - bn
     busy = sum(groups.values())
     require(busy > 0, "the profiler recorded no device time")
+    for name in ("K1 soft-argmax", "K2 soft-argmax backward"):
+        require(groups[name] > 0, f"no kernel of the group {name} in the "
+                                  f"profile of a train step")
     print(f"# profile train step ({TRAIN_PAIRS} pairs, use_3d): device busy "
           f"{busy:.3f} ms of {wall_ms:.3f} ms wall (idle "
           f"{100 * (1 - busy / wall_ms):.0f}%), {launches} kernel launches; "
@@ -1048,13 +1232,15 @@ def profile_train(train, wall_ms):
 
 
 def main():
+    args = sys.argv[1:]
+    if args not in ([], ["--kernels"]):
+        sys.exit("usage: python3 chip_smoke.py [--kernels]")
+    kernels_only = args == ["--kernels"]
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs a CUDA device")
     from fast3dhpe_tpu_torch.config import load_config
     from fast3dhpe_tpu_torch.ops._build import build
-    from fast3dhpe_tpu_torch.ops.softargmax import (soft_argmax_bwd_fused,
-                                                    soft_argmax_fused)
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -1070,19 +1256,12 @@ def main():
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
-    logs = build(["fused_bottleneck"])
-    t_nvcc = time.perf_counter() - t0
+    logs = build(["fused_bottleneck", "softargmax"])
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"# nvcc {name}: {line.strip()}")
-    t0 = time.perf_counter()
-    z = torch.zeros((1, 64, 64, 19), device=dev)
-    soft_argmax_fused(z)
-    soft_argmax_bwd_fused(z, torch.zeros((1, 19, 2), device=dev))
-    torch.cuda.synchronize()
-    print(f"# build: nvcc {t_nvcc:.1f} s, Triton JIT "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"# build: nvcc {time.perf_counter() - t0:.1f} s")
 
     phases = {}
 
@@ -1096,6 +1275,15 @@ def main():
     err_k1 = phase("K1 check", check_softargmax, dev, gen)
     err_k2 = phase("K2 check", check_softargmax_bwd, dev, gen)
     err_k3 = phase("K3 check", check_bottleneck, dev, gen)
+
+    if kernels_only:
+        times = {"K1": phase("K1 timing", time_softargmax, dev, gen),
+                 "K2": phase("K2 timing", time_softargmax_bwd, dev, gen),
+                 "K3": phase("K3 timing", time_bottleneck, dev, gen)}
+        print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in phases.items()))
+        print(json.dumps({"kernel_times": times}))
+        return
 
     cfg = load_config("configs/mads_3d.yaml")
     inf, serve_launches, _ = phase("serving path", run_path, cfg, dev)
@@ -1121,19 +1309,14 @@ def main():
                 "launches_by_path": by_path}
 
     kernels = [
-        dict(name="soft_argmax_fwd", route="triton",
-             source="fast3dhpe_tpu_torch/ops/softargmax.py",
+        dict(name="soft_argmax_fwd", route="cuda",
+             source="fast3dhpe_tpu_torch/csrc/softargmax.cu",
              replaces="fast3dhpe_tpu/ops/pallas_softargmax.py:64",
-             max_abs_err=err_k1, shape=f"({2 * TIMING_PAIRS}, 64, 64, 19) bf16",
-             **launch_counts("soft_argmax"), **k1),
-        dict(name="soft_argmax_bwd", route="triton",
-             source="fast3dhpe_tpu_torch/ops/softargmax.py",
+             max_abs_err=err_k1, **launch_counts("soft_argmax"), **k1),
+        dict(name="soft_argmax_bwd", route="cuda",
+             source="fast3dhpe_tpu_torch/csrc/softargmax.cu",
              replaces="fast3dhpe_tpu/ops/pallas_softargmax.py:79",
-             max_abs_err=err_k2,
-             shape=f"({2 * TIMING_PAIRS}, 64, 64, 19) float32 (bf16: "
-                   f"bfloat16 key)",
-             **launch_counts("soft_argmax_bwd"), **k2["float32"],
-             bfloat16=k2["bfloat16"]),
+             max_abs_err=err_k2, **launch_counts("soft_argmax_bwd"), **k2),
         dict(name="fused_bottleneck", route="cuda",
              source="fast3dhpe_tpu_torch/csrc/fused_bottleneck.cu",
              replaces="fast3dhpe_tpu/ops/pallas_bottleneck.py:191",

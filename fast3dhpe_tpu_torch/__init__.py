@@ -3,7 +3,8 @@ NVIDIA H100.
 
 It imports torch and numpy, never JAX or fast3dhpe_tpu. Entry points run
 on the GPU unless the caller passes device="cpu" (device.py). The Pallas
-kernels of the JAX package become kernels written for Hopper: the
-soft-argmax forward in Triton (ops/softargmax.py) and the fused eval-mode
-bottleneck in CUDA C++ (csrc/fused_bottleneck.cu, ops/bottleneck.py).
+kernels of the JAX package become kernels written for Hopper in CUDA C++:
+the soft-argmax forward and backward (csrc/softargmax.cu,
+ops/softargmax.py) and the fused eval-mode bottleneck
+(csrc/fused_bottleneck.cu, ops/bottleneck.py).
 """

@@ -1,184 +1,284 @@
-"""Soft-argmax forward (K1) and backward (K2) as Triton kernels, joined by
-a torch.autograd.Function.
+"""Soft-argmax forward (K1) and backward (K2): launch plan, launch rules,
+ctypes binding and wrappers, joined by a torch.autograd.Function.
 
-K1 replaces fast3dhpe_tpu/ops/pallas_softargmax.py `_softargmax_fwd_kernel`
-(launched by `_fwd_pallas`, pallas_call at :64). For each (image, joint)
-row of H*W logits: the max-subtracted fp32 softmax, then cx = sum p*x and
-cy = sum p*y in heatmap pixels.
+The kernels are csrc/softargmax.cu (CUDA C++ for sm_90a, built by
+ops/_build.py). K1 replaces fast3dhpe_tpu/ops/pallas_softargmax.py
+`_softargmax_fwd_kernel` (:28, launched by `_fwd_pallas`, pallas_call at
+:64): for each (image, joint) the max-subtracted fp32 softmax over H*W,
+then cx = sum p*x and cy = sum p*y in heatmap pixels. K2 replaces
+`_softargmax_bwd_kernel` (:45, launched by `_bwd_pallas`, pallas_call at
+:79): dL/dh = p * (gx*(x - cx) + gy*(y - cy)). K1 also returns, per (image,
+joint), the statistics (m, 1/S, cx, cy), and the autograd Function saves
+them beside the logits, so K2 reads the logits once; the JAX custom VJP
+recomputes p, cx and cy from the logits instead.
 
-K2 replaces `_softargmax_bwd_kernel` (launched by `_bwd_pallas`,
-pallas_call at :79): dL/dh = p * (gx*(x - cx) + gy*(y - cy)), with p, cx
-and cy recomputed from the saved logits, as the JAX custom VJP does. The
-backward saves the logits only; no probability tensor is kept.
+What bounds them on the H100: memory. At 64 images of 64x64x19 K1 reads
+19.9 MB in fp32 (6.0 us at 3.35 TB/s), 10.0 MB in bf16; K2 reads and
+writes 19.9 MB each in fp32 (11.9 us).
 
-What bounds them on the H100: each reads every logit once and does a few
-operations on it, so the roofline is memory. At 64 images of 64x64x19,
-fp32, K1 reads 19.9 MB (~6 us at 3.35 TB/s); K2 reads 19.9 MB and writes
-19.9 MB (0.0119 ms). bf16 takes half of each.
-
-The design: one program per (image, joint) row, the whole row of H*W
-values in registers (BLOCK = next power of two, masked), strides passed
-in, so the decoder's output (NCHW in channels_last memory, viewed as
-NHWC) is read where it lies, with no copy. In that layout one row's
-values lie J = 19 elements apart, so a program's loads and stores are
-strided, not coalesced. Program ids run joint-fastest, so the 19 programs
-that share each 128-byte line run side by side and the line comes from
-HBM about once, the others hitting L2; the stores merge in L2 the same
-way. That keeps the traffic near the bound, but each warp still issues a
-transaction per element: this is what keeps K1 at 13-36x its bound and
-K2 at 7-13x (PERF.md). K2 computes in fp32 and writes dh in the logits'
-dtype, rounded once, with the logits' strides.
+The strided rows: the decoder's output (NCHW in channels_last memory,
+viewed as NHWC) is a contiguous (N, H, W, J) tensor, in which one
+(image, joint) row lies J = 19 elements apart but each image is one
+contiguous span of H*W*J values. Both kernels stream that span in 16-byte
+pieces and map each element to its (pixel, joint) themselves, so every
+load and store covers whole sectors (the .cu's header says how). On a
+CUDA tensor the wrappers take only that layout and raise on any other
+(`check_launch`); on a CPU tensor they run the plain `soft_argmax` and
+`soft_argmax_bwd` (ops/heatmap.py), which take any strides.
 """
 
-# No `from __future__ import annotations` here: Triton reads the kernel's
-# `tl.constexpr` annotation as an object.
+from __future__ import annotations
+
+import ctypes
 import functools
-import os
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ._build import BUILD_DIR
+from ._build import load_library
 from .heatmap import soft_argmax, soft_argmax_bwd
+
+# the kernels' constants (csrc/softargmax.cu, which a CPU test holds these
+# against): threads a CTA, most joints, pixels of a K1 thread's run, K1's
+# ring depth, K1's chunk granularity in pixels, K1 CTAs an image (one
+# cluster), 16-byte vectors a K2 thread loads at once, shared memory a
+# block may use
+_THREADS, _MAX_J, _RUN, _STAGES, _PIX_ALIGN, _MAX_CHUNKS, _BWD_VEC = (
+    256, 64, 16, 3, 16, 8, 4)
+_SMEM_LIMIT = 232448
+_SMS = 132                      # streaming multiprocessors of an H100
+_TARGET_CTAS = 2 * _SMS         # what a K1 grid should hold at most
+_BWD_TARGET_CTAS = 8 * _SMS     # K2: a full wave of 256-thread CTAs
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, b: int) -> int:
+    return _ceil_div(a, b) * b
+
+
+def tile_pix(joints: int) -> int:
+    """Pixels of a K1 tile: one run for each group of threads that share a
+    joint (the kernel's `tile_pix`)."""
+    return (_THREADS // joints) * _RUN
+
+
+def fwd_smem_bytes(joints: int, elt: int) -> int:
+    """K1's dynamic shared memory (the kernel's `fwd_smem_bytes`): a ring
+    of tiles, each a tile's bytes rounded up to 16 and one 16-byte piece
+    more for a tile that starts off a 16-byte boundary."""
+    return _STAGES * (_round_up(tile_pix(joints) * joints * elt, 16) + 16)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """The grids of one K1 and one K2 launch: (chunks, N) CTAs each."""
+    chunk_pix: int       # K1: pixels a CTA, a multiple of _PIX_ALIGN
+    chunks: int          # K1: CTAs an image
+    bwd_chunk_vec: int   # K2: 16-byte vectors a CTA
+    bwd_chunks: int      # K2: CTAs an image
+    smem: int            # K1's dynamic shared memory, bytes
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(n: int, hw: int, joints: int, elt: int) -> LaunchPlan:
+    """Cut each image of hw pixels x `joints` values of `elt` bytes: K1
+    into at most _MAX_CHUNKS chunks of whole pixels (one cluster an image)
+    and at most two CTAs an SM; K2 into chunks of 16-byte vectors, so that
+    its grid fills every SM with as many CTAs as it can hold at once,
+    where the images allow (scripts/softargmax_plan_sweep.py)."""
+    chunk_pix = _round_up(
+        _ceil_div(hw, min(_MAX_CHUNKS, max(1, _TARGET_CTAS // n))),
+        _PIX_ALIGN)
+    nvec = hw * joints * elt // 16
+    chunk_vec = _round_up(
+        max(1, _ceil_div(nvec, _ceil_div(_BWD_TARGET_CTAS, n))), 32)
+    return LaunchPlan(chunk_pix, _ceil_div(hw, chunk_pix), chunk_vec,
+                      max(1, _ceil_div(nvec, chunk_vec)),
+                      fwd_smem_bytes(joints, elt))
+
+
+_RULES = ("device cpu or cuda", "dtype float32 or bfloat16",
+          "4-d (N, H, W, J)")
+_CUDA_RULES = (f"1 <= J <= {_MAX_J}", "1 <= N <= 65535", "H, W >= 1",
+               "contiguous (N, H, W, J)", "16-byte aligned data_ptr")
+
+
+def _dense(shape: Sequence[int], strides: Sequence[int]) -> bool:
+    """torch's is_contiguous: row-major strides, any stride on a size-1
+    dimension."""
+    want = 1
+    for size, stride in zip(reversed(shape), reversed(strides)):
+        if size != 1 and stride != want:
+            return False
+        want *= size
+    return True
+
+
+def check_launch(device: str, dtype: torch.dtype, shape: Sequence[int],
+                 strides: Sequence[int], data_ptr: int) -> None:
+    """The wrappers' rules on the logits. On the CPU: a known device, fp32
+    or bf16, 4-d. On CUDA also what the kernels read: J <= 64, the grid's
+    N, a contiguous (N, H, W, J) tensor (the decoder's channels_last output
+    viewed as NHWC) at a 16-byte aligned address. Raises ValueError naming
+    the rules and the ones broken."""
+    ok = [device in ("cpu", "cuda"), dtype in _DTYPES, len(shape) == 4]
+    rules = list(_RULES)
+    if device == "cuda" and len(shape) == 4:
+        n, h, w, j = shape
+        rules += _CUDA_RULES
+        ok += [1 <= j <= _MAX_J, 1 <= n <= 65535, h >= 1 and w >= 1,
+               _dense(shape, strides), data_ptr % 16 == 0]
+    if not all(ok):
+        broken = [r for r, good in zip(rules, ok) if not good]
+        raise ValueError(
+            f"soft_argmax: the logits must have {', '.join(rules)}; got "
+            f"{device} {dtype} shape {tuple(shape)} strides "
+            f"{tuple(strides)}; broken: {', '.join(broken)}")
+
+
+def _check(heatmaps):
+    dev = heatmaps.device.type
+    check_launch(dev, heatmaps.dtype, tuple(heatmaps.shape),
+                 heatmaps.stride(),
+                 heatmaps.data_ptr() if dev == "cuda" else 0)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernels():
-    global tl
-    # Triton's compiled kernels go to build/ beside nvcc's, not to $HOME
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR.parent / "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def softargmax_fwd(h_ptr, out_ptr, J, W, HW, s_n, s_h, s_w, s_j,
-                       BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        n = row // J
-        j = row - n * J
-        base = n.to(tl.int64) * s_n + j.to(tl.int64) * s_j
-        idx = tl.arange(0, BLOCK)
-        mask = idx < HW
-        y = idx // W
-        x = idx - y * W
-        v = tl.load(h_ptr + base + y * s_h + x * s_w, mask=mask,
-                    other=float("-inf")).to(tl.float32)
-        m = tl.max(v, axis=0)
-        p = tl.where(mask, tl.exp(v - m), 0.0)
-        s = tl.sum(p, axis=0)
-        cx = tl.sum(p * x.to(tl.float32), axis=0) / s
-        cy = tl.sum(p * y.to(tl.float32), axis=0) / s
-        tl.store(out_ptr + row * 2, cx)
-        tl.store(out_ptr + row * 2 + 1, cy)
-
-    @triton.jit
-    def softargmax_bwd(h_ptr, g_ptr, dh_ptr, J, W, HW, s_n, s_h, s_w, s_j,
-                       BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        n = row // J
-        j = row - n * J
-        base = n.to(tl.int64) * s_n + j.to(tl.int64) * s_j
-        idx = tl.arange(0, BLOCK)
-        mask = idx < HW
-        y = idx // W
-        x = idx - y * W
-        offs = base + y * s_h + x * s_w
-        v = tl.load(h_ptr + offs, mask=mask,
-                    other=float("-inf")).to(tl.float32)
-        m = tl.max(v, axis=0)
-        e = tl.where(mask, tl.exp(v - m), 0.0)
-        p = e / tl.sum(e, axis=0)
-        xf = x.to(tl.float32)
-        yf = y.to(tl.float32)
-        cx = tl.sum(p * xf, axis=0)
-        cy = tl.sum(p * yf, axis=0)
-        gx = tl.load(g_ptr + row * 2)
-        gy = tl.load(g_ptr + row * 2 + 1)
-        dh = p * (gx * (xf - cx) + gy * (yf - cy))
-        tl.store(dh_ptr + offs, dh.to(dh_ptr.dtype.element_ty), mask=mask)
-
-    return softargmax_fwd, softargmax_bwd, triton.next_power_of_2
+def _entries():
+    lib = load_library("softargmax")
+    fwd, bwd = lib.softargmax_fwd, lib.softargmax_bwd
+    fwd.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    bwd.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
 
 
-def _check(name, heatmaps):
-    if heatmaps.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {heatmaps.device}")
-    if heatmaps.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: fp32 or bf16 logits, got {heatmaps.dtype}")
-    if heatmaps.dim() != 4:
-        raise ValueError(f"{name}: (N, H, W, J) logits, got shape "
-                         f"{tuple(heatmaps.shape)}")
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch_args(heatmaps):
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _fwd_cuda(heatmaps, plan: LaunchPlan):
+    """One K1 launch on checked CUDA logits, cut as `plan` says."""
     N, H, W, J = heatmaps.shape
-    return (N * J,), (J, W, H * W, *heatmaps.stride())
+    dev = heatmaps.device
+    out = torch.empty((N, J, 2), dtype=torch.float32, device=dev)
+    stats = torch.empty((N, J, 4), dtype=torch.float32, device=dev)
+    err = _entries()[0](
+        _ptr(heatmaps), int(heatmaps.dtype == torch.bfloat16), _ptr(out),
+        _ptr(stats), N, H * W, W, J, plan.chunk_pix, plan.chunks,
+        _stream(dev))
+    if err:
+        raise RuntimeError(f"soft_argmax forward: CUDA error {err} at "
+                           f"launch")
+    return out, stats
 
 
-def soft_argmax_fwd_fused(heatmaps):
-    """K1: (N, H, W, J) logits -> (N, J, 2) fp32 (x, y). The plain
-    `soft_argmax` on a CPU tensor; on a CUDA tensor the Triton kernel."""
-    _check("soft_argmax_fwd_fused", heatmaps)
+def _bwd_cuda(heatmaps, stats, g, plan: LaunchPlan):
+    """One K2 launch on checked CUDA logits, statistics and fp32
+    contiguous g, cut as `plan` says."""
+    N, H, W, J = heatmaps.shape
+    dh = torch.empty_like(heatmaps)
+    err = _entries()[1](
+        _ptr(heatmaps), int(heatmaps.dtype == torch.bfloat16), _ptr(stats),
+        _ptr(g), _ptr(dh), N, H * W, W, J, plan.bwd_chunk_vec,
+        plan.bwd_chunks, _stream(heatmaps.device))
+    if err:
+        raise RuntimeError(f"soft_argmax backward: CUDA error {err} at "
+                           f"launch")
+    return dh
+
+
+def _plan_of(heatmaps) -> LaunchPlan:
+    N, H, W, J = heatmaps.shape
+    return launch_plan(N, H * W, J, heatmaps.element_size())
+
+
+def soft_argmax_fwd_fused(heatmaps) -> Tuple[torch.Tensor,
+                                             Optional[torch.Tensor]]:
+    """K1: (N, H, W, J) logits -> ((N, J, 2) fp32 (x, y), statistics).
+
+    On a CPU tensor: the plain `soft_argmax`, any strides, and no
+    statistics (None). On a CUDA tensor: csrc/softargmax.cu, whose
+    statistics are (N, J, 4) fp32 (m, 1/S, cx, cy) for K2; or it raises.
+    `soft_argmax_fused.launches` counts its launches.
+    """
+    _check(heatmaps)
     if heatmaps.device.type == "cpu":
-        return soft_argmax(heatmaps)
-    fwd, _, next_pow2 = _kernels()
-    N, H, W, J = heatmaps.shape
-    out = torch.empty((N, J, 2), dtype=torch.float32,
-                      device=heatmaps.device)
-    grid, args = _launch_args(heatmaps)
-    fwd[grid](heatmaps, out, *args, BLOCK=next_pow2(H * W), num_warps=4)
+        return soft_argmax(heatmaps), None
+    out = _fwd_cuda(heatmaps, _plan_of(heatmaps))
     soft_argmax_fused.launches += 1
     return out
 
 
-def soft_argmax_bwd_fused(heatmaps, g):
+def soft_argmax_bwd_fused(heatmaps, g, stats=None):
     """K2: the gradient of the soft-argmax for the cotangent g (N, J, 2),
-    as (N, H, W, J) in the logits' dtype and strides. The plain
-    `soft_argmax_bwd` on a CPU tensor; on a CUDA tensor the Triton
-    kernel."""
-    _check("soft_argmax_bwd_fused", heatmaps)
+    as (N, H, W, J) in the logits' dtype and strides.
+
+    On a CPU tensor: the plain `soft_argmax_bwd`, any strides (`stats` is
+    not read). On a CUDA tensor: csrc/softargmax.cu from K1's statistics,
+    running K1 first (and counting it) when `stats` is None; or it raises.
+    `soft_argmax_bwd_fused.launches` counts K2's launches.
+    """
+    _check(heatmaps)
     N, H, W, J = heatmaps.shape
     if tuple(g.shape) != (N, J, 2):
         raise ValueError(f"soft_argmax_bwd_fused: cotangent of shape "
                          f"{(N, J, 2)}, got {tuple(g.shape)}")
     if heatmaps.device.type == "cpu":
         return soft_argmax_bwd(heatmaps, g)
-    _, bwd, next_pow2 = _kernels()
-    g = g.to(device=heatmaps.device, dtype=torch.float32).contiguous()
-    dh = torch.empty_like(heatmaps)
-    if dh.stride() != heatmaps.stride():
-        raise ValueError(f"soft_argmax_bwd_fused: logits with overlapping "
-                         f"or gapped strides {heatmaps.stride()}")
-    grid, args = _launch_args(heatmaps)
-    bwd[grid](heatmaps, g, dh, *args, BLOCK=next_pow2(H * W), num_warps=4)
+    dev = heatmaps.device
+    if stats is None:
+        _, stats = soft_argmax_fwd_fused(heatmaps)
+    if (tuple(stats.shape) != (N, J, 4) or stats.dtype != torch.float32
+            or stats.device != dev or not stats.is_contiguous()):
+        raise ValueError(f"soft_argmax_bwd_fused: statistics must be a "
+                         f"contiguous (N, J, 4) float32 tensor on {dev}")
+    g = g.to(device=dev, dtype=torch.float32).contiguous()
+    dh = _bwd_cuda(heatmaps, stats, g, _plan_of(heatmaps))
     soft_argmax_bwd_fused.launches += 1
     return dh
 
 
 class _SoftArgmax(torch.autograd.Function):
-    """K1 forward, K2 backward from the saved logits (`_fused_fwd` /
-    `_fused_bwd` in the JAX package)."""
+    """K1 forward; K2 backward from the saved logits and K1's statistics
+    (`_fused_fwd` / `_fused_bwd` in the JAX package, which save only the
+    logits). Autograd's version check on the saved tensors catches an
+    in-place edit of either."""
 
     @staticmethod
     def forward(ctx, heatmaps):
-        ctx.save_for_backward(heatmaps)
-        return soft_argmax_fwd_fused(heatmaps)
+        out, stats = soft_argmax_fwd_fused(heatmaps)
+        ctx.save_for_backward(heatmaps, stats)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        (heatmaps,) = ctx.saved_tensors
-        return soft_argmax_bwd_fused(heatmaps, g)
+        heatmaps, stats = ctx.saved_tensors
+        return soft_argmax_bwd_fused(heatmaps, g, stats)
 
 
 def soft_argmax_fused(heatmaps):
-    """(N, H, W, J) logits, fp32 or bf16, any strides -> (N, J, 2) fp32
-    (x, y), differentiable.
+    """(N, H, W, J) logits, fp32 or bf16 -> (N, J, 2) fp32 (x, y),
+    differentiable.
 
-    On a CPU tensor this runs the plain `soft_argmax` and `soft_argmax_bwd`;
-    on a CUDA tensor it launches K1 (forward) and K2 (backward) or raises.
+    On a CPU tensor this runs the plain `soft_argmax` and `soft_argmax_bwd`
+    (any strides); on a CUDA tensor it launches K1 (forward) and K2
+    (backward) on a contiguous (N, H, W, J) tensor, or raises.
     `soft_argmax_fused.launches` counts K1 launches and
     `soft_argmax_bwd_fused.launches` K2 launches.
     """
-    _check("soft_argmax_fused", heatmaps)
+    _check(heatmaps)
     return _SoftArgmax.apply(heatmaps)
 
 

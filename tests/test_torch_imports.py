@@ -40,7 +40,7 @@ def test_importing_the_port_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert bad == [], bad
-    assert "triton" not in loaded       # the kernels import it on first use
+    assert "triton" not in loaded       # the port has no Triton kernel
 
 
 def _imported_names(path):
