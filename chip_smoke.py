@@ -37,11 +37,26 @@
    running statistics from the valid rows with the biased variance, and
    that each step launched K1 and K2 once and K3 never. Times the step and
    splits one step's device time by kernel group.
-6. Card vs CPU: one train step with and one without the 3D loss at 2
+6. Input pipeline: builds a DeviceFrameCache of 1024 seeded 768x1024
+   uint8 frames (2.4 GB) on the card, and one at half the budget that
+   must keep an even partial prefix; checks the pipeline's output there
+   (occluded pixels gray 128, the rest the eval output, target weights
+   recomputed from the keep-masks, Cutout's gate share and holes over 512
+   samples, Hide-and-Seek's 6 of 16 cells, an eval batch against the
+   CPU); trains CDRNet-101 through make_train_epoch_cdr from the cache
+   with CUTOUT (a warmup and a use_3d epoch of 3 steps: one K1 and one K2
+   launch a step, no K3, finite sums, the loss arithmetic, the parameters
+   moved); times the pipeline alone and a pipeline-fed step beside the
+   precomputed-batch step.
+7. Raw-frame serving: three requests of four raw pairs from the cache
+   through predict_batch(..., trans=...) (1 K1 + 0 K2 + 4 K3 launches a
+   request), one against the CPU, and raw against pre-warped requests
+   timed at batch 1 and 32.
+8. Card vs CPU: one train step with and one without the 3D loss at 2
    pairs (one padded), full width, from the same weights and batch on the
    card and on the CPU: losses, grad_norm, every gradient and the BN
    statistics, beside how far rounding-sized noise moves them on the CPU.
-7. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
+9. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
 
 It needs one CUDA device. Without one, or when any phase fails, it exits
 non-zero and prints no result.
@@ -475,12 +490,44 @@ def normalized(img_l, img_r, device):
                         for i in (img_l, img_r)], dim=1)
 
 
-def run_path(cfg, dev):
-    from fast3dhpe_tpu_torch.geometry.triangulation import dlt_triangulate
+def kernel_counters():
     from fast3dhpe_tpu_torch.ops.bottleneck import fused_bottleneck
     from fast3dhpe_tpu_torch.ops.softargmax import (soft_argmax_bwd_fused,
                                                     soft_argmax_fused)
+    return {"soft_argmax": soft_argmax_fused,
+            "soft_argmax_bwd": soft_argmax_bwd_fused,
+            "fused_bottleneck": fused_bottleneck}
 
+
+def serve_counted(inf, requests, n_fused, what):
+    """predict_batch(*request) for each request, with the kernels' launch
+    counts set to 0 just before and read just after: each request must
+    launch K1 once, K2 never and K3 once per fused block; outputs of the
+    request's shapes, finite."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    outs = [inf.predict_batch(*req) for req in requests]
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    n = len(requests)
+    print(f"# {what}: {n} requests x {len(requests[0][0])} pairs, launches "
+          f"{launches}")
+    require(launches == {"soft_argmax": n, "soft_argmax_bwd": 0,
+                         "fused_bottleneck": n * n_fused},
+            f"{what}: {n} requests launched K1/K2/K3 {launches}, not "
+            f"{n}/0/{n * n_fused}")
+    for req, (kp, p3d) in zip(requests, outs):
+        pairs = len(req[0])
+        require(kp.shape == (pairs, 2, 19, 2) and p3d.shape == (pairs, 19, 3),
+                f"{what}: output shapes {tuple(kp.shape)}, "
+                f"{tuple(p3d.shape)}")
+        require(bool(torch.isfinite(kp).all() and torch.isfinite(p3d).all()),
+                f"{what}: non-finite output")
+    return outs, launches
+
+
+def run_path(cfg, dev):
     t0 = time.perf_counter()
     inf = seeded_inferencer(cfg, "cuda")
     model = inf.model
@@ -504,47 +551,37 @@ def run_path(cfg, dev):
     print(f"# path: CDRNet-{cfg.MODEL.NUM_LAYERS} built and calibrated in "
           f"{time.perf_counter() - t0:.1f} s; fused blocks {fused}")
 
-    soft_argmax_fused.launches = 0
-    soft_argmax_bwd_fused.launches = 0
-    fused_bottleneck.launches = 0
-    outs = [inf.predict_batch(*req) for req in requests]
-    torch.cuda.synchronize()
-    launches = {"soft_argmax": soft_argmax_fused.launches,
-                "soft_argmax_bwd": soft_argmax_bwd_fused.launches,
-                "fused_bottleneck": fused_bottleneck.launches}
-    print(f"# path: {REQUESTS} requests x {PAIRS} pairs, launches "
-          f"{launches}")
-    require(launches["soft_argmax"] == REQUESTS,
-            f"soft-argmax kernel launched {launches['soft_argmax']} times "
-            f"for {REQUESTS} requests")
-    require(launches["soft_argmax_bwd"] == 0,
-            f"soft-argmax backward launched {launches['soft_argmax_bwd']} "
-            f"times while serving")
-    require(launches["fused_bottleneck"] == REQUESTS * len(fused),
-            f"fused bottleneck launched {launches['fused_bottleneck']} times "
-            f"for {REQUESTS} requests x {len(fused)} blocks")
-    for kp, p3d in outs:
-        require(kp.shape == (PAIRS, 2, 19, 2) and p3d.shape == (PAIRS, 19, 3),
-                f"output shapes {tuple(kp.shape)}, {tuple(p3d.shape)}")
-        require(bool(torch.isfinite(kp).all() and torch.isfinite(p3d).all()),
-                "non-finite output")
+    outs, launches = serve_counted(inf, requests, len(fused), "path")
 
     # one request against the same module on the CPU
     t0 = time.perf_counter()
     sd = {k: v.cpu() for k, v in model.state_dict().items()}
     cpu_model = seeded_inferencer(cfg, "cpu", state_dict=sd).model
     img_l, img_r, proj = requests[0]
+    check_vs_cpu(model, cpu_model, normalized(img_l, img_r, dev),
+                 normalized(img_l, img_r, "cpu"), proj, outs[0][0],
+                 "path vs CPU", t0)
+    return inf, launches, cpu_model
+
+
+def check_vs_cpu(model, cpu_model, imgs, cpu_imgs, proj, served_kp, what,
+                 t0):
+    """One request's heatmaps, pred_2d and pred_3d on the card against the
+    same module on the CPU, from the same normalised images; served_kp is
+    what predict_batch returned for them."""
+    from fast3dhpe_tpu_torch.geometry.triangulation import dlt_triangulate
+    dev = imgs.device
+    pairs = proj.shape[0]
     with torch.inference_mode():
-        gkp, gp3d, ghm = model(normalized(img_l, img_r, dev),
-                               torch.as_tensor(proj, device=dev),
+        gkp, gp3d, ghm = model(imgs, torch.as_tensor(proj, device=dev),
                                return_heatmaps=True)
-        ckp, cp3d, chm = cpu_model(normalized(img_l, img_r, "cpu"),
-                                   torch.as_tensor(proj),
+        ckp, cp3d, chm = cpu_model(cpu_imgs, torch.as_tensor(proj).cpu(),
                                    return_heatmaps=True)
         # the GPU's geometry against the CPU's on the GPU's own keypoints
-        proj_j = torch.as_tensor(proj)[:, None].expand(PAIRS, 19, 2, 3, 4)
+        proj_j = torch.as_tensor(proj).cpu()[:, None].expand(
+            pairs, 19, 2, 3, 4)
         ref3 = dlt_triangulate(proj_j, gkp.cpu().transpose(1, 2))
-    torch.testing.assert_close(gkp, outs[0][0], rtol=0, atol=0)
+    torch.testing.assert_close(gkp, served_kp, rtol=0, atol=0)
     ghm, chm = ghm.float().cpu(), chm.float()
     hm_scale = chm.abs().max().item()
     hm_max = (ghm - chm).abs().max().item() / hm_scale
@@ -554,7 +591,7 @@ def run_path(cfg, dev):
               / ref3.norm(dim=-1)).max().item()
     p3_cpu_rel = ((gp3d.cpu() - cp3d).norm(dim=-1)
                   / cp3d.norm(dim=-1)).median().item()
-    print(f"# path vs CPU ({time.perf_counter() - t0:.1f} s): heatmaps max "
+    print(f"# {what} ({time.perf_counter() - t0:.1f} s): heatmaps max "
           f"{hm_max:.3g} / mean {hm_mean:.3g} of max|cpu| {hm_scale:.3g}; "
           f"pred_2d max {kp_err:.3g} px; pred_3d vs CPU DLT of the GPU's "
           f"pred_2d {p3_rel:.3g} relative; pred_3d vs the CPU run, median "
@@ -563,25 +600,33 @@ def run_path(cfg, dev):
     # bf16 bounds of tests/test_pallas_kernels.py:116-119: cuDNN and
     # oneDNN round bf16 convolutions differently
     require(hm_max < 0.05 and hm_mean < 0.005,
-            f"heatmaps differ from the CPU run: max {hm_max}, mean {hm_mean}")
+            f"{what}: heatmaps differ from the CPU run: max {hm_max}, mean "
+            f"{hm_mean}")
     # with unit-spread logits those heatmap errors move a centre of mass by
     # a fraction of a heatmap pixel (4 image pixels)
-    require(kp_err < 2.0, f"pred_2d differs from the CPU run by {kp_err} px")
+    require(kp_err < 2.0,
+            f"{what}: pred_2d differs from the CPU run by {kp_err} px")
     # fp32 Jacobi SVD on either device, same keypoints
-    require(p3_rel < 1e-3, f"pred_3d differs from the CPU DLT by {p3_rel}")
-    return inf, launches, requests
+    require(p3_rel < 1e-3,
+            f"{what}: pred_3d differs from the CPU DLT by {p3_rel}")
+    return {"hm_max": hm_max, "hm_mean": hm_mean, "kp_px": kp_err,
+            "p3_rel": p3_rel}
 
 
 # ---------------------------------------------------------------- training
 
-def converging_rig(batch, size=256):
+def converging_rig(batch, size=256, height=None):
     """bench.py's intrinsics and camera centres (x = -+400 mm, 3000 mm from
     the origin), each camera turned toward the origin. bench.py's own rig
     keeps the axes parallel, and at 3 m each camera sees only
     128 * 3000 / 1100 = 349 mm either side of its axis, which lies 400 mm
-    off the origin: no pose near the origin projects into both views."""
-    f, c = 1100.0 * size / 256, size / 2
-    K = np.array([[f, 0.0, c], [0.0, f, c], [0.0, 0.0, 1.0]])
+    off the origin: no pose near the origin projects into both views.
+    size: the image width; height: its height if it is not square (f then
+    scales with the shorter side, the principal point is the centre)."""
+    height = size if height is None else height
+    f = 1100.0 * min(size, height) / 256
+    K = np.array([[f, 0.0, size / 2], [0.0, f, height / 2],
+                  [0.0, 0.0, 1.0]])
     Ps = []
     for cx in (-400.0, 400.0):
         centre = np.array([cx, 0.0, -3000.0])
@@ -873,6 +918,451 @@ def train_vs_cpu(cfg, start_sd, dev):
         out[label] = {"card_vs_cpu": err, "cpu_noise": noise}
     print(f"# train card vs CPU: {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# ---------------------------------------------------------- input pipeline
+
+RAW_H, RAW_W = 768, 1024          # MADS frames (fast3dhpe_tpu/ops/warp.py)
+CACHE_PAIRS = 512                 # 1024 frames, 2.4 GB resident
+EPOCH_BATCHES = 3                 # S: an epoch of 3 batches of TRAIN_PAIRS
+OCCL_BATCHES = 16                 # 512 samples for the Cutout statistics
+OCCL_PROB = 0.3                   # device_pipeline.py's gate
+CUTOUT_HOLES, CUTOUT_LEN = 6, 40  # ops/occlusion.py's defaults
+HNS_HIDDEN, HNS_CELLS = 6, 4      # int(0.4 * 16) of a 4 x 4 grid
+# the CPU tests' warp bound (tests/test_torch_pipeline_ops.py: 1e-3
+# intensity levels) over the smallest ImageNet std, in normalised units
+IMAGE_TOL = 1e-3 / 255.0 / 0.224
+META_TOL = 1e-4                   # proj, targets, weights: of max|cpu|
+
+
+def frame_paths(pairs):
+    return [f"pair{i:04d}_{v}" for i in range(pairs) for v in "lr"]
+
+
+def decode_frames(paths):
+    """The cache's decode_batch: a seeded uint8 768x1024x3 frame a path."""
+    return [np.random.default_rng([SEED, int(p[4:8]), int(p.endswith("r"))])
+            .integers(0, 256, (RAW_H, RAW_W, 3), dtype=np.uint8)
+            for p in paths]
+
+
+def build_cache(dev):
+    """The frame cache of CACHE_PAIRS stereo pairs on the card, through
+    DeviceFrameCache.build in chunks of 64 with a budget that fits, and a
+    second build at half that budget (plus one frame) with allow_partial
+    and pair_stride=2, which must keep an even prefix."""
+    from fast3dhpe_tpu_torch.data.device_cache import DeviceFrameCache
+    paths = frame_paths(CACHE_PAIRS)
+    frame = RAW_H * RAW_W * 3
+    budget = len(paths) * frame
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = DeviceFrameCache.build(paths, decode_frames, budget,
+                                   chunk_frames=64, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    require(cache is not None and not cache.partial
+            and tuple(cache.frames.shape) == (len(paths), RAW_H, RAW_W, 3)
+            and cache.frames.is_cuda,
+            f"the full cache build gave {cache and cache.frames.shape}")
+    for p in (paths[0], paths[64], paths[-1]):      # first, second chunk
+        row = int(cache.rows([p])[0])
+        require(torch.equal(cache.frames[row].cpu(),
+                            torch.from_numpy(decode_frames([p])[0])),
+                f"cache row {row} is not the frame of {p}")
+    t0 = time.perf_counter()
+    half = DeviceFrameCache.build(paths, decode_frames, budget // 2 + frame,
+                                  chunk_frames=64, allow_partial=True,
+                                  pair_stride=2, device=dev)
+    torch.cuda.synchronize()
+    half_s = time.perf_counter() - t0
+    rows = half.frames.shape[0]
+    require(half.partial and rows == len(paths) // 2
+            and half.has(paths[rows - 1]) and not half.has(paths[rows]),
+            f"the half-budget build kept {rows} rows, partial {half.partial}")
+    del half
+    torch.cuda.empty_cache()
+    print(f"# cache: {len(paths)} frames of {RAW_H}x{RAW_W} uint8, "
+          f"{cache.nbytes / 1e9:.3f} GB resident, built in {build_s:.1f} s "
+          f"(decode + copy, chunks of 64); half budget: partial, {rows} "
+          f"rows, {half_s:.1f} s")
+    return cache, {"frames": len(paths), "nbytes": cache.nbytes,
+                   "build_s": build_s, "partial_rows": rows,
+                   "partial_build_s": half_s}
+
+
+def raw_rig(batch):
+    """converging_rig for the raw frame as (B, 2, 4, 4)."""
+    P = np.zeros((batch, 2, 4, 4), np.float32)
+    P[:, :, :3] = converging_rig(batch, RAW_W, RAW_H)
+    P[:, :, 3, 3] = 1.0
+    return P
+
+
+def stacked_meta(cache, cfg, rng, batches, pad):
+    """`batches` stacked batches of TRAIN_PAIRS cached pairs, as
+    Stereo3DLoader.stacked_epoch stacks them: a shuffle of the pairs, the
+    last `pad` rows padded (repeating the last pair); each row's train-time
+    scale and rotation drawn as data/loader.py:154-159 draws them, its
+    affine from get_affine_transform (centre = frame centre, origin_size =
+    min(H, W)); the raw rig; poses within +-250 mm; 5% of joints
+    invisible."""
+    from fast3dhpe_tpu_torch.geometry.affine import get_affine_transform
+    n = batches * TRAIN_PAIRS
+    order = rng.permutation(CACHE_PAIRS)[:n - pad]
+    order = np.concatenate([order, np.repeat(order[-1:], pad)])
+    sf, rf = cfg.DATASET.SCALE_FACTOR, cfg.DATASET.ROT_FACTOR
+    trans = []
+    for _ in range(n):
+        s = np.clip(rng.randn() * sf + 1, 1 - sf, 1 + sf)
+        r = (np.clip(rng.randn() * rf, -rf * 2, rf * 2)
+             if rng.random_sample() <= 0.6 else 0.0)
+        trans.append(get_affine_transform((RAW_W / 2, RAW_H / 2), s, r,
+                                          min(RAW_H, RAW_W),
+                                          cfg.MODEL.IMAGE_SIZE))
+    P = raw_rig(n)
+    row_valid = np.ones(n, np.float32)
+    row_valid[n - pad:] = 0.0
+    paths = frame_paths(CACHE_PAIRS)
+    xs = {"idx_l": cache.rows([paths[2 * i] for i in order]),
+          "idx_r": cache.rows([paths[2 * i + 1] for i in order]),
+          "trans": np.stack(trans).astype(np.float32),
+          "P_l": P[:, 0], "P_r": P[:, 1],
+          "pose_3d": rng.uniform(-250, 250, (n, 19, 3)).astype(np.float32),
+          "joints_vis": (rng.rand(n, 19) > 0.05).astype(np.float32),
+          "row_valid": row_valid}
+    return {k: v.reshape((batches, TRAIN_PAIRS) + v.shape[1:])
+            for k, v in xs.items()}
+
+
+def pipeline_batch(frames, xs, i, cfg, gen=None, occlusion=None,
+                   train=False, return_masks=False):
+    """Batch i of the stacked metadata xs through the cached stereo
+    pipeline, on the frames' device."""
+    from fast3dhpe_tpu_torch.data.device_pipeline import (
+        preprocess_stereo_batch_cached)
+    return preprocess_stereo_batch_cached(
+        gen, frames, xs["idx_l"][i], xs["idx_r"][i], xs["trans"][i],
+        xs["P_l"][i], xs["P_r"][i], xs["pose_3d"][i], xs["joints_vis"][i],
+        image_size=tuple(cfg.MODEL.IMAGE_SIZE), occlusion=occlusion,
+        train=train, return_masks=return_masks)
+
+
+def on_card(xs, dev):
+    return {k: torch.as_tensor(v).to(dev) for k, v in xs.items()}
+
+
+def expected_weight(t2d, vis, keep):
+    """target_weight recomputed on the host: joints_vis x both views'
+    boundary checks x the keep-mask at each joint's truncated pixel, with
+    the -1 of an out-of-image joint wrapping to the last pixel. t2d: the
+    eval-mode (unchecked) (B, 2, J, 2); keep: (B, 2, H, W)."""
+    H, W = keep.shape[-2:]
+    inside = ((t2d[..., 0] >= 0) & (t2d[..., 0] < W) & (t2d[..., 1] >= 0)
+              & (t2d[..., 1] < H))
+    want = vis * inside[:, 0] * inside[:, 1]
+    rows = np.arange(len(vis))[:, None]
+    for v in (0, 1):
+        xy = np.where(inside[:, v, :, None], t2d[:, v], -1.0).astype(
+            np.int32)
+        want = want * keep[rows, v, xy[..., 1], xy[..., 0]]
+    return want
+
+
+def cutout_holes_needed(hidden):
+    """The fewest CUTOUT_LEN-square holes that could make up a hidden mask
+    (H, W): a connected union of n such squares has a bounding box of at
+    most n * CUTOUT_LEN on each side and at most n * CUTOUT_LEN^2 pixels."""
+    from scipy import ndimage
+    labels, n = ndimage.label(hidden)
+    need = 0
+    for sl, k in zip(ndimage.find_objects(labels), range(1, n + 1)):
+        h, w = sl[0].stop - sl[0].start, sl[1].stop - sl[1].start
+        area = int((labels[sl] == k).sum())
+        need += max(-(-h // CUTOUT_LEN), -(-w // CUTOUT_LEN),
+                    -(-area // CUTOUT_LEN ** 2))
+    return need
+
+
+def check_pipeline(cache, cfg, dev):
+    """The pipeline's output on the card: the keep-mask invariants, the
+    target weights recomputed from the masks, the occlusion statistics of
+    Cutout (OCCL_BATCHES x 32 samples) and Hide-and-Seek (one batch), and
+    one eval batch against the same function on the CPU."""
+    from fast3dhpe_tpu_torch.data.device_pipeline import (
+        preprocess_stereo_batch)
+    from fast3dhpe_tpu_torch.ops.warp import normalize_imagenet
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 5)
+    xs = stacked_meta(cache, cfg, rng, OCCL_BATCHES, 0)
+    dxs = on_card(xs, dev)
+    out = {}
+
+    # keep-mask invariants and target weights, batch 0
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    occ = pipeline_batch(cache.frames, dxs, 0, cfg, gen, "CUTOUT", True, True)
+    ev = pipeline_batch(cache.frames, dxs, 0, cfg)
+    keep = occ["keep_mask"]
+    gray = normalize_imagenet(torch.full((3,), 128.0, device=dev))
+    hidden = int((~keep).sum())
+    require(hidden > 0, "Cutout hid nothing in a batch of 32")
+    require(torch.equal(occ["image"][~keep], gray.expand(hidden, 3)),
+            "an occluded pixel is not normalize_imagenet(128)")
+    require(torch.equal(occ["image"][keep], ev["image"][keep]),
+            "a kept pixel differs from the eval-mode output")
+    want = expected_weight(ev["target_2d"].cpu().numpy(),
+                           xs["joints_vis"][0], keep.cpu().numpy())
+    got = occ["target_weight"].cpu().numpy()
+    require(np.array_equal(got, want),
+            f"target_weight differs from joints_vis x boundary x keep in "
+            f"{int((got != want).sum())} joints")
+    print(f"# pipeline masks: {hidden} occluded pixels are gray 128, the "
+          f"rest equal the eval output; target_weight = vis x boundary x "
+          f"keep ({int(want.sum())} of {want.size} joints weighted)")
+
+    # Cutout statistics: one gate a sample for both views, the gated
+    # share, and at most 6 holes of at most 40 x 40 an image
+    gated, holes = [], []
+    for i in range(OCCL_BATCHES):
+        gen = torch.Generator(device=dev).manual_seed(SEED * 1000 + i)
+        k = pipeline_batch(cache.frames, dxs, i, cfg, gen, "CUTOUT", True,
+                           True)["keep_mask"].cpu().numpy()
+        g = (~k).any(axis=(2, 3))                          # (B, 2)
+        require(np.array_equal(g[:, 0], g[:, 1]),
+                f"batch {i}: a sample was occluded in one view only")
+        gated.append(g[:, 0])
+        holes += [cutout_holes_needed(~k[b, v]) for b in np.flatnonzero(
+            g[:, 0]) for v in (0, 1)]
+    gated = np.concatenate(gated)
+    share, n = float(gated.mean()), len(gated)
+    sigma = (OCCL_PROB * (1 - OCCL_PROB) / n) ** 0.5
+    require(abs(share - OCCL_PROB) <= 4 * sigma,
+            f"Cutout gated {share:.4f} of {n} samples, not within 4 sigma "
+            f"({4 * sigma:.4f}) of {OCCL_PROB}")
+    require(max(holes) <= CUTOUT_HOLES,
+            f"a gated image needs {max(holes)} holes of {CUTOUT_LEN} px")
+    out["cutout"] = {"samples": n, "gated_share": share,
+                     "four_sigma": 4 * sigma, "max_holes": max(holes)}
+
+    # Hide-and-Seek: exactly 6 of the 16 64x64 cells of a gated image
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    k = pipeline_batch(cache.frames, dxs, 0, cfg, gen, "HNS", True,
+                       True)["keep_mask"].cpu().numpy()
+    H = k.shape[-1] // HNS_CELLS
+    cells = (~k).reshape(TRAIN_PAIRS, 2, HNS_CELLS, H, HNS_CELLS, H)
+    whole = cells.all(axis=(3, 5))
+    require(np.array_equal(whole, cells.any(axis=(3, 5))),
+            "Hide-and-Seek hid part of a cell")
+    count = whole.sum(axis=(2, 3))                         # (B, 2)
+    g = count > 0
+    require(np.array_equal(g[:, 0], g[:, 1]) and g.any()
+            and (count[g] == HNS_HIDDEN).all(),
+            f"Hide-and-Seek hid {sorted(set(count[g].tolist()))} cells")
+    out["hns"] = {"gated": int(g[:, 0].sum()), "cells_hidden": HNS_HIDDEN}
+    print(f"# pipeline occlusion: Cutout gated {share:.4f} of {n} samples "
+          f"(0.3 +- {4 * sigma:.4f}), one gate for both views, at most "
+          f"{max(holes)} holes of 40 px an image; Hide-and-Seek hid exactly "
+          f"6 of 16 cells in each of {int(g[:, 0].sum())} gated samples")
+
+    # one eval batch on the card against the same function on the CPU
+    rows_l = torch.as_tensor(xs["idx_l"][0], device=dev).long()
+    rows_r = torch.as_tensor(xs["idx_r"][0], device=dev).long()
+    cpu = preprocess_stereo_batch(
+        None, cache.frames.index_select(0, rows_l).cpu(),
+        cache.frames.index_select(0, rows_r).cpu(), xs["trans"][0],
+        xs["P_l"][0], xs["P_r"][0], xs["pose_3d"][0], xs["joints_vis"][0],
+        image_size=tuple(cfg.MODEL.IMAGE_SIZE))
+    err = {"image": (ev["image"].cpu() - cpu["image"]).abs().max().item()}
+    for key in ("proj", "target_2d", "target_weight", "target_3d"):
+        err[key] = ((ev[key].cpu() - cpu[key]).abs().max()
+                    / cpu[key].abs().max()).item()
+    require(err["image"] <= IMAGE_TOL,
+            f"pipeline image differs from the CPU's by {err['image']:.3g} "
+            f"(bound {IMAGE_TOL:.3g})")
+    require(all(err[k] <= META_TOL for k in err if k != "image"),
+            f"pipeline proj/targets/weights differ from the CPU's: {err}")
+    out["vs_cpu"] = err
+    print(f"# pipeline vs CPU (eval batch of {TRAIN_PAIRS} pairs): image "
+          f"max {err['image']:.3g} (bound {IMAGE_TOL:.3g}), "
+          + ", ".join(f"{k} {err[k]:.3g}" for k in err if k != "image")
+          + f" of max|cpu| (bound {META_TOL}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def profile_calls(fn, calls=5):
+    """Device time and the number of device activities (kernels, copies,
+    fills) of one fn() call, under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)]
+    busy = sum((e.time_range.end - e.time_range.start) / 1e3 for e in ks)
+    require(busy > 0, "the profiler recorded no device time")
+    return {"device_ms": busy / calls, "launches": len(ks) / calls}
+
+
+def run_pipeline_train(cfg, dev, cache, precomputed_step_ms):
+    """make_train_epoch_cdr from the cache at full width: one warmup and one
+    use_3d epoch of EPOCH_BATCHES batches of TRAIN_PAIRS pairs (the last
+    TRAIN_PAD rows padded), the config's occlusion (CUTOUT), fp32. Then the
+    pipeline alone and a pipeline-fed step are timed."""
+    from fast3dhpe_tpu_torch.models.losses import make_loss
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    from fast3dhpe_tpu_torch.train.steps import make_train_epoch_cdr
+    t0 = time.perf_counter()
+    xs = stacked_meta(cache, cfg, np.random.RandomState(SEED + 6),
+                      EPOCH_BATCHES, TRAIN_PAD)
+    dxs = on_card(xs, dev)
+    model = seeded_train_model(cfg).to(dev)
+    first = pipeline_batch(cache.frames, dxs, 0, cfg, train=True)
+    first["row_valid"] = dxs["row_valid"][0]
+    calibrate_train_head(model, first)
+    state = TrainState.create(model, cfg, steps_per_epoch=EPOCH_BATCHES)
+    occlusion = cfg.DATASET.OCCLUSION
+    epoch = make_train_epoch_cdr(
+        make_loss(cfg.LOSS.TYPE, cfg.LOSS.USE_TARGET_WEIGHT),
+        cfg.MODEL.IMAGE_SIZE, occlusion=occlusion,
+        loss_3d_weight=cfg.TRAIN.LOSS_3D_WEIGHT,
+        num_joints=cfg.MODEL.NUM_JOINTS)
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    counters = kernel_counters()
+    launches = {k: 0 for k in counters}
+    epochs = []
+    for seed, use_3d in ((0, False), (1, True)):
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        m = epoch(state, cache.frames, dxs, seed, use_3d)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        n = {k: c.launches for k, c in counters.items()}
+        m = {k: v.item() for k, v in m.items()}
+        print(f"# pipeline epoch seed {seed} use_3d={use_3d} "
+              f"({EPOCH_BATCHES} steps, {occlusion}): {wall:.1f} ms, "
+              f"launches {n}, summed "
+              + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
+        require(n == {"soft_argmax": EPOCH_BATCHES,
+                      "soft_argmax_bwd": EPOCH_BATCHES,
+                      "fused_bottleneck": 0},
+                f"an epoch of {EPOCH_BATCHES} steps launched {n}, not one "
+                f"K1 and one K2 a step and no K3")
+        require(all(np.isfinite(v) for v in m.values()),
+                f"non-finite epoch metrics {m}")
+        if use_3d:
+            want = m["loss_2d"] + cfg.TRAIN.LOSS_3D_WEIGHT * m["loss_3d"]
+            require(abs(m["loss"] - want) <= 1e-6 * abs(want),
+                    f"summed loss {m['loss']} is not loss_2d + "
+                    f"{cfg.TRAIN.LOSS_3D_WEIGHT} loss_3d = {want}")
+        else:
+            require(m["loss"] == m["loss_2d"],
+                    f"warmup epoch: loss {m['loss']} != loss_2d "
+                    f"{m['loss_2d']}")
+        for k in launches:
+            launches[k] += n[k]
+        epochs.append({"use_3d": use_3d, "wall_ms": wall, "metrics": m,
+                       "launches": n})
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), params0[n])]
+    require(not still, f"unchanged after two pipeline epochs: {still}")
+
+    # the pipeline alone, a batch of TRAIN_PAIRS pairs with Cutout
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def pipeline():
+        return pipeline_batch(cache.frames, dxs, 0, cfg, gen, occlusion,
+                              True)
+
+    timing = {"call_ms": call_ms(pipeline), "host_ms": host_ms(pipeline)}
+    timing.update(profile_calls(pipeline))
+    walls = []
+    for seed in range(2, 4):                       # pipeline-fed steps
+        t = time.perf_counter()
+        epoch(state, cache.frames, dxs, seed, True)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3 / EPOCH_BATCHES)
+    timing["fed_step_ms"] = statistics.median(walls)
+    timing["precomputed_step_ms"] = precomputed_step_ms
+    share = timing["device_ms"] / precomputed_step_ms
+    print(f"# pipeline alone ({TRAIN_PAIRS} pairs, train, {occlusion}): "
+          f"device {timing['device_ms']:.3f} ms in "
+          f"{timing['launches']:.0f} launches (profiler), events "
+          f"{timing['call_ms']:.3f} ms, host {timing['host_ms']:.3f} ms; "
+          f"{100 * share:.2f}% of a precomputed step")
+    print(f"# pipeline-fed step {timing['fed_step_ms']:.1f} ms (epochs of "
+          f"{EPOCH_BATCHES}, {walls}) vs precomputed-batch step "
+          f"{precomputed_step_ms:.1f} ms; phase {time.perf_counter() - t0:.1f}"
+          f" s")
+    return {"launches": launches, "epochs": epochs, "timing": timing}
+
+
+def raw_request(cache, first, pairs, cfg, dev):
+    """`pairs` raw 768x1024 stereo pairs from the cache (already on the
+    card), the eval-mode centre crop's affine and the cropped views'
+    projections, as predict_batch(img_l, img_r, proj, trans) takes them."""
+    from fast3dhpe_tpu_torch.geometry.affine import get_affine_transform
+    paths = frame_paths(CACHE_PAIRS)
+    trans = get_affine_transform((RAW_W / 2, RAW_H / 2), 1.0, 0.0,
+                                 min(RAW_H, RAW_W), cfg.MODEL.IMAGE_SIZE)
+    T = np.eye(4)
+    T[:2, :3] = trans
+    proj = (T @ raw_rig(1)[0].astype(np.float64))[:, :3].astype(np.float32)
+    sel = range(first, first + pairs)
+    rows = [torch.as_tensor(cache.rows([paths[2 * i + v] for i in sel]),
+                            device=dev).long() for v in (0, 1)]
+    return (cache.frames.index_select(0, rows[0]),
+            cache.frames.index_select(0, rows[1]),
+            torch.as_tensor(np.broadcast_to(proj, (pairs, 2, 3, 4)).copy(),
+                            device=dev),
+            torch.as_tensor(np.broadcast_to(trans.astype(np.float32),
+                                            (pairs, 2, 3)).copy(),
+                            device=dev))
+
+
+def run_raw_serving(inf, cpu_model, cache, cfg, dev):
+    """predict_batch(..., trans=...) on raw frames: REQUESTS requests of
+    PAIRS pairs, counted; one against the CPU; then raw and pre-warped
+    requests timed at batch 1 and 32 pairs."""
+    from fast3dhpe_tpu_torch.ops.warp import affine_warp
+    t0 = time.perf_counter()
+    size = tuple(cfg.MODEL.IMAGE_SIZE)
+    requests = [raw_request(cache, k * PAIRS, PAIRS, cfg, dev)
+                for k in range(REQUESTS)]
+    fused = inf.model.encoder.fused_blocks(size, torch.bfloat16)
+    outs, launches = serve_counted(inf, requests, len(fused), "raw serving")
+    img_l, img_r, proj, trans = requests[0]
+    vs_cpu = check_vs_cpu(
+        inf.model, cpu_model,
+        normalized(affine_warp(img_l, trans, size),
+                   affine_warp(img_r, trans, size), dev),
+        normalized(affine_warp(img_l.cpu(), trans.cpu(), size),
+                   affine_warp(img_r.cpu(), trans.cpu(), size), "cpu"),
+        proj.cpu().numpy(), outs[0][0], "raw serving vs CPU", t0)
+    times = {}
+    rng = np.random.RandomState(SEED + 7)
+    for pairs in (1, TIMING_PAIRS):
+        raw = raw_request(cache, 0, pairs, cfg, dev)
+        pre_l, pre_r, _ = stereo_request(rng, pairs, size[0])
+        pre = (torch.as_tensor(pre_l, device=dev),
+               torch.as_tensor(pre_r, device=dev), raw[2])
+        row = {"raw_ms": host_ms(lambda: inf.predict_batch(*raw)),
+               "prewarped_ms": host_ms(lambda: inf.predict_batch(*pre))}
+        if pairs == TIMING_PAIRS:
+            for k, args in (("raw", raw), ("prewarped", pre)):
+                p = profile_calls(lambda: inf.predict_batch(*args), calls=3)
+                row[f"{k}_device_ms"] = p["device_ms"]
+                row[f"{k}_launches"] = p["launches"]
+        times[pairs] = row
+        print(f"# raw serving batch {pairs}: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in row.items()))
+    return {"launches": launches, "vs_cpu": vs_cpu, "times": times}
 
 
 # ------------------------------------------------------------------ timing
@@ -1286,7 +1776,8 @@ def main():
         return
 
     cfg = load_config("configs/mads_3d.yaml")
-    inf, serve_launches, _ = phase("serving path", run_path, cfg, dev)
+    inf, serve_launches, cpu_model = phase("serving path", run_path, cfg,
+                                           dev)
     k1 = phase("K1 timing", time_softargmax, dev, gen)
     k2 = phase("K2 timing", time_softargmax_bwd, dev, gen)
     k3 = phase("K3 timing", time_bottleneck, dev, gen)
@@ -1299,12 +1790,24 @@ def main():
     train_prof = phase("train profile", profile_train, train,
                        train["summary"]["step_ms"])
     start_sd = train["start_sd"]
-    del inf, train
+    del train
+    torch.cuda.empty_cache()
+
+    cache, cache_info = phase("frame cache", build_cache, dev)
+    pipe_checks = phase("pipeline checks", check_pipeline, cache, cfg, dev)
+    pipe = phase("pipeline training", run_pipeline_train, cfg, dev, cache,
+                 train_summary["step_ms"])
+    raw = phase("raw serving", run_raw_serving, inf, cpu_model, cache, cfg,
+                dev)
+    del inf, cpu_model, cache
+    torch.cuda.empty_cache()
     vs_cpu = phase("train card vs CPU", train_vs_cpu, cfg, start_sd, dev)
 
     def launch_counts(key):
         by_path = {"serving": serve_launches[key],
-                   "training": train_launches[key]}
+                   "training": train_launches[key],
+                   "pipeline training": pipe["launches"][key],
+                   "raw serving": raw["launches"][key]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -1329,6 +1832,10 @@ def main():
                       "profile": prof}))
     print(json.dumps({"train": train_summary, "train_profile": train_prof,
                       "train_vs_cpu": vs_cpu}))
+    print(json.dumps({"cache": cache_info, "pipeline_checks": pipe_checks,
+                      "pipeline_training": pipe,
+                      "raw_serving": {k: v for k, v in raw.items()
+                                      if k != "launches"}}))
     print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phases.items()))
     print(f"# total {time.perf_counter() - t_start:.1f} s")

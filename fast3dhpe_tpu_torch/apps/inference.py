@@ -13,7 +13,7 @@ import torch
 from ..convert import load_state_dict_file
 from ..device import resolve_device
 from ..models.cdrnet import CDRNet
-from ..ops.warp import normalize_imagenet
+from ..ops.warp import affine_warp, normalize_imagenet
 
 
 def find_weights(weights_root: str, name: str) -> str:
@@ -53,15 +53,21 @@ class CDRNetInferencer:
 
     def predict_batch(self, img_l, img_r, proj, trans=None):
         """uint8 frames (B, H, W, 3) x2 + proj (B, 2, 3, 4) ->
-        (pred_2d (B, 2, J, 2), pred_3d (B, J, 3)), on the device."""
-        if trans is not None:
-            raise NotImplementedError(
-                "raw frames with an on-device affine warp (trans=) are "
-                "slice 3 (on-device input pipeline) of the port")
+        (pred_2d (B, 2, J, 2), pred_3d (B, J, 3)), on the device.
+
+        With trans (B, 2, 3), the frames are raw (uncropped) and are warped
+        on the device to MODEL.IMAGE_SIZE first (ops/warp.py affine_warp,
+        as the JAX app's `_predict_raw`); proj is then the cropped view's.
+        """
         with torch.inference_mode():
             img_l = torch.as_tensor(img_l).to(self.device, non_blocking=True)
             img_r = torch.as_tensor(img_r).to(self.device, non_blocking=True)
             proj = torch.as_tensor(proj).to(self.device, torch.float32)
+            if trans is not None:
+                size = tuple(self.config.MODEL.IMAGE_SIZE)
+                trans = torch.as_tensor(trans).to(self.device, torch.float32)
+                img_l = affine_warp(img_l, trans, size)
+                img_r = affine_warp(img_r, trans, size)
             imgs = torch.stack([normalize_imagenet(img_l),
                                 normalize_imagenet(img_r)], dim=1)
             return self.model(imgs, proj)

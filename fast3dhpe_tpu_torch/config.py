@@ -1,22 +1,25 @@
 """The part of the YAML config (the reference schema, as read by
-fast3dhpe_tpu/config.py) that the model, the inferencer and the train
-steps read: MODEL.NAME / IMAGE_SIZE / NUM_JOINTS / NUM_LAYERS,
-MODEL.EXTRA.HEATMAP_SIZE / DLT_METHOD, TRAIN.BATCH_SIZE / WARMUP / EPOCH /
-LR / LR_STEP / LR_FACTOR / LOSS_3D_WEIGHT and LOSS.USE_TARGET_WEIGHT /
-TYPE. Other keys are accepted and ignored.
+fast3dhpe_tpu/config.py) that the model, the inferencer, the input
+pipeline and the train steps read: MODEL.NAME / IMAGE_SIZE / NUM_JOINTS /
+NUM_LAYERS, MODEL.EXTRA.SIGMA / HEATMAP_SIZE / DLT_METHOD, DATASET.FLIP /
+ROT_FACTOR / SCALE_FACTOR / OCCLUSION / DEVICE_CACHE_BYTES,
+TRAIN.BATCH_SIZE / WARMUP / EPOCH / LR / LR_STEP / LR_FACTOR /
+LOSS_3D_WEIGHT, TEST.BATCH_SIZE and LOSS.USE_TARGET_WEIGHT / TYPE. Other
+keys are accepted and ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import yaml
 
 
 @dataclass
 class ExtraConfig:
+    SIGMA: int = 3           # gaussian target sigma, in heatmap pixels
     HEATMAP_SIZE: List[int] = field(default_factory=lambda: [64, 64])
     DLT_METHOD: str = "jacobi"
 
@@ -31,6 +34,15 @@ class ModelConfig:
 
 
 @dataclass
+class DatasetConfig:
+    FLIP: bool = True
+    ROT_FACTOR: float = 30
+    SCALE_FACTOR: float = 0.25
+    OCCLUSION: Optional[str] = None    # None | "None" | "CUTOUT" | "HNS"
+    DEVICE_CACHE_BYTES: int = 0        # budget of the device frame cache
+
+
+@dataclass
 class TrainConfig:
     BATCH_SIZE: int = 32
     WARMUP: int = 0          # 2D-only warmup epochs of the CDR loop
@@ -42,6 +54,11 @@ class TrainConfig:
 
 
 @dataclass
+class TestConfig:
+    BATCH_SIZE: int = 32
+
+
+@dataclass
 class LossConfig:
     USE_TARGET_WEIGHT: bool = True
     TYPE: str = "JointsMSE"  # "JointsMSE" | "JointsMSESmooth" | "MPJPE"
@@ -50,7 +67,9 @@ class LossConfig:
 @dataclass
 class Config:
     MODEL: ModelConfig = field(default_factory=ModelConfig)
+    DATASET: DatasetConfig = field(default_factory=DatasetConfig)
     TRAIN: TrainConfig = field(default_factory=TrainConfig)
+    TEST: TestConfig = field(default_factory=TestConfig)
     LOSS: LossConfig = field(default_factory=LossConfig)
 
 
@@ -63,9 +82,12 @@ def config_from_dict(data: dict) -> Config:
     data = data or {}
     model = _pick(ModelConfig, data.get("MODEL"))
     model["EXTRA"] = ExtraConfig(**_pick(ExtraConfig, model.get("EXTRA")))
-    cfg = Config(MODEL=ModelConfig(**model),
-                 TRAIN=TrainConfig(**_pick(TrainConfig, data.get("TRAIN"))),
-                 LOSS=LossConfig(**_pick(LossConfig, data.get("LOSS"))))
+    cfg = Config(
+        MODEL=ModelConfig(**model),
+        DATASET=DatasetConfig(**_pick(DatasetConfig, data.get("DATASET"))),
+        TRAIN=TrainConfig(**_pick(TrainConfig, data.get("TRAIN"))),
+        TEST=TestConfig(**_pick(TestConfig, data.get("TEST"))),
+        LOSS=LossConfig(**_pick(LossConfig, data.get("LOSS"))))
     if cfg.LOSS.TYPE not in ("JointsMSE", "JointsMSESmooth", "MPJPE"):
         raise ValueError(f"Unknown LOSS.TYPE {cfg.LOSS.TYPE}")
     if cfg.MODEL.NUM_LAYERS not in (18, 34, 50, 101, 152):
@@ -74,6 +96,9 @@ def config_from_dict(data: dict) -> Config:
     if cfg.MODEL.EXTRA.DLT_METHOD not in ("jacobi", "svd", "sii"):
         raise ValueError(f"Unknown MODEL.EXTRA.DLT_METHOD "
                          f"{cfg.MODEL.EXTRA.DLT_METHOD!r}")
+    if cfg.DATASET.OCCLUSION not in (None, "None", "CUTOUT", "HNS"):
+        raise ValueError(f"Unknown DATASET.OCCLUSION "
+                         f"{cfg.DATASET.OCCLUSION!r}")
     return cfg
 
 

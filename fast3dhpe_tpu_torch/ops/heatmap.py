@@ -1,6 +1,7 @@
-"""Heatmap decode. Port of fast3dhpe_tpu/ops/heatmap.py `soft_argmax` and
-`hard_argmax`, and of the closed-form soft-argmax backward
-(fast3dhpe_tpu/ops/pallas_softargmax.py `_fused_bwd`)."""
+"""Heatmap encode and decode. Port of fast3dhpe_tpu/ops/heatmap.py
+`soft_argmax`, `hard_argmax` and `render_gaussian_heatmaps`, and of the
+closed-form soft-argmax backward (fast3dhpe_tpu/ops/pallas_softargmax.py
+`_fused_bwd`)."""
 
 from __future__ import annotations
 
@@ -82,3 +83,45 @@ def hard_argmax(heatmaps):
     y = torch.floor(idx.float() / W)
     preds = torch.stack([x, y], dim=-1)
     return preds * (maxvals > 0.0).float()[..., None], maxvals
+
+
+def render_gaussian_heatmaps(joints, joints_vis, heatmap_size, image_size,
+                             sigma: int = 3):
+    """Gaussian target heatmaps and target weights (ops/heatmap.py:65-122),
+    with the reference's quirks: the centre is mu = trunc(x / stride +
+    0.5), truncated toward zero; the gaussian is written only inside the
+    (6 sigma + 1)^2 window around mu; a joint whose window lies wholly
+    outside the heatmap gets weight 0 and no gaussian.
+
+    Args:
+      joints: (..., J, 2+) joint positions in image pixels.
+      joints_vis: (..., J) or (..., J, C) visibility (first column used).
+      heatmap_size: (W_hm, H_hm), width first; image_size: (W_img, H_img).
+      sigma: in heatmap pixels.
+    Returns:
+      target (..., H_hm, W_hm, J) fp32 and target_weight (..., J).
+    """
+    W_hm, H_hm = heatmap_size
+    W_img, H_img = image_size
+    tmp_size = sigma * 3
+    joints = torch.as_tensor(joints, dtype=torch.float32)
+    vis = torch.as_tensor(joints_vis, dtype=torch.float32,
+                          device=joints.device)
+    if vis.dim() == joints.dim():
+        vis = vis[..., 0]
+
+    mu_x = torch.trunc(joints[..., 0] / (W_img / W_hm) + 0.5)   # (..., J)
+    mu_y = torch.trunc(joints[..., 1] / (H_img / H_hm) + 0.5)
+    out_of_bounds = ((mu_x - tmp_size >= W_hm) | (mu_y - tmp_size >= H_hm)
+                     | (mu_x + tmp_size + 1 < 0) | (mu_y + tmp_size + 1 < 0))
+    weight = torch.where(out_of_bounds, 0.0, vis)
+
+    xs = torch.arange(W_hm, dtype=torch.float32, device=joints.device)
+    ys = torch.arange(H_hm, dtype=torch.float32, device=joints.device)
+    # built directly as (..., H, W, J)
+    dx = xs[:, None] - mu_x[..., None, None, :]             # (..., 1, W, J)
+    dy = ys[:, None, None] - mu_y[..., None, None, :]       # (..., H, 1, J)
+    g = torch.exp(-(dx * dx + dy * dy) / (2.0 * sigma * sigma))
+    in_window = (dx.abs() <= tmp_size) & (dy.abs() <= tmp_size)
+    g = torch.where(in_window, g, 0.0)
+    return g * (weight[..., None, None, :] > 0.5), weight

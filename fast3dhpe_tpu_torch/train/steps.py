@@ -1,22 +1,31 @@
-"""Train and eval steps for CDRNet and PoseResNet. Port of
-fast3dhpe_tpu/train/steps.py (:37-101, :162-252, :537-571).
+"""Train and eval steps and epochs for CDRNet and PoseResNet. Port of
+fast3dhpe_tpu/train/steps.py (:37-330, :537-571).
 
-Each factory returns a step that takes a TrainState (train/state.py) and a
-batch dict. The batch goes to the model's device; nothing falls back to
-the CPU. A step returns its metrics as device tensors and syncs nothing:
-the caller fetches them when it needs them.
+Each step factory returns a step that takes a TrainState (train/state.py)
+and a batch dict. The batch goes to the model's device; nothing falls
+back to the CPU. A step returns its metrics as device tensors and syncs
+nothing: the caller fetches them when it needs them.
 
 Padded final batches carry `batch["row_valid"]`, a (B,) 0/1 mask. The
 steps keep padded rows out of the loss (renormalised to the valid rows),
 out of every metric, and out of the train-mode BN batch statistics.
+
+An epoch function runs S batches from a device frame cache
+(data/device_cache.py): each batch is preprocessed on the device
+(data/device_pipeline.py), then stepped. It is a Python loop where the
+JAX package has one lax.scan; the per-step metrics are summed on the
+device, with no host sync inside the loop.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
+from ..data.device_pipeline import (preprocess_mono_batch_cached,
+                                    preprocess_stereo_batch_cached)
 from ..models.metrics import pck_counts, pck_from_counts, per_sample_mpjpe
 from .state import TrainState, clip_grads_by_norm, global_grad_norm
 
@@ -188,3 +197,137 @@ def make_eval_step_2d(loss_fn) -> Callable:
                 "hits": hits, "cnt": cnt, "n": n}
 
     return eval_step
+
+
+def _stacked_on_device(state, frames, xs) -> Dict[str, torch.Tensor]:
+    """An epoch's stacked (S, B, ...) metadata on the frames' device,
+    copied once an epoch, not once a step. The frames must lie on the
+    model's device: the pipeline runs where they lie, never quietly on
+    another device."""
+    if frames.device != _device_of(state.model):
+        raise ValueError(f"the frame cache is on {frames.device}, the model "
+                         f"on {_device_of(state.model)}")
+    return {k: torch.as_tensor(v).to(frames.device) for k, v in xs.items()}
+
+
+def _accumulate(sums, metrics, keys=None):
+    for k in keys or metrics:
+        sums[k] = sums[k] + metrics[k] if k in sums else metrics[k]
+    return sums
+
+
+def step_generator(device, epoch_seed: int, step: int) -> torch.Generator:
+    """The occlusion generator of one step of an epoch: seeded from (the
+    epoch's seed, the step index), as the JAX epoch folds the step index
+    into the epoch's key, so an epoch is reproducible from its seed."""
+    seed = np.random.SeedSequence((epoch_seed, step)).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def make_train_epoch_cdr(loss_fn, image_size, occlusion=None,
+                         **step_kwargs) -> Callable:
+    """CDR training over an epoch of cached batches (steps.py:255-299).
+
+    epoch(state, frames, xs, epoch_seed, use_3d) -> summed metrics
+      frames: the (N, H0, W0, 3) uint8 cache on the model's device;
+      xs: dict of (S, B, ...) arrays, as Stereo3DLoader.stacked_epoch
+        stacks them: idx_l, idx_r (S, B), trans (S, B, 2, 3), P_l, P_r
+        (S, B, 4, 4), pose_3d (S, B, J, 3), joints_vis (S, B, J),
+        row_valid (S, B);
+      returns the per-step metrics (loss, loss_2d, loss_3d, grad_norm)
+      summed over the S steps, device tensors (divide by S for means).
+    The state is updated in place.
+    """
+    step = make_train_step_cdr(loss_fn, **step_kwargs)
+    image_size = tuple(image_size)
+
+    def epoch(state: TrainState, frames, xs, epoch_seed: int, use_3d: bool):
+        xs = _stacked_on_device(state, frames, xs)
+        sums = {}
+        for i in range(xs["idx_l"].shape[0]):
+            batch = preprocess_stereo_batch_cached(
+                step_generator(frames.device, epoch_seed, i), frames,
+                xs["idx_l"][i], xs["idx_r"][i], xs["trans"][i],
+                xs["P_l"][i], xs["P_r"][i], xs["pose_3d"][i],
+                xs["joints_vis"][i], image_size=image_size,
+                occlusion=occlusion, train=True)
+            batch["row_valid"] = xs["row_valid"][i]
+            _accumulate(sums, step(state, batch, use_3d))
+        return sums
+
+    return epoch
+
+
+def make_eval_epoch_cdr(loss_fn, image_size, **step_kwargs) -> Callable:
+    """CDR evaluation over an epoch of cached batches (steps.py:302-330):
+    epoch(state, frames, xs, use_3d) -> loss_sum, e2_sum, e3_sum and n
+    summed over the S batches, no augmentation."""
+    step = make_eval_step_cdr(loss_fn, **step_kwargs)
+    image_size = tuple(image_size)
+
+    def epoch(state: TrainState, frames, xs, use_3d: bool):
+        xs = _stacked_on_device(state, frames, xs)
+        sums = {}
+        for i in range(xs["idx_l"].shape[0]):
+            batch = preprocess_stereo_batch_cached(
+                None, frames, xs["idx_l"][i], xs["idx_r"][i],
+                xs["trans"][i], xs["P_l"][i], xs["P_r"][i],
+                xs["pose_3d"][i], xs["joints_vis"][i],
+                image_size=image_size, occlusion=None, train=False)
+            batch["row_valid"] = xs["row_valid"][i]
+            _accumulate(sums, step(state, batch, use_3d),
+                        ("loss_sum", "e2_sum", "e3_sum", "n"))
+        return sums
+
+    return epoch
+
+
+def _mono_batch(frames, xs, i, image_size, heatmap_size, sigma):
+    batch = preprocess_mono_batch_cached(
+        frames, xs["idx"][i], xs["flip"][i], xs["trans"][i],
+        xs["joints"][i], xs["vis"][i], image_size=image_size,
+        heatmap_size=heatmap_size, sigma=sigma)
+    batch["row_valid"] = xs["row_valid"][i]
+    return batch
+
+
+def make_train_epoch_2d(loss_fn, image_size, heatmap_size,
+                        sigma: int = 3) -> Callable:
+    """PoseResNet training over an epoch of cached batches
+    (steps.py:103-131): epoch(state, frames, xs) -> summed loss, acc and
+    grad_norm. xs as Mono2DLoader.stacked_epoch stacks them: idx (S, B),
+    flip (S, B) bool, trans (S, B, 2, 3), joints (S, B, J, 2), vis
+    (S, B, J), row_valid (S, B). The state is updated in place."""
+    step = make_train_step_2d(loss_fn)
+    image_size, heatmap_size = tuple(image_size), tuple(heatmap_size)
+
+    def epoch(state: TrainState, frames, xs):
+        xs = _stacked_on_device(state, frames, xs)
+        sums = {}
+        for i in range(xs["idx"].shape[0]):
+            _accumulate(sums, step(state, _mono_batch(
+                frames, xs, i, image_size, heatmap_size, sigma)))
+        return sums
+
+    return epoch
+
+
+def make_eval_epoch_2d(loss_fn, image_size, heatmap_size,
+                       sigma: int = 3) -> Callable:
+    """PoseResNet evaluation over an epoch of cached batches
+    (steps.py:134-159): epoch(state, frames, xs) -> loss_sum, hits, cnt
+    and n summed over the S batches."""
+    step = make_eval_step_2d(loss_fn)
+    image_size, heatmap_size = tuple(image_size), tuple(heatmap_size)
+
+    def epoch(state: TrainState, frames, xs):
+        xs = _stacked_on_device(state, frames, xs)
+        sums = {}
+        for i in range(xs["idx"].shape[0]):
+            _accumulate(sums, step(state, _mono_batch(
+                frames, xs, i, image_size, heatmap_size, sigma)),
+                ("loss_sum", "hits", "cnt", "n"))
+        return sums
+
+    return epoch

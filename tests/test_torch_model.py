@@ -114,9 +114,10 @@ def test_inferencer_matches_jax_inferencer(jax_setup, tmp_path):
     kp, p3d = inf.predict_batch(img_l, img_r, projs)
     np.testing.assert_allclose(kp.numpy(), jkp, atol=1e-3)
     assert np.all(np.isfinite(p3d.numpy()))
-    with pytest.raises(NotImplementedError):
-        inf.predict_batch(img_l, img_r, projs,
-                          trans=np.zeros((B, 2, 3), np.float32))
+    # an identity affine serves the frames as they are
+    eye = np.broadcast_to(np.eye(2, 3, dtype=np.float32), (B, 2, 3))
+    kp_eye, _ = inf.predict_batch(img_l, img_r, projs, trans=eye)
+    assert torch.equal(kp_eye, kp)
     with pytest.raises(NotImplementedError):
         inf.evaluate_movement(None)
 
