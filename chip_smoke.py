@@ -52,11 +52,36 @@
    through predict_batch(..., trans=...) (1 K1 + 0 K2 + 4 K3 launches a
    request), one against the CPU, and raw against pre-warped requests
    timed at batch 1 and 32.
-8. Card vs CPU: one train step with and one without the 3D loss at 2
+8. Host data, from JPEGs on disk in a temporary directory:
+   a. writes a MADS tree at MADS's frame size (768x1024; train 2 movements
+      x 45 frames, valid 1 x 40, a NaN joint every 7th frame) and an MPII
+      tree with data/synthetic.py; names the JPEG decoder in use, times
+      its decode rate over the 260 MADS frames with 1 and 4 threads, and
+      holds one decoded frame of each view against its rendered source;
+   b. trains CDRNet-101 (configs/mads_3d.yaml, fp32, CUTOUT) through
+      load_data -> Stereo3DLoader.stacked_epoch -> make_train_epoch_cdr
+      with the tree whole on the card (a warmup and a use_3d epoch of 3
+      steps): shapes, row_valid, cache rows against the decoded frames,
+      the loss arithmetic, one K1 and one K2 launch a step, no K3;
+   c. then with half the tree on the card (partial cache): two epochs of
+      Stereo3DLoader iteration through make_train_step_cdr, fixed lanes,
+      every record once an epoch, stacked_epoch refused; the step beside
+      b's, with the upload lane's bytes and host decode ms a step;
+   d. PoseResNet-101 from Mono2DLoader: two MPII steps from host batches
+      padded to multiples of 128 and warped on the card, and a stacked
+      MADS_2d epoch from the cache (finite losses, no kernel launched);
+   e. evaluate_movement of valid/HipHop by the serving phase's bf16
+      inferencer with the movement whole on the card, half on it, a
+      batch-aligned part on it, and streamed: one K1 and four K3 launches
+      a batch, MPJPE2D within 1e-3 relative in all four and MPJPE3D in the
+      three whose batches hold the same frames, frames/s of each; the
+      same frames' predictions at other rows of a batch; one batch's
+      first rows against the CPU.
+9. Card vs CPU: one train step with and one without the 3D loss at 2
    pairs (one padded), full width, from the same weights and batch on the
    card and on the CPU: losses, grad_norm, every gradient and the BN
    statistics, beside how far rounding-sized noise moves them on the CPU.
-9. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
+10. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
 
 It needs one CUDA device. Without one, or when any phase fails, it exits
 non-zero and prints no result.
@@ -67,6 +92,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -111,6 +137,7 @@ def call_ms(fn, iters=20, warmup=3):
 
 
 L2_FLUSH_BYTES = 128 * 2 ** 20     # read between launches: > the 50 MB L2
+PROFILE_TRIES = 3
 
 
 def device_ms(fn, kernel, cold, iters=30, warmup=3):
@@ -121,8 +148,9 @@ def device_ms(fn, kernel, cold, iters=30, warmup=3):
     whose write-back would bill the kernel (the number held against the
     HBM bound); warm: the calls run back to back. The profile sometimes
     holds fewer kernel records than calls (25 of 30 in one H100 run), so
-    the median is taken over those it holds; it fails if they are fewer
-    than half the calls."""
+    the median is taken over those it holds. Once it held 3 of 30, so a
+    profile that holds fewer than half the calls is taken again, up to
+    PROFILE_TRIES times in all, and then it fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flush = (torch.zeros(L2_FLUSH_BYTES // 4, device="cuda") if cold
@@ -130,23 +158,25 @@ def device_ms(fn, kernel, cold, iters=30, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush.sum()
-            fn()
-        torch.cuda.synchronize()
-    times = [(e.time_range.end - e.time_range.start) / 1e3
-             for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    require(2 * len(times) >= iters,
-            f"the profile holds {len(times)} kernels named *{kernel}* for "
-            f"{iters} calls")
-    if len(times) < iters:
-        print(f"# device_ms: {len(times)} records of *{kernel}* for "
-              f"{iters} calls")
-    return statistics.median(times)
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush.sum()
+                fn()
+            torch.cuda.synchronize()
+        times = [(e.time_range.end - e.time_range.start) / 1e3
+                 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(times) < iters:
+            print(f"# device_ms: {len(times)} records of *{kernel}* for "
+                  f"{iters} calls (profile {attempt + 1})")
+        if 2 * len(times) >= iters:
+            return statistics.median(times)
+    raise RuntimeError(f"chip_smoke: {PROFILE_TRIES} profiles each held "
+                       f"fewer than half the {iters} kernels named "
+                       f"*{kernel}* (the last {len(times)})")
 
 
 def kernel_times(fn, kernel):
@@ -556,12 +586,12 @@ def run_path(cfg, dev):
     # one request against the same module on the CPU
     t0 = time.perf_counter()
     sd = {k: v.cpu() for k, v in model.state_dict().items()}
-    cpu_model = seeded_inferencer(cfg, "cpu", state_dict=sd).model
+    cpu_inf = seeded_inferencer(cfg, "cpu", state_dict=sd)
     img_l, img_r, proj = requests[0]
-    check_vs_cpu(model, cpu_model, normalized(img_l, img_r, dev),
+    check_vs_cpu(model, cpu_inf.model, normalized(img_l, img_r, dev),
                  normalized(img_l, img_r, "cpu"), proj, outs[0][0],
                  "path vs CPU", t0)
-    return inf, launches, cpu_model
+    return inf, launches, cpu_inf
 
 
 def check_vs_cpu(model, cpu_model, imgs, cpu_imgs, proj, served_kp, what,
@@ -1365,6 +1395,544 @@ def run_raw_serving(inf, cpu_model, cache, cfg, dev):
     return {"launches": launches, "vs_cpu": vs_cpu, "times": times}
 
 
+# --------------------------------------------------------------- host data
+
+TREE_MOVEMENTS, TREE_TRAIN_FRAMES = ("HipHop", "Jazz"), 45   # 90 pairs
+TREE_VALID_FRAMES = 40            # valid/HipHop: 2 batches, 24 rows padded
+NAN_JOINT_EVERY = 7               # one NaN joint every 7th frame
+DECODE_THREADS = (1, 4)
+# A decoded frame against the frame the tree rendered: JPEG at quality 95
+# with 4:2:0 chroma (cv2's and PIL's default) leaves at most 32-34 levels
+# at the dots' coloured edges and 0.017-0.019 levels on average on these
+# frames (cv2 and PIL alike); a frame of another pose or with swapped
+# channels breaks one of the two bounds.
+JPEG_MAX_TOL, JPEG_MEAN_TOL = 48, 0.05
+EVAL_MOVEMENT = "HipHop"
+EVAL_CPU_PAIRS = 4                # rows of one eval batch also run on the CPU
+EVAL_REL_TOL = 1e-3               # the cache modes' MPJPEs agree
+# evaluate_movement's cache budgets, in frames of the 80 (40 pairs) of
+# valid/HipHop: whole, half (20 pairs: an index batch of 20, then 20
+# streamed), 64 (32 pairs: the full cache's first batch, then its second
+# streamed, so every batch holds the frames it holds with the whole
+# movement resident) and none
+EVAL_MODES = (("full cache", 80), ("partial cache", 40),
+              ("partial cache, batch-aligned", 64), ("streamed", 0))
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def reset_counts():
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    return counters
+
+
+def read_counts(counters):
+    sync()
+    return {k: c.launches for k, c in counters.items()}
+
+
+def require_counts(got, steps, k1, k2, k3, what):
+    want = {"soft_argmax": k1 * steps, "soft_argmax_bwd": k2 * steps,
+            "fused_bottleneck": k3 * steps}
+    require(got == want, f"{what}: {steps} steps or batches launched "
+                         f"K1/K2/K3 {got}, not {want}")
+
+
+def write_trees(root):
+    """The MADS tree at MADS's frame size (train: 2 movements x 45 frames;
+    valid: 1 x 40; a NaN joint every 7th frame) and the default MPII tree
+    (frames of mixed sizes), written by the port's data/synthetic.py. Then
+    the decode route, its rate over the MADS frames with 1 and 4 threads,
+    and one decoded frame of each view against the rendered source."""
+    import glob
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from fast3dhpe_tpu_torch.data import native_jpeg, synthetic
+    from fast3dhpe_tpu_torch.data.loader import _BatchDecoder
+    t0 = time.perf_counter()
+    mads, mpii = os.path.join(root, "mads"), os.path.join(root, "mpii")
+    synthetic.make_synthetic_mads(
+        mads, n_frames=TREE_TRAIN_FRAMES, movements=TREE_MOVEMENTS,
+        img_w=RAW_W, img_h=RAW_H, splits=("train",),
+        nan_joint_every=NAN_JOINT_EVERY)
+    synthetic.make_synthetic_mads(
+        mads, n_frames=TREE_VALID_FRAMES, movements=(EVAL_MOVEMENT,),
+        img_w=RAW_W, img_h=RAW_H, splits=("valid",),
+        nan_joint_every=NAN_JOINT_EVERY)
+    synthetic.make_synthetic_mpii(mpii)
+    write_s = time.perf_counter() - t0
+    paths = sorted(glob.glob(os.path.join(mads, "**", "*.jpg"),
+                             recursive=True))
+    want = 2 * (len(TREE_MOVEMENTS) * TREE_TRAIN_FRAMES + TREE_VALID_FRAMES)
+    require(len(paths) == want, f"the MADS tree holds {len(paths)} JPEGs, "
+                                f"not {want}")
+    rates = {}
+    for threads in DECODE_THREADS:
+        with ThreadPoolExecutor(threads) as pool:
+            dec = _BatchDecoder(pool)
+            t = time.perf_counter()
+            if dec.route == "native":
+                frames = native_jpeg.decode_batch(paths, RAW_H, RAW_W,
+                                                  n_threads=threads)
+            else:
+                frames = dec(paths)
+            rates[threads] = len(paths) / (time.perf_counter() - t)
+        route = dec.name
+    require(all(f.shape == (RAW_H, RAW_W, 3) for f in frames),
+            "a decoded frame is not 768x1024x3")
+    calibs = synthetic.synthetic_rig(RAW_W, RAW_H)
+    err = {}
+    for cam, view in (("cam_left", "left"), ("cam_right", "right")):
+        src = synthetic._render_frame(synthetic._project(
+            synthetic.synthetic_pose(0.0), calibs[cam]), RAW_W, RAW_H)
+        path = os.path.join(mads, "train", TREE_MOVEMENTS[0], "Take_1",
+                            view, "0000.jpg")
+        got = frames[paths.index(path)].astype(np.int16)
+        d = np.abs(got - src)
+        err[view] = {"max": int(d.max()), "mean": float(d.mean())}
+        require(d.max() <= JPEG_MAX_TOL and d.mean() <= JPEG_MEAN_TOL,
+                f"decoded {path} differs from its rendered frame: {err[view]}"
+                f" (bounds {JPEG_MAX_TOL} max, {JPEG_MEAN_TOL} mean)")
+    print(f"# trees: {len(paths)} MADS JPEGs of {RAW_H}x{RAW_W} and an MPII "
+          f"tree written in {write_s:.1f} s; decoder {route!r} (native: "
+          f"{native_jpeg.build_error() or 'built'}); decode "
+          + ", ".join(f"{rates[k]:.1f} frames/s with {k} thread"
+                      f"{'s' if k > 1 else ''}" for k in DECODE_THREADS)
+          + f"; frame 0 vs its render {err} (bounds {JPEG_MAX_TOL} max, "
+          f"{JPEG_MEAN_TOL} mean)")
+    return mads, mpii, {"write_s": write_s, "decoder": route,
+                        "native_build": native_jpeg.build_error() or "built",
+                        "decode_fps": rates, "jpeg_vs_render": err}
+
+
+def tree_cfg(path, root, budget):
+    """configs/<path> with DATASET.ROOT at the tree and a device-cache
+    budget."""
+    from fast3dhpe_tpu_torch.config import load_config
+    cfg = load_config(path)
+    cfg.DATASET.ROOT = root
+    cfg.DATASET.DEVICE_CACHE_BYTES = budget
+    return cfg
+
+
+def _epoch_metrics(m, cfg, use_3d, what):
+    m = {k: float(v) for k, v in m.items()}
+    require(all(np.isfinite(v) for v in m.values()),
+            f"{what}: non-finite metrics {m}")
+    if use_3d:
+        want = m["loss_2d"] + cfg.TRAIN.LOSS_3D_WEIGHT * m["loss_3d"]
+        require(abs(m["loss"] - want) <= 1e-6 * abs(want),
+                f"{what}: loss {m['loss']} is not loss_2d + "
+                f"{cfg.TRAIN.LOSS_3D_WEIGHT} loss_3d = {want}")
+    else:
+        require(m["loss"] == m["loss_2d"],
+                f"{what}: warmup loss {m['loss']} != loss_2d {m['loss_2d']}")
+    return m
+
+
+def run_loader_train(mads, dev):
+    """CDRNet-101 trained from the JPEG tree: load_data -> Stereo3DLoader.
+    stacked_epoch -> make_train_epoch_cdr with the whole tree on the card
+    (a warmup and a use_3d epoch), then per-batch iteration through the
+    upload lane with half the tree on the card (two use_3d epochs)."""
+    from fast3dhpe_tpu_torch.data import Stereo3DLoader, load_data
+    from fast3dhpe_tpu_torch.models.losses import make_loss
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    from fast3dhpe_tpu_torch.train.steps import make_train_epoch_cdr
+    t0 = time.perf_counter()
+    n_pairs = len(TREE_MOVEMENTS) * TREE_TRAIN_FRAMES
+    tree_bytes = 2 * n_pairs * RAW_H * RAW_W * 3
+    cfg = tree_cfg("configs/mads_3d.yaml", mads, tree_bytes)
+    B = cfg.TRAIN.BATCH_SIZE
+    steps = -(-n_pairs // B)
+    loader, valid = load_data(cfg, seed=SEED, device=dev)
+    valid.close()
+    t = time.perf_counter()
+    cache, xs, e = loader.stacked_epoch()
+    sync()
+    build_s = time.perf_counter() - t
+    require(not cache.partial and cache.frames.device.type == dev.type
+            and tuple(cache.frames.shape) == (2 * n_pairs, RAW_H, RAW_W, 3),
+            f"the full cache holds {tuple(cache.frames.shape)}")
+    shapes = {"idx_l": (steps, B), "idx_r": (steps, B),
+              "trans": (steps, B, 2, 3), "P_l": (steps, B, 4, 4),
+              "P_r": (steps, B, 4, 4), "pose_3d": (steps, B, 19, 3),
+              "joints_vis": (steps, B, 19), "row_valid": (steps, B)}
+    require({k: v.shape for k, v in xs.items()} == shapes,
+            f"stacked_epoch shapes {({k: v.shape for k, v in xs.items()})}")
+    require(xs["row_valid"].sum() == n_pairs
+            and xs["row_valid"][-1].sum() == n_pairs - (steps - 1) * B,
+            f"row_valid sums to {xs['row_valid'].sum(1)}")
+    recs = loader.records
+    for rec in (recs[0], recs[n_pairs // 2], recs[-1]):
+        for key in ("image_left", "image_right"):
+            row = int(cache.rows([rec[key]])[0])
+            require(torch.equal(cache.frames[row].cpu(), torch.from_numpy(
+                loader._decode_paths([rec[key]])[0])),
+                f"cache row {row} is not the decoded {rec[key]}")
+    model = seeded_train_model(cfg).to(dev)
+    dxs = on_card(xs, dev)
+    first = pipeline_batch(cache.frames, dxs, 0, cfg, train=True)
+    first["row_valid"] = dxs["row_valid"][0]
+    calibrate_train_head(model, first)
+    state = TrainState.create(model, cfg, steps_per_epoch=steps)
+    epoch = make_train_epoch_cdr(
+        make_loss(cfg.LOSS.TYPE, cfg.LOSS.USE_TARGET_WEIGHT),
+        cfg.MODEL.IMAGE_SIZE, occlusion=cfg.DATASET.OCCLUSION,
+        loss_3d_weight=cfg.TRAIN.LOSS_3D_WEIGHT,
+        num_joints=cfg.MODEL.NUM_JOINTS)
+    full = {"cache_build_s": build_s, "decoder": loader.decoder_name,
+            "epochs": []}
+    launches = {k: 0 for k in kernel_counters()}
+    for use_3d in (False, True):
+        if use_3d:
+            cache, xs, e = loader.stacked_epoch()
+        counters = reset_counts()
+        t = time.perf_counter()
+        m = epoch(state, cache.frames, xs, SEED * 10007 + e, use_3d)
+        sync()
+        wall = (time.perf_counter() - t) * 1e3
+        n = read_counts(counters)
+        require_counts(n, steps, 1, 1, 0, f"full-cache epoch {e}")
+        m = _epoch_metrics(m, cfg, use_3d, f"full-cache epoch {e}")
+        full["epochs"].append({"use_3d": use_3d, "wall_ms": wall,
+                               "step_ms": wall / steps, "metrics": m})
+        launches = {k: launches[k] + n[k] for k in n}
+        print(f"# loader training, full cache, epoch {e} use_3d={use_3d}: "
+              f"{steps} steps, {wall / steps:.1f} ms a step, launches {n}, "
+              f"summed " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
+    full["launches"] = launches
+    loader.close()
+    del loader, cache, xs, dxs, first
+    torch.cuda.empty_cache()
+
+    # half the tree on the card: partial cache and the upload lane
+    cfg.DATASET.DEVICE_CACHE_BYTES = tree_bytes // 2
+    loader = Stereo3DLoader(cfg, cfg.DATASET.TRAIN_SET, seed=SEED,
+                            device_cache_bytes=tree_bytes // 2, device=dev)
+    t = time.perf_counter()
+    cache = loader.ensure_device_cache()
+    sync()
+    require(cache is not None and cache.partial
+            and cache.frames.shape[0] == n_pairs,
+            f"the half-budget cache holds {cache and cache.frames.shape} "
+            f"(partial {cache and cache.partial})")
+    try:
+        loader.stacked_epoch()
+        refused = "nothing"
+    except RuntimeError as err:
+        refused = str(err)
+    require("FULL device cache" in refused,
+            f"stacked_epoch on a partial cache raised {refused}")
+    partial = {"cache_build_s": time.perf_counter() - t,
+               "resident_frames": int(cache.frames.shape[0]), "epochs": []}
+    step = train_step_fn(cfg)
+    everyone = sorted(r["image_left"] for r in loader.records)
+    launches = {k: 0 for k in launches}
+    for _ in range(2):
+        counters = reset_counts()
+        times, rv = [], 0.0
+        t = time.perf_counter()
+        for batch in loader:
+            m = step(state, batch, True)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            rv += float(batch["row_valid"].sum())
+            t = time.perf_counter()
+        n = read_counts(counters)
+        require_counts(n, steps, 1, 1, 0, "partial-cache epoch")
+        log = loader.batch_log
+        lanes = {(b["rows"], b["uploaded"]) for b in log}
+        require(len(log) == steps and len(lanes) == 1,
+                f"partial-cache lanes (cached rows, uploaded frames) a batch "
+                f"{[(b['rows'], b['uploaded']) for b in log]}")
+        seen = sorted(p for b in log for p in b["valid"])
+        require(seen == everyone and rv == n_pairs,
+                f"a partial-cache epoch covered {len(seen)} records "
+                f"({len(set(seen))} distinct), row_valid {rv}, not each of "
+                f"the {n_pairs} once")
+        m = _epoch_metrics({k: v.item() for k, v in m.items()}, cfg, True,
+                           "partial-cache step")
+        rec = {"lanes": {"cached_rows": log[0]["rows"],
+                         "uploaded_frames": log[0]["uploaded"]},
+               "step_ms": times, "upload_mb": [b["upload_bytes"] / 1e6
+                                               for b in log],
+               "decode_ms": [b["decode_ms"] for b in log],
+               "last_metrics": m}
+        partial["epochs"].append(rec)
+        launches = {k: launches[k] + n[k] for k in n}
+        print(f"# loader training, partial cache ({cache.frames.shape[0]} of "
+              f"{2 * n_pairs} frames resident): lanes {rec['lanes']}, steps "
+              f"{[round(x, 1) for x in times]} ms, upload "
+              f"{[round(x, 1) for x in rec['upload_mb']]} MB and host decode "
+              f"{[round(x, 1) for x in rec['decode_ms']]} ms a step, "
+              f"launches {n}")
+    partial["launches"] = launches
+    partial["step_ms"] = statistics.median(partial["epochs"][-1]["step_ms"])
+    loader.close()
+    print(f"# loader training: full-cache step "
+          f"{full['epochs'][-1]['step_ms']:.1f} ms vs partial-cache step "
+          f"{partial['step_ms']:.1f} ms (upload "
+          f"{statistics.median(partial['epochs'][-1]['upload_mb']):.1f} MB, "
+          f"host decode "
+          f"{statistics.median(partial['epochs'][-1]['decode_ms']):.1f} ms a "
+          f"step, in the prefetch thread); phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"full": full, "partial": partial}
+
+
+def seeded_pose_resnet(cfg, dev):
+    from fast3dhpe_tpu_torch.models.layers import init_weights
+    from fast3dhpe_tpu_torch.models.poseresnet import PoseResNet
+    model = PoseResNet.from_config(cfg)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    return model.to(dev)
+
+
+def run_loader_2d(mads, mpii, dev):
+    """PoseResNet-101 from the trees: Mono2DLoader on MPII (host batches
+    zero-padded to multiples of 128, warped on the card; two epochs of one
+    step) and on MADS_2d (one stacked epoch from the full cache)."""
+    from fast3dhpe_tpu_torch.data import Mono2DLoader
+    from fast3dhpe_tpu_torch.models.losses import make_loss
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    from fast3dhpe_tpu_torch.train.steps import (make_train_epoch_2d,
+                                                 make_train_step_2d)
+    t0 = time.perf_counter()
+    out = {}
+    cfg = tree_cfg("configs/mpii.yaml", mpii, 1 << 30)
+    loader = Mono2DLoader(cfg, cfg.DATASET.TRAIN_SET, seed=SEED,
+                          device_cache_bytes=cfg.DATASET.DEVICE_CACHE_BYTES,
+                          device=dev)
+    state = TrainState.create(seeded_pose_resnet(cfg, dev), cfg,
+                              steps_per_epoch=len(loader))
+    loss = make_loss(cfg.LOSS.TYPE, cfg.LOSS.USE_TARGET_WEIGHT, layout="NHWC")
+    step = make_train_step_2d(loss)
+    counters = reset_counts()
+    mets, shapes = [], set()
+    for _ in range(2):
+        for batch in loader:
+            mets.append({k: v.item() for k, v in step(state, batch).items()})
+        shapes |= {b["frame_shape"] for b in loader.batch_log}
+    n = read_counts(counters)
+    require(not loader.device_cached, "MPII's mixed sizes built a cache")
+    require(all(s[0] % 128 == 0 and s[1] % 128 == 0 for s in shapes),
+            f"MPII host batches of {shapes}, not multiples of 128")
+    require(len(mets) == 2 * len(loader) and all(np.isfinite(v) for m in mets
+                                   for v in m.values()),
+            f"MPII steps: {mets}")
+    require_counts(n, len(mets), 0, 0, 0, "MPII steps")
+    out["mpii"] = {"steps": mets, "padded_shapes": sorted(shapes),
+                   "launches": n, "decoder": loader.decoder_name}
+    loader.close()
+    print(f"# 2D MPII: {len(mets)} PoseResNet-101 steps from host batches "
+          f"padded to {sorted(shapes)}, launches {n}, "
+          + "; ".join(", ".join(f"{k} {v:.4g}" for k, v in m.items())
+                      for m in mets))
+    del state, step
+    torch.cuda.empty_cache()
+
+    cfg = tree_cfg("configs/mads_2d.yaml", mads, 1 << 30)
+    loader = Mono2DLoader(cfg, cfg.DATASET.TRAIN_SET, seed=SEED,
+                          device_cache_bytes=cfg.DATASET.DEVICE_CACHE_BYTES,
+                          device=dev)
+    cache, xs, _ = loader.stacked_epoch()
+    steps = xs["idx"].shape[0]
+    state = TrainState.create(seeded_pose_resnet(cfg, dev), cfg,
+                              steps_per_epoch=steps)
+    epoch = make_train_epoch_2d(
+        make_loss(cfg.LOSS.TYPE, cfg.LOSS.USE_TARGET_WEIGHT, layout="NHWC"),
+        cfg.MODEL.IMAGE_SIZE, cfg.MODEL.EXTRA.HEATMAP_SIZE,
+        cfg.MODEL.EXTRA.SIGMA)
+    counters = reset_counts()
+    t = time.perf_counter()
+    m = {k: float(v) for k, v in epoch(state, cache.frames, xs).items()}
+    sync()
+    wall = (time.perf_counter() - t) * 1e3
+    n = read_counts(counters)
+    require(all(np.isfinite(v) for v in m.values()), f"MADS_2d epoch {m}")
+    require(xs["row_valid"].sum() == len(loader.records),
+            f"MADS_2d row_valid sums to {xs['row_valid'].sum()}")
+    require_counts(n, steps, 0, 0, 0, "MADS_2d epoch")
+    out["mads_2d"] = {"steps": steps, "step_ms": wall / steps, "metrics": m,
+                      "launches": n}
+    loader.close()
+    print(f"# 2D MADS_2d: a stacked epoch of {steps} PoseResNet-101 steps "
+          f"from the full cache, {wall / steps:.1f} ms a step, launches {n}, "
+          f"summed " + ", ".join(f"{k} {v:.4g}" for k, v in m.items())
+          + f"; phase {time.perf_counter() - t0:.1f} s")
+    out["launches"] = {k: out["mpii"]["launches"][k] + n[k] for k in n}
+    return out
+
+
+def moved_rows(inf, batch, lo, size):
+    """Frames lo..B-1 of a streamed batch, run in their rows and again in
+    other batches of B: the same batch; the half cache's second batch
+    (those frames at rows 0.., every other row a copy of the last); the
+    batch rolled so that they take rows 0.. beside the same other frames;
+    and their own rows with every other row a copy of the last. For each,
+    how far their heatmaps (of max|heatmap|), pred_2d (px) and pred_3d
+    (relative) move, with the fused blocks (K3) and with cuDNN alone."""
+    from fast3dhpe_tpu_torch.models.resnet import Bottleneck
+    from fast3dhpe_tpu_torch.ops.warp import affine_warp
+    B = len(batch["proj"])
+    k = B - lo
+    layouts = {  # name -> (the batch's frame at each row, rows of lo..B-1)
+        "the same batch": (list(range(B)), list(range(lo, B))),
+        "other rows and neighbours": (list(range(lo, B)) + [B - 1] * lo,
+                                      list(range(k))),
+        "other rows, same neighbours": (list(range(lo, B)) + list(range(lo)),
+                                        list(range(k))),
+        "same rows, other neighbours": ([B - 1] * lo + list(range(lo, B)),
+                                        list(range(lo, B)))}
+    blocks = [m for m in inf.model.modules() if isinstance(m, Bottleneck)]
+    fused = [b.fused_inference for b in blocks]
+
+    def run(order):
+        idx = torch.as_tensor(order, device=batch["img_l"].device)
+        trans = torch.as_tensor(batch["trans"][order], device=idx.device)
+        imgs = normalized(affine_warp(batch["img_l"][idx], trans, size),
+                          affine_warp(batch["img_r"][idx], trans, size),
+                          idx.device)
+        with torch.inference_mode():
+            kp, p3, hm = inf.model(imgs, torch.as_tensor(
+                batch["proj"][order], device=idx.device),
+                return_heatmaps=True)
+        return hm.float(), kp, p3
+
+    out = {name: {} for name in layouts}
+    try:
+        for mode, on in (("fused", fused), ("cudnn", [False] * len(blocks))):
+            for b, f in zip(blocks, on):
+                b.fused_inference = f
+            hm0, kp0, p30 = (o[lo:] for o in run(list(range(B))))
+            for name, (order, rows) in layouts.items():
+                hm, kp, p3 = (o[rows] for o in run(order))
+                out[name][mode] = {
+                    "hm": float((hm - hm0).abs().max() / hm0.abs().max()),
+                    "kp_px": float((kp - kp0).abs().max()),
+                    "p3_rel": float(((p3 - p30).norm(dim=-1)
+                                     / p30.norm(dim=-1)).max())}
+    finally:
+        for b, f in zip(blocks, fused):
+            b.fused_inference = f
+    return out
+
+
+def run_movement_eval(inf, cpu_inf, mads, cfg, dev):
+    """evaluate_movement over valid/HipHop with the movement whole on the
+    card, half of it, a batch-aligned part, and streamed: one K1 and four
+    K3 launches a batch; MPJPE2D the same in every mode, MPJPE3D where the
+    batches hold the same frames (the DLT of untrained keypoints turns the
+    bf16 forward's dependence on a batch's other rows into a visible 3D
+    difference; measured below on the same frames at other rows of a
+    batch); frames/s of a call with the movement already held (the first
+    call builds the cache). One batch's errors against the CPU."""
+    import os
+    from fast3dhpe_tpu_torch.apps.eval_loop import ground_truth
+    from fast3dhpe_tpu_torch.data import LoadMADSData
+    from fast3dhpe_tpu_torch.ops.warp import affine_warp
+    t0 = time.perf_counter()
+    data = os.path.join(mads, cfg.DATASET.TEST_SET)
+    size = tuple(cfg.MODEL.IMAGE_SIZE)
+    B = cfg.TEST.BATCH_SIZE
+    batches = -(-TREE_VALID_FRAMES // B)
+    modes, launches = {}, {}
+    for mode, frames in EVAL_MODES:
+        cache_bytes = frames * RAW_H * RAW_W * 3
+        stream = LoadMADSData(data, size, EVAL_MOVEMENT, device=dev)
+        counters = reset_counts()
+        t = time.perf_counter()
+        e2, e3 = inf.evaluate_movement(stream, B, cache_bytes)
+        first_s = time.perf_counter() - t
+        n = read_counts(counters)
+        require_counts(n, batches, 1, 0, 4, f"evaluate_movement, {mode}")
+        cache = stream.build_device_cache(cache_bytes) if cache_bytes else None
+        require((cache is None) == (cache_bytes == 0)
+                and (cache is None or cache.partial
+                     == mode.startswith("partial")),
+                f"{mode}: the stream's cache is {cache}")
+        t = time.perf_counter()
+        again = inf.evaluate_movement(stream, B, cache_bytes)
+        second_s = time.perf_counter() - t
+        modes[mode] = {"mpjpe_2d": e2, "mpjpe_3d": e3,
+                       "again": dict(zip(("mpjpe_2d", "mpjpe_3d"), again)),
+                       "first_call_s": first_s,
+                       "frames_per_s": TREE_VALID_FRAMES / second_s,
+                       "decoder": stream.decoder_name}
+        launches[mode] = n
+        print(f"# movement eval, {mode}: MPJPE2D {e2:.6g} px, MPJPE3D "
+              f"{e3:.6g} mm; {TREE_VALID_FRAMES} frames in {second_s:.3f} s "
+              f"({TREE_VALID_FRAMES / second_s:.1f} frames/s; first call, "
+              f"which builds the cache, {first_s:.3f} s); launches {n}")
+    ref = modes["full cache"]
+    for mode, r in modes.items():
+        for k in ("mpjpe_2d", "mpjpe_3d"):
+            if k == "mpjpe_3d" and mode == "partial cache":
+                continue        # other batches: reported, held in 2D
+            for got in (r[k], r["again"][k]):
+                require(np.isfinite(got) and abs(got - ref[k])
+                        <= EVAL_REL_TOL * abs(ref[k]),
+                        f"{mode} {k} {got} differs from the full cache's "
+                        f"{ref[k]} beyond {EVAL_REL_TOL} relative")
+
+    half = modes["partial cache"]
+    rel3 = abs(half["mpjpe_3d"] - ref["mpjpe_3d"]) / abs(ref["mpjpe_3d"])
+    stream = LoadMADSData(data, size, EVAL_MOVEMENT, device=dev)
+    batch = next(iter(stream.batches(B, device_warp=True)))
+    moved = moved_rows(inf, batch, TREE_VALID_FRAMES // 2, size)
+    print(f"# movement eval: MPJPE3D of the half cache differs by {rel3:.3g} "
+          f"relative from the whole cache's. Frames "
+          f"{TREE_VALID_FRAMES // 2}-{B - 1} of the whole cache's first "
+          f"batch run in other batches of {B} (heatmaps max of max|hm|, "
+          f"pred_2d px, pred_3d max relative; fused / cuDNN only): "
+          + "; ".join(f"{k} " + " / ".join(
+              f"{v[m]['hm']:.3g}, {v[m]['kp_px']:.3g}, {v[m]['p3_rel']:.3g}"
+              for m in ("fused", "cudnn")) for k, v in moved.items()))
+    modes["partial cache"]["mpjpe_3d_rel_to_full"] = rel3
+    modes["partial cache"]["rows_moved"] = moved
+
+    # one streamed batch's first rows on the card and on the CPU
+    k = EVAL_CPU_PAIRS
+    img_l, img_r = batch["img_l"][:k], batch["img_r"][:k]
+    trans, proj = batch["trans"][:k], batch["proj"][:k]
+    pose, vis = ground_truth(batch["pose_3d"][:k])
+    with torch.inference_mode():
+        kp, p3 = inf.predict_batch(img_l, img_r, proj, trans=trans)
+        e2, e3 = inf.predict_eval(img_l, img_r, trans, proj, pose, vis)
+        c2, c3 = cpu_inf.predict_eval(img_l.cpu(), img_r.cpu(), trans, proj,
+                                      pose, vis)
+        r2, r3 = cpu_inf.eval_errors(kp.cpu(), p3.cpu(), proj, pose, vis)
+    vs_cpu = check_vs_cpu(
+        inf.model, cpu_inf.model,
+        normalized(affine_warp(img_l, trans, size),
+                   affine_warp(img_r, trans, size), dev),
+        normalized(affine_warp(img_l.cpu(), trans, size),
+                   affine_warp(img_r.cpu(), trans, size), "cpu"),
+        proj, kp, "movement eval vs CPU", t0)
+    metric = max(float(((a.cpu() - b).abs() / b.abs()).max())
+                 for a, b in ((e2, r2), (e3, r3)))
+    vs_cpu.update(metric_rel=metric,
+                  e2_px=float((e2.cpu() - c2).abs().max()),
+                  e3_rel=float(((e3.cpu() - c3).abs() / c3.abs()).median()))
+    print(f"# movement eval vs CPU ({k} pairs): the card's errors vs the "
+          f"CPU's metric on the card's predictions {metric:.3g} relative; vs "
+          f"the CPU run: MPJPE2D max {vs_cpu['e2_px']:.3g} px, MPJPE3D "
+          f"median {vs_cpu['e3_rel']:.3g} relative; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(metric <= 1e-5, f"the card's per-sample errors differ from the "
+                            f"CPU's metric of its predictions by {metric}")
+    # the errors of pred_2d within 2 px (check_vs_cpu) move by as much
+    require(vs_cpu["e2_px"] < 2.0,
+            f"MPJPE2D differs from the CPU run by {vs_cpu['e2_px']} px")
+    return {"modes": modes, "launches": launches, "vs_cpu": vs_cpu}
+
+
 # ------------------------------------------------------------------ timing
 
 def _decoder_logits(gen, dev, n, dt):
@@ -1776,8 +2344,7 @@ def main():
         return
 
     cfg = load_config("configs/mads_3d.yaml")
-    inf, serve_launches, cpu_model = phase("serving path", run_path, cfg,
-                                           dev)
+    inf, serve_launches, cpu_inf = phase("serving path", run_path, cfg, dev)
     k1 = phase("K1 timing", time_softargmax, dev, gen)
     k2 = phase("K2 timing", time_softargmax_bwd, dev, gen)
     k3 = phase("K3 timing", time_bottleneck, dev, gen)
@@ -1797,9 +2364,20 @@ def main():
     pipe_checks = phase("pipeline checks", check_pipeline, cache, cfg, dev)
     pipe = phase("pipeline training", run_pipeline_train, cfg, dev, cache,
                  train_summary["step_ms"])
-    raw = phase("raw serving", run_raw_serving, inf, cpu_model, cache, cfg,
-                dev)
-    del inf, cpu_model, cache
+    raw = phase("raw serving", run_raw_serving, inf, cpu_inf.model, cache,
+                cfg, dev)
+    del cache
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mads, mpii, trees = phase("trees", write_trees, tmp)
+        loader_train = phase("loader training", run_loader_train, mads, dev)
+        torch.cuda.empty_cache()
+        loader_2d = phase("2D loaders", run_loader_2d, mads, mpii, dev)
+        torch.cuda.empty_cache()
+        movement = phase("movement eval", run_movement_eval, inf, cpu_inf,
+                         mads, cfg, dev)
+    del inf, cpu_inf
     torch.cuda.empty_cache()
     vs_cpu = phase("train card vs CPU", train_vs_cpu, cfg, start_sd, dev)
 
@@ -1807,7 +2385,14 @@ def main():
         by_path = {"serving": serve_launches[key],
                    "training": train_launches[key],
                    "pipeline training": pipe["launches"][key],
-                   "raw serving": raw["launches"][key]}
+                   "raw serving": raw["launches"][key],
+                   "loader training, full cache":
+                       loader_train["full"]["launches"][key],
+                   "loader training, partial cache":
+                       loader_train["partial"]["launches"][key],
+                   "2D loaders": loader_2d["launches"][key]}
+        by_path.update({f"movement eval, {mode}": n[key]
+                        for mode, n in movement["launches"].items()})
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -1836,6 +2421,9 @@ def main():
                       "pipeline_training": pipe,
                       "raw_serving": {k: v for k, v in raw.items()
                                       if k != "launches"}}))
+    print(json.dumps({"host_data": {
+        "trees": trees, "loader_training": loader_train,
+        "loaders_2d": loader_2d, "movement_eval": movement}}))
     print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phases.items()))
     print(f"# total {time.perf_counter() - t_start:.1f} s")

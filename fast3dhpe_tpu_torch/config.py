@@ -1,8 +1,9 @@
 """The part of the YAML config (the reference schema, as read by
 fast3dhpe_tpu/config.py) that the model, the inferencer, the input
-pipeline and the train steps read: MODEL.NAME / IMAGE_SIZE / NUM_JOINTS /
-NUM_LAYERS, MODEL.EXTRA.SIGMA / HEATMAP_SIZE / DLT_METHOD, DATASET.FLIP /
-ROT_FACTOR / SCALE_FACTOR / OCCLUSION / DEVICE_CACHE_BYTES,
+pipeline, the loaders and the train steps read: MODEL.NAME / IMAGE_SIZE /
+NUM_JOINTS / NUM_LAYERS, MODEL.EXTRA.SIGMA / HEATMAP_SIZE / DLT_METHOD,
+DATASET.TYPE / ROOT / TRAIN_SET / TEST_SET / FLIP / ROT_FACTOR /
+SCALE_FACTOR / OCCLUSION / CACHE_BYTES / DEVICE_CACHE_BYTES,
 TRAIN.BATCH_SIZE / WARMUP / EPOCH / LR / LR_STEP / LR_FACTOR /
 LOSS_3D_WEIGHT, TEST.BATCH_SIZE and LOSS.USE_TARGET_WEIGHT / TYPE. Other
 keys are accepted and ignored.
@@ -35,10 +36,15 @@ class ModelConfig:
 
 @dataclass
 class DatasetConfig:
+    TYPE: str = "MADS_3d"              # "MADS_3d" | "MADS_2d" | "MPII"
+    ROOT: str = "data/MADS_extract"
+    TEST_SET: str = "valid"
+    TRAIN_SET: str = "train"
     FLIP: bool = True
     ROT_FACTOR: float = 30
     SCALE_FACTOR: float = 0.25
     OCCLUSION: Optional[str] = None    # None | "None" | "CUTOUT" | "HNS"
+    CACHE_BYTES: int = 0               # budget of the host RAM frame cache
     DEVICE_CACHE_BYTES: int = 0        # budget of the device frame cache
 
 

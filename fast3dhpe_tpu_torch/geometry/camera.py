@@ -12,20 +12,31 @@ def _f32(x, device=None):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def _apply(M, points):
+    """(..., I, 3) matrices applied to (..., N, 3) points -> (..., N, I),
+    summed over j = 0, 1, 2 in that order by fused multiply-adds, as XLA's
+    CPU dot sums: the host index builders (data/mads.py) then project bit
+    for bit as the JAX package does."""
+    Mt = M.transpose(-1, -2)[..., None, :, :]               # (..., 1, 3, I)
+    acc = points[..., 0:1] * Mt[..., 0, :]
+    for j in (1, 2):
+        acc = torch.addcmul(acc, points[..., j:j + 1], Mt[..., j, :])
+    return acc
+
+
 def world_to_camera(points, R, T):
     """(..., N, 3) world points -> camera frame, with R (..., 3, 3) and
     T (..., 3, 1)."""
     points = _f32(points)
     R, T = _f32(R, points.device), _f32(T, points.device)
-    return (torch.einsum("...ij,...nj->...ni", R, points)
-            + T.transpose(-1, -2))
+    return _apply(R, points) + T.transpose(-1, -2)
 
 
 def camera_to_image(points, K):
     """Camera frame -> (..., N, 3): pixel x, y, and the depth kept in the
     third column."""
     points = _f32(points)
-    p = torch.einsum("...ij,...nj->...ni", _f32(K, points.device), points)
+    p = _apply(_f32(K, points.device), points)
     return torch.cat([p[..., :2] / p[..., 2:3], p[..., 2:3]], dim=-1)
 
 

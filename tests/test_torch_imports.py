@@ -27,6 +27,10 @@ def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
     assert "fast3dhpe_tpu_torch.models.cdrnet" in mods
     assert "fast3dhpe_tpu_torch.ops.softargmax" in mods
+    for name in ("data.mads", "data.mpii", "data.native_jpeg",
+                 "data.synthetic", "data.loader", "data.stream",
+                 "data.extract", "apps.eval_loop", "apps.extract_data"):
+        assert f"fast3dhpe_tpu_torch.{name}" in mods, name
     # -I: no PYTHONPATH and no user site, so nothing but the port is loaded
     code = (
         "import importlib, json, sys\n"
@@ -41,6 +45,8 @@ def test_importing_the_port_loads_no_jax():
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert bad == [], bad
     assert "triton" not in loaded       # the port has no Triton kernel
+    # cv2 and PIL are imported where a frame is read or written, not before
+    assert not {"cv2", "PIL"} & {m.split(".")[0] for m in loaded}
 
 
 def _imported_names(path):

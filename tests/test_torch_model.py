@@ -118,8 +118,11 @@ def test_inferencer_matches_jax_inferencer(jax_setup, tmp_path):
     eye = np.broadcast_to(np.eye(2, 3, dtype=np.float32), (B, 2, 3))
     kp_eye, _ = inf.predict_batch(img_l, img_r, projs, trans=eye)
     assert torch.equal(kp_eye, kp)
-    with pytest.raises(NotImplementedError):
-        inf.evaluate_movement(None)
+    # evaluate_movement (tests/test_torch_stream_eval.py) refuses a stream
+    # whose frames live on another device
+    elsewhere = type("Stream", (), {"device": torch.device("meta")})()
+    with pytest.raises(ValueError, match="stream is on meta"):
+        inf.evaluate_movement(elsewhere)
 
 
 def test_inferencer_errors(tmp_path):
