@@ -81,7 +81,40 @@
    pairs (one padded), full width, from the same weights and batch on the
    card and on the CPU: losses, grad_norm, every gradient and the BN
    statistics, beside how far rounding-sized noise moves them on the CPU.
-10. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
+10. The CLI apps at full width, on the trees of step 8 (an app is
+    called through its `main(argv)`, with the kernels' counts set to 0
+    just before and read just after):
+   a. `train` (configs/mads_2d.yaml: PoseResNet-101, fp32), 2 epochs of
+      loader iteration: finite history, latest.pth loads strict, no kernel
+      launched;
+   b. `train_cdr` (configs/mads_3d.yaml: CDRNet-101, fp32, CUTOUT) from
+      a's latest.pth, 3 epochs with WARMUP 1 and the LR / 10 from epoch 4,
+      stacked from the card: before the first step the encoder is a's bit
+      for bit and the rest a fresh seeded init; latest.pth, latest.opt.pt
+      and best.pth (of the last epoch, the only one after the warmup);
+      one K1 a train step and an eval batch, one K2 a train step, no K3;
+   c. the same command without --overwrite raises FileExistsError and
+      leaves the files byte for byte;
+   d. the optimizer state a resume loads equals the saved one; then
+      `python -m fast3dhpe_tpu_torch.apps.train_cdr --resume` as a
+      subprocess with EPOCH 4: exit 0, one epoch, Adam's step and the
+      train step continue from the saved step at LR / 10, best.pth
+      rewritten only if MPJPE3D improved;
+   e. `inference --bf16 --fused_inference --movement all`: one K1 and four
+      K3 a batch, no K2; the printed MPJPEs against evaluate_movement on
+      the same weights; with --save_frames 3 its GIF and test.jpg decode,
+      or, where matplotlib is missing, render_frames raises an ImportError
+      that names it and the cv2 2D overlays are drawn, written and
+      decoded instead (a line says so);
+   f. `baseline` on a's weights: finite MPJPE, no kernel; one batch
+      against the CPU (pred_2d equal but at near-ties of a heatmap's
+      maximum, pred_3d within 1e-3 where pred_2d agrees);
+   g. dlt_triangulate by jacobi, svd and sii and triangulate_closed_form
+      on 32 x 19 systems, against the CPU: launches, device and host ms;
+   h. prints each epoch's wall time, checkpoint bytes and save ms
+      (synchronous and asynchronous), the resume load ms and the apps'
+      frames/s beside the card's name and power limit.
+11. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
 
 It needs one CUDA device. Without one, or when any phase fails, it exits
 non-zero and prints no result.
@@ -1933,6 +1966,514 @@ def run_movement_eval(inf, cpu_inf, mads, cfg, dev):
     return {"modes": modes, "launches": launches, "vs_cpu": vs_cpu}
 
 
+# -------------------------------------------------------------------- apps
+
+APPS_EPOCHS_2D = 2                # `train`: PoseResNet-101, WARMUP 0
+APPS_EPOCHS_CDR, APPS_WARMUP = 3, 1   # `train_cdr`: best.pth after epoch 3
+APPS_LR_STEP = 3                  # LR / 10 from epoch 4: the resumed epoch
+NEAR_TIE = 1e-3                   # of a heatmap's range: an argmax near-tie
+GEOMETRY_TOL = 1e-3               # of max|CPU|: a DLT on the card vs the CPU
+
+
+class EpochTimes:
+    """A logging handler that keeps the seconds of each 'epoch ...' line
+    the training loops log (its last argument)."""
+
+    def __init__(self):
+        import logging
+        self.handler = logging.Handler()
+        self.handler.emit = self._emit
+        self.seconds = []
+        self.logger = logging.getLogger("fast3dhpe_tpu_torch")
+
+    def _emit(self, rec):
+        if str(rec.msg).startswith("epoch "):
+            self.seconds.append(float(rec.args[-1]))
+
+    def __enter__(self):
+        from fast3dhpe_tpu_torch.utils.logging import setup_logger
+        setup_logger().addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def app_config(src, path, root, **sections):
+    """configs/<src> with DATASET.ROOT at the tree and the given keys of
+    each section replaced, written to path for an app's --config_path."""
+    import yaml
+    with open(src) as f:
+        d = yaml.safe_load(f)
+    d["DATASET"]["ROOT"] = root
+    for name, keys in sections.items():
+        d[name].update(keys)
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    return path
+
+
+def digests(d):
+    import hashlib
+    import os
+    return {n: hashlib.sha256(open(os.path.join(d, n), "rb").read())
+            .hexdigest() for n in sorted(os.listdir(d))}
+
+
+def counted(fn, *args):
+    """fn(*args) with the kernels' counts set to 0 just before and read
+    just after; (result, launches, wall s)."""
+    counters = reset_counts()
+    t = time.perf_counter()
+    out = fn(*args)
+    sync()
+    return out, read_counts(counters), time.perf_counter() - t
+
+
+def _finite_history(h, what):
+    bad = {k: v for k, v in h.items() if not np.isfinite(v).all()}
+    require(not bad, f"{what}: non-finite history {bad}")
+
+
+def run_train_apps(mads, work, dev):
+    """a-d: `train` (PoseResNet-101, loader iteration), `train_cdr`
+    (CDRNet-101 from a's encoder, stacked epochs from the card), the
+    overwrite guard, and `train_cdr --resume` as a subprocess."""
+    import logging
+    import os
+    import re
+    from fast3dhpe_tpu_torch.apps import train, train_cdr
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.models.cdrnet import CDRNet
+    from fast3dhpe_tpu_torch.models.poseresnet import PoseResNet
+    from fast3dhpe_tpu_torch.train import checkpoint, loop2d, loop_cdr
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    weights = os.path.join(work, "weights")
+    n_pairs = len(TREE_MOVEMENTS) * TREE_TRAIN_FRAMES
+    out = {}
+
+    # a. 2D training, from JPEGs through the loader's iteration
+    cfg2 = app_config("configs/mads_2d.yaml", os.path.join(work, "2d.yaml"),
+                      mads, MODEL={"PRETRAINED": ""},
+                      TRAIN={"EPOCH": APPS_EPOCHS_2D, "WARMUP": 0})
+    with EpochTimes() as et:
+        h2, n, wall = counted(train.main, [
+            "--config_path", cfg2, "--overwrite", "--weights_root", weights,
+            "--device", dev.type])
+    require_counts(n, 1, 0, 0, 0, "the train app")
+    _finite_history(h2, "the train app")
+    require(len(h2["val_acc"]) == APPS_EPOCHS_2D, f"train app history {h2}")
+    dir2 = os.path.join(weights, load_config(cfg2).MODEL.NAME)
+    a_latest = os.path.join(dir2, "latest.pth")
+    a_sd = checkpoint.load_variables(a_latest)
+    PoseResNet.from_config(load_config(cfg2)).load_state_dict(a_sd,
+                                                              strict=True)
+    out["train"] = {"epoch_s": et.seconds, "wall_s": wall, "launches": n,
+                    "history": h2}
+    print(f"# apps a, train (PoseResNet-101, {APPS_EPOCHS_2D} epochs of "
+          f"loader iteration): epochs {[round(s, 2) for s in et.seconds]} s, "
+          f"wall {wall:.1f} s, launches {n}, val acc {h2['val_acc']}")
+
+    # b. CDR training from a's encoder, stacked epochs from the card
+    tree_bytes = 2 * n_pairs * RAW_H * RAW_W * 3
+    cdr = dict(MODEL={"PRETRAINED": a_latest},
+               DATASET={"DEVICE_CACHE_BYTES": tree_bytes},
+               TRAIN={"EPOCH": APPS_EPOCHS_CDR, "WARMUP": APPS_WARMUP,
+                      "LR_STEP": [APPS_LR_STEP]})
+    cfg3 = app_config("configs/mads_3d.yaml", os.path.join(work, "3d.yaml"),
+                      mads, **cdr)
+    argv3 = ["--config_path", cfg3, "--weights_root", weights, "--device",
+             dev.type]
+    cfg = load_config(cfg3)
+    start, load_pretrained = {}, loop_cdr._load_pretrained
+
+    def spy(model, config, logger):
+        load_pretrained(model, config, logger)
+        start.update({k: v.detach().clone()
+                      for k, v in model.state_dict().items()})
+
+    loop_cdr._load_pretrained = spy
+    try:
+        with EpochTimes() as et:
+            h3, n, wall = counted(train_cdr.main, argv3 + ["--overwrite"])
+    finally:
+        loop_cdr._load_pretrained = load_pretrained
+    fresh = loop_cdr._init_model(cfg, SEED).state_dict()
+    wrong = [k for k, v in start.items()
+             if not torch.equal(v, a_sd[k] if k.startswith("encoder.")
+                                else fresh[k])]
+    require(not wrong and len(start) == len(fresh),
+            f"before the first step, {len(wrong)} tensors were neither a's "
+            f"encoder nor a fresh seeded init: {wrong[:5]}")
+    steps = -(-n_pairs // cfg.TRAIN.BATCH_SIZE)
+    evals = -(-TREE_VALID_FRAMES // cfg.TEST.BATCH_SIZE)
+    want = {"soft_argmax": APPS_EPOCHS_CDR * (steps + evals),
+            "soft_argmax_bwd": APPS_EPOCHS_CDR * steps,
+            "fused_bottleneck": 0}
+    require(n == want, f"the train_cdr app launched {n}, not {want}")
+    _finite_history(h3, "the train_cdr app")
+    dir3 = os.path.join(weights, cfg.MODEL.NAME)
+    files = digests(dir3)
+    require(set(files) == {"best.pth", "latest.pth", checkpoint.OPT_FILE},
+            f"the train_cdr app wrote {sorted(files)}")
+    best = checkpoint.load_variables(os.path.join(dir3, "best.pth"))
+    # best only after the warmup (`epoch > WARMUP`): the last epoch here
+    require(checkpoint.weights_step(best) == APPS_EPOCHS_CDR * steps,
+            f"best.pth is of step {checkpoint.weights_step(best)}")
+    saved = torch.load(os.path.join(dir3, checkpoint.OPT_FILE),
+                       weights_only=True)
+    out["train_cdr"] = {"epoch_s": et.seconds, "wall_s": wall,
+                        "launches": n, "history": h3}
+    print(f"# apps b, train_cdr (CDRNet-101 from a's encoder, "
+          f"{APPS_EPOCHS_CDR} epochs, WARMUP {APPS_WARMUP}, stacked from the "
+          f"card): epochs {[round(s, 2) for s in et.seconds]} s, wall "
+          f"{wall:.1f} s, launches {n}, val MPJPE3D {h3['val_mpjpe_3d']}, "
+          f"best.pth of step {checkpoint.weights_step(best)}; the merged "
+          f"encoder is a's, the rest a fresh seeded init")
+
+    # c. the overwrite guard
+    try:
+        train_cdr.main(argv3)
+        refused = None
+    except FileExistsError as err:
+        refused = str(err)
+    require(refused and "--overwrite" in refused,
+            f"train_cdr without --overwrite raised {refused}")
+    require(digests(dir3) == files, "the refused run changed the files")
+
+    # d. resume, as a subprocess through the module's entry point
+    cfg4 = app_config("configs/mads_3d.yaml", os.path.join(work, "4d.yaml"),
+                      mads, **dict(cdr, TRAIN=dict(cdr["TRAIN"],
+                                                   EPOCH=APPS_EPOCHS_CDR + 1)))
+    model = CDRNet.from_config(cfg).to(dev)
+    state = TrainState.create(model, cfg, steps)
+    t = time.perf_counter()
+    step, best_metric = loop2d._restore_state(dir3, state,
+                                              logging.getLogger("chip"))
+    sync()
+    resume_ms = (time.perf_counter() - t) * 1e3
+    loaded = state.optimizer.state_dict()
+    same = all(torch.equal(v.cpu(), saved["optimizer"]["state"][i][k])
+               for i, s in loaded["state"].items() for k, v in s.items())
+    require(same and step == saved["step"] == APPS_EPOCHS_CDR * steps
+            and loaded["param_groups"] == saved["optimizer"]["param_groups"],
+            "the optimizer state a resume loads differs from the saved one")
+    times = checkpoint_times(state, work)
+    del model, state, loaded
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fast3dhpe_tpu_torch.apps.train_cdr",
+         "--config_path", cfg4, "--resume", "--weights_root", weights,
+         "--device", dev.type], capture_output=True, text=True, timeout=900)
+    sub_s = time.perf_counter() - t
+    require(proc.returncode == 0,
+            f"train_cdr --resume exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    epochs = re.findall(r"epoch (\d+)/(\d+)", proc.stderr)
+    after = torch.load(os.path.join(dir3, checkpoint.OPT_FILE),
+                       weights_only=True)
+    adam = {float(s["step"]) for s in after["optimizer"]["state"].values()}
+    lr = cfg.TRAIN.LR * cfg.TRAIN.LR_FACTOR
+    require(epochs == [(str(APPS_EPOCHS_CDR + 1), str(APPS_EPOCHS_CDR + 1))]
+            and f"Resumed from step {step}" in proc.stderr
+            and after["step"] == step + steps
+            and adam == {float(step + steps)}
+            and after["optimizer"]["param_groups"][0]["lr"] == lr,
+            f"the resumed run logged epochs {epochs}, reached step "
+            f"{after['step']}, Adam steps {adam}, lr "
+            f"{after['optimizer']['param_groups'][0]['lr']} (want one epoch "
+            f"from step {step}, Adam {step + steps}, lr {lr})")
+    improved = after["best_metric"] < best_metric
+    now = digests(dir3)
+    require((now["best.pth"] != files["best.pth"]) == improved,
+            f"best.pth {'unchanged' if improved else 'changed'} while "
+            f"MPJPE3D went {best_metric} -> {after['best_metric']}")
+    out["resume"] = {"subprocess_s": sub_s, "load_ms": resume_ms,
+                     "best_metric": [best_metric, after["best_metric"]]}
+    print(f"# apps c, the overwrite guard refused and left the files as they "
+          f"were; d, train_cdr --resume (subprocess, {sub_s:.1f} s): one "
+          f"epoch from step {step} to {after['step']} at lr {lr:g}, Adam's "
+          f"step {adam}, best.pth {'rewritten' if improved else 'kept'} "
+          f"(MPJPE3D {best_metric:.6g} -> {after['best_metric']:.6g}); the "
+          f"resume load {resume_ms:.1f} ms")
+    out["checkpoint"] = times
+    return out, cfg2, cfg3, weights
+
+
+def checkpoint_times(state, work):
+    """Save ms and bytes of latest.pth + latest.opt.pt, synchronous and
+    asynchronous (the time save() takes to return, and to the end of the
+    write), twice each."""
+    import os
+    from fast3dhpe_tpu_torch.train import checkpoint, loop2d
+    out = {"sync_ms": [], "async_return_ms": [], "async_total_ms": []}
+    for i in range(2):
+        for mode in ("sync", "async"):
+            d = os.path.join(work, f"ckpt_{mode}_{i}")
+            os.makedirs(d)
+            writer = checkpoint.make_checkpoint_writer(mode == "async")
+            sync()
+            t = time.perf_counter()
+            loop2d._save_latest(writer, d, state, 0.0)
+            returned = (time.perf_counter() - t) * 1e3
+            writer.close()
+            total = (time.perf_counter() - t) * 1e3
+            if mode == "sync":
+                out["sync_ms"].append(total)
+            else:
+                out["async_return_ms"].append(returned)
+                out["async_total_ms"].append(total)
+            out["bytes"] = {n: os.path.getsize(os.path.join(d, n))
+                            for n in sorted(os.listdir(d))}
+    return out
+
+
+def run_serve_apps(mads, work, cfg2, cfg3, weights, dev):
+    """e-f: `inference --bf16 --fused_inference --movement all` and
+    `baseline` on the trained weights, each against the library call it
+    wraps and the CPU."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import cv2
+    from PIL import Image
+    from fast3dhpe_tpu_torch.apps import baseline, inference
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.data import LoadMADSData
+    from fast3dhpe_tpu_torch.geometry.camera import project_points_np
+    from fast3dhpe_tpu_torch.utils.visualize import plot_pose_2d, save_gif
+    valid = os.path.join(mads, "valid")
+    cfg = load_config(cfg3)
+    size = tuple(cfg.MODEL.IMAGE_SIZE)
+    B = cfg.TEST.BATCH_SIZE
+    batches = -(-TREE_VALID_FRAMES // B)
+    budget = 2048 << 20
+    drawn = importlib.util.find_spec("matplotlib") is not None
+    out = {"matplotlib": drawn}
+
+    # e. the inference app
+    argv = ["--config_path", cfg3, "--weights_root", weights, "--bf16",
+            "--fused_inference", "--movement", "all", "--data_path", valid,
+            "--batch_size", str(B), "--device", dev.type]
+    if drawn:
+        argv += ["--save_frames", "3"]
+    here, printed = os.getcwd(), io.StringIO()
+    os.chdir(work)
+    try:
+        with contextlib.redirect_stdout(printed):
+            res, n, wall = counted(inference.main, argv)
+    finally:
+        os.chdir(here)
+    require_counts(n, batches, 1, 0, 4, "the inference app")
+    e2, e3 = res[EVAL_MOVEMENT]
+    text = printed.getvalue()
+    require(f"[{EVAL_MOVEMENT}] MPJPE2D:  {e2}" in text
+            and f"[{EVAL_MOVEMENT}] MPJPE3D:  {e3}" in text
+            and list(res) == [EVAL_MOVEMENT],
+            f"the inference app printed {text!r} for {res}")
+    inf = inference.CDRNetInferencer(cfg, weights_root=weights,
+                                     dtype=torch.bfloat16,
+                                     fused_inference=True, device=dev)
+    stream = LoadMADSData(valid, size, EVAL_MOVEMENT, device=dev)
+    r2, r3 = inf.evaluate_movement(stream, B, budget)
+    t = time.perf_counter()
+    inf.evaluate_movement(stream, B, budget)
+    eval_s = time.perf_counter() - t
+    for got, ref, k in ((e2, r2, "MPJPE2D"), (e3, r3, "MPJPE3D")):
+        require(np.isfinite(got) and abs(got - ref) <= EVAL_REL_TOL
+                * abs(ref), f"the inference app's {k} {got} differs from "
+                            f"evaluate_movement's {ref}")
+    if drawn:
+        with Image.open(os.path.join(work, f"{EVAL_MOVEMENT}.gif")) as im:
+            require(im.n_frames == 3, f"the GIF holds {im.n_frames} frames")
+        require(cv2.imread(os.path.join(work, "test.jpg")) is not None,
+                "test.jpg does not decode")
+        note = "the GIF and test.jpg written by the app decode"
+    else:
+        try:
+            inf.render_frames(stream, 1, os.path.join(work, "x.jpg"))
+            missing = None
+        except ImportError as err:
+            missing = str(err)
+        require(missing and "matplotlib" in missing,
+                f"render_frames without matplotlib raised {missing}")
+        print(f"# apps e: the 3D plot was not drawn: matplotlib is not "
+              f"installed on this host ({missing}); the cv2 2D overlays are")
+        batch = next(iter(stream.batches(B)))
+        kp, _ = inf.predict_batch(batch["img_l"], batch["img_r"],
+                                  batch["proj"])
+        kp = kp.float().cpu().numpy()
+        poses = np.nan_to_num(batch["pose_3d"]).astype(np.float32)
+        gts = [project_points_np(poses, batch["proj"][:, v])
+               for v in range(2)]
+        raw = [np.concatenate([batch["img_l"][i].cpu().numpy(),
+                               batch["img_r"][i].cpu().numpy()], axis=1)
+               for i in range(3)]
+        frames = [cv2.cvtColor(plot_pose_2d(
+            (gts[0][i], gts[1][i]), (kp[i, 0], kp[i, 1]),
+            (batch["img_l"][i].cpu().numpy(),
+             batch["img_r"][i].cpu().numpy())), cv2.COLOR_BGR2RGB)
+            for i in range(3)]
+        require(all(f.shape == (size[1], 2 * size[0], 3) and
+                    (cv2.cvtColor(f, cv2.COLOR_RGB2BGR) != r).any()
+                    for f, r in zip(frames, raw)),
+                "the 2D overlays drew nothing")
+        save_gif(frames, os.path.join(work, f"{EVAL_MOVEMENT}_2d.gif"))
+        cv2.imwrite(os.path.join(work, "test.jpg"),
+                    cv2.cvtColor(frames[-1], cv2.COLOR_RGB2BGR))
+        with Image.open(os.path.join(work,
+                                     f"{EVAL_MOVEMENT}_2d.gif")) as im:
+            require(im.n_frames == 3, f"the GIF holds {im.n_frames} frames")
+        require(cv2.imread(os.path.join(work, "test.jpg")) is not None,
+                "test.jpg does not decode")
+        note = "a GIF and test.jpg of the 2D overlays decode"
+    del inf
+    torch.cuda.empty_cache()
+    out["inference"] = {"mpjpe": [e2, e3], "evaluate_movement": [r2, r3],
+                        "launches": n, "app_wall_s": wall,
+                        "app_frames_per_s": TREE_VALID_FRAMES / wall,
+                        "eval_frames_per_s": TREE_VALID_FRAMES / eval_s}
+    print(f"# apps e, inference --bf16 --fused_inference --movement all: "
+          f"MPJPE2D {e2:.6g} px, MPJPE3D {e3:.6g} mm (evaluate_movement "
+          f"{r2:.6g}, {r3:.6g}), launches {n}; app {wall:.2f} s "
+          f"({TREE_VALID_FRAMES / wall:.1f} frames/s), evaluate_movement "
+          f"{TREE_VALID_FRAMES / eval_s:.1f} frames/s; {note}")
+
+    # f. the baseline app, and one batch against the CPU
+    bl_argv = ["--config_path", cfg2, "--weights_root", weights,
+               "--data_path", valid, "--batch_size", str(B), "--device",
+               dev.type]
+    with contextlib.redirect_stdout(io.StringIO()):
+        (b2, b3), n, wall = counted(baseline.main, bl_argv)
+    require_counts(n, 1, 0, 0, 0, "the baseline app")
+    require(np.isfinite([b2, b3]).all(), f"baseline MPJPE {b2}, {b3}")
+    cfg_2d = load_config(cfg2)
+    est = baseline.BaselineEstimator(cfg_2d, weights_root=weights,
+                                     device=dev)
+    stream = LoadMADSData(valid, size, EVAL_MOVEMENT, device=dev)
+    est.evaluate_movement(stream, B, budget)
+    t = time.perf_counter()
+    est.evaluate_movement(stream, B, budget)
+    bl_eval_s = time.perf_counter() - t
+    cpu = baseline.BaselineEstimator(cfg_2d, weights_root=weights,
+                                     device="cpu")
+    batch = next(iter(LoadMADSData(valid, size, EVAL_MOVEMENT,
+                                   device="cpu").batches(B)))
+    kp, p3 = (x.cpu() for x in est.predict_batch(
+        batch["img_l"], batch["img_r"], batch["proj"]))
+    ckp, cp3 = cpu.predict_batch(batch["img_l"], batch["img_r"],
+                                 batch["proj"])
+    with torch.inference_mode():
+        from fast3dhpe_tpu_torch.ops.warp import normalize_imagenet
+        hm = cpu.model(torch.cat([normalize_imagenet(batch["img_l"]),
+                                  normalize_imagenet(batch["img_r"])]))
+    views = torch.cat([kp[:, 0], kp[:, 1]]), torch.cat([ckp[:, 0],
+                                                        ckp[:, 1]])
+    differ = (views[0] != views[1]).any(-1).nonzero().tolist()
+    scale = size[0] / cfg_2d.MODEL.EXTRA.HEATMAP_SIZE[0]
+    for img, j in differ:
+        h = hm[img, :, :, j]
+        x, y = (views[0][img, j] / scale).long().tolist()
+        gap, span = float(h.max() - h[y, x]), float(h.max() - h.min())
+        # hard_argmax zeroes a joint whose maximum is <= 0
+        require(gap <= NEAR_TIE * span or abs(float(h.max())) <= NEAR_TIE
+                * span,
+                f"baseline pred_2d of image {img} joint {j} differs from the "
+                f"CPU's by more than a near-tie of its heatmap ({gap})")
+    same = (kp == ckp).all(-1).all(1)                  # (B, J)
+    floor = cp3.abs().amax(-1) > 1e8                   # |w| at its 1e-9 floor
+    rel = ((p3 - cp3).norm(dim=-1) / cp3.norm(dim=-1))
+    rel_abs = ((p3.abs() - cp3.abs()).norm(dim=-1) / cp3.norm(dim=-1))
+    require(bool(same.any()), "no joint's pred_2d agrees with the CPU's")
+    worst = float(torch.where(floor, rel_abs, rel)[same].max())
+    require(worst <= 1e-3, f"baseline pred_3d differs from the CPU's by "
+                           f"{worst} relative where pred_2d agrees")
+    out["baseline"] = {"mpjpe": [b2, b3], "launches": n, "app_wall_s": wall,
+                       "app_frames_per_s": TREE_VALID_FRAMES / wall,
+                       "eval_frames_per_s": TREE_VALID_FRAMES / bl_eval_s,
+                       "pred_2d_near_ties": len(differ),
+                       "pred_3d_rel": worst,
+                       "joints_at_w_floor": int(floor.sum())}
+    print(f"# apps f, baseline: MPJPE2D {b2:.6g} px, MPJPE3D {b3:.6g} mm, "
+          f"launches {n}; app {wall:.2f} s ({TREE_VALID_FRAMES / wall:.1f} "
+          f"frames/s), evaluate_movement "
+          f"{TREE_VALID_FRAMES / bl_eval_s:.1f} frames/s; one batch vs the "
+          f"CPU: pred_2d differs at {len(differ)} near-ties, pred_3d within "
+          f"{worst:.3g} relative ({int(floor.sum())} joints at the floor of "
+          f"w compared in magnitude)")
+    return out
+
+
+def run_geometry(dev):
+    """g. dlt_triangulate by jacobi, svd and sii and
+    triangulate_closed_form on 32 x 19 systems of converging_rig with 1 px
+    of noise, on the card against the CPU: launches and device ms a call
+    (torch.profiler) and host ms a call."""
+    from fast3dhpe_tpu_torch.geometry.triangulation import (
+        dlt_triangulate, triangulate_closed_form)
+    rng = np.random.RandomState(SEED + 7)
+    P = converging_rig(TIMING_PAIRS)
+    X = rng.uniform(-250, 250, (TIMING_PAIRS, 19, 3))
+    hom = np.concatenate([X, np.ones((TIMING_PAIRS, 19, 1))], -1)
+    uvw = np.einsum("bvij,bkj->bkvi", P.astype(np.float64), hom)
+    pts = (uvw[..., :2] / uvw[..., 2:]
+           + rng.randn(TIMING_PAIRS, 19, 2, 2)).astype(np.float32)
+    proj = np.ascontiguousarray(np.broadcast_to(
+        P[:, None], (TIMING_PAIRS, 19, 2, 3, 4)))
+    flat = pts.reshape(-1, 2, 2)
+    calls = {f"dlt {m}": (lambda d, m=m: dlt_triangulate(
+        torch.as_tensor(proj, device=d), torch.as_tensor(pts, device=d),
+        method=m)) for m in ("jacobi", "svd", "sii")}
+    calls["closed form"] = lambda d: triangulate_closed_form(
+        torch.as_tensor(P[0, 0], device=d), torch.as_tensor(P[0, 1],
+                                                            device=d),
+        torch.as_tensor(flat[:, 0], device=d),
+        torch.as_tensor(flat[:, 1], device=d))
+    out = {}
+    for name, fn in calls.items():
+        got, ref = fn(dev).cpu(), fn("cpu")
+        err = float((got - ref).abs().max() / ref.abs().max())
+        require(torch.isfinite(got).all() and err <= GEOMETRY_TOL,
+                f"{name} on the card differs from the CPU by {err} of its "
+                f"largest coordinate")
+        prof = profile_calls(lambda: fn(dev))
+        out[name] = {"max_err": err, "host_ms": host_ms(lambda: fn(dev)),
+                     **prof}
+    print("# apps g, geometry at 32 x 19 systems (launches, device ms, host "
+          "ms a call; error vs the CPU): " + "; ".join(
+              f"{k} {v['launches']:.0f}, {v['device_ms']:.3f}, "
+              f"{v['host_ms']:.2f} ms, {v['max_err']:.2g}"
+              for k, v in out.items()))
+    return out
+
+
+def run_apps(mads, dev, smi):
+    """Phase 11: the CLI apps at full width on the JPEG trees, a-h."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        out, cfg2, cfg3, weights = run_train_apps(mads, work, dev)
+        torch.cuda.empty_cache()
+        out.update(run_serve_apps(mads, work, cfg2, cfg3, weights, dev))
+    torch.cuda.empty_cache()
+    out["geometry"] = run_geometry(dev)
+    c = out["checkpoint"]
+    print(f"# apps h ({smi}): epoch wall s: train {out['train']['epoch_s']}, "
+          f"train_cdr {out['train_cdr']['epoch_s']}; checkpoint "
+          f"{c['bytes']} bytes, sync save {[round(x, 1) for x in c['sync_ms']]}"
+          f" ms, async save returns in "
+          f"{[round(x, 1) for x in c['async_return_ms']]} ms and ends in "
+          f"{[round(x, 1) for x in c['async_total_ms']]} ms; resume load "
+          f"{out['resume']['load_ms']:.1f} ms; inference app "
+          f"{out['inference']['app_frames_per_s']:.1f} frames/s "
+          f"(evaluate_movement {out['inference']['eval_frames_per_s']:.1f}),"
+          f" baseline app {out['baseline']['app_frames_per_s']:.1f} frames/s "
+          f"(evaluate_movement {out['baseline']['eval_frames_per_s']:.1f}); "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------ timing
 
 def _decoder_logits(gen, dev, n, dt):
@@ -2377,6 +2918,8 @@ def main():
         torch.cuda.empty_cache()
         movement = phase("movement eval", run_movement_eval, inf, cpu_inf,
                          mads, cfg, dev)
+        torch.cuda.empty_cache()
+        apps = phase("apps", run_apps, mads, dev, smi)
     del inf, cpu_inf
     torch.cuda.empty_cache()
     vs_cpu = phase("train card vs CPU", train_vs_cpu, cfg, start_sd, dev)
@@ -2393,6 +2936,9 @@ def main():
                    "2D loaders": loader_2d["launches"][key]}
         by_path.update({f"movement eval, {mode}": n[key]
                         for mode, n in movement["launches"].items()})
+        by_path.update({f"{app} app": apps[app]["launches"][key]
+                        for app in ("train", "train_cdr", "inference",
+                                    "baseline")})
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -2424,6 +2970,7 @@ def main():
     print(json.dumps({"host_data": {
         "trees": trees, "loader_training": loader_train,
         "loaders_2d": loader_2d, "movement_eval": movement}}))
+    print(json.dumps({"apps": apps}))
     print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phases.items()))
     print(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -1,37 +1,35 @@
-"""CDRNet stereo inference. Port of fast3dhpe_tpu/apps/inference.py
-`CDRNetInferencer` (:33-241): weights in, stereo batches of uint8 frames
-to pred_2d / pred_3d out, and a movement's sequence MPJPE.
+"""CDRNet stereo inference. Port of fast3dhpe_tpu/apps/inference.py:
+`CDRNetInferencer` (:33-249), weights in, stereo batches of uint8 frames
+to pred_2d / pred_3d out, a movement's sequence MPJPE and its rendered
+frames; and the app (`main`, :252-347), which prints each movement's
+MPJPE2D and MPJPE3D and, with --save_frames N, writes <movement>.gif and
+test.jpg.
+
+    python -m fast3dhpe_tpu_torch.apps.inference --bf16 --fused_inference \
+        --config_path configs/mads_3d.yaml --movement all
 """
 
 from __future__ import annotations
 
+import argparse
+import glob
 import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..convert import load_state_dict_file
+from ..config import load_config
+from ..data.stream import LoadMADSData
 from ..device import resolve_device
 from ..geometry.camera import project_points
 from ..models.cdrnet import CDRNet
 from ..models.metrics import per_sample_mpjpe
 from ..ops.warp import affine_warp, normalize_imagenet
+from ..train.checkpoint import load_variables
+from ..utils.logging import setup_logger
 from .eval_loop import accum_eval, evaluate_stream, ground_truth, \
     make_cached_eval
-
-
-def find_weights(weights_root: str, name: str) -> str:
-    """weights_root/<name>/{best,latest}.pth, the first that exists."""
-    path = os.path.join(weights_root, name)
-    for cand in ("best", "latest"):
-        if os.path.isfile(os.path.join(path, cand + ".pth")):
-            return os.path.join(path, cand + ".pth")
-        if os.path.isdir(os.path.join(path, cand)):
-            raise NotImplementedError(
-                f"{os.path.join(path, cand)} is an orbax checkpoint; loading "
-                f"those is slice 5 (loops and checkpoints) of the port")
-    raise FileNotFoundError(f"No checkpoint found at {path}")
 
 
 class CDRNetInferencer:
@@ -44,13 +42,13 @@ class CDRNetInferencer:
                  device="cuda", int8: bool = False):
         if int8:
             raise NotImplementedError(
-                "int8 serving is slice 6 (int8, export, multi-GPU) of the "
-                "port")
+                "int8 serving is A12, slice 6 (int8, export, multi-GPU) of "
+                "the port")
         self.device = resolve_device(device)
         self.config = config
         if state_dict is None:
-            state_dict = load_state_dict_file(
-                find_weights(weights_root, config.MODEL.NAME))
+            state_dict = load_variables(
+                os.path.join(weights_root, config.MODEL.NAME))
         model = CDRNet.from_config(config, dtype=dtype,
                                    fused_inference=fused_inference)
         model.load_state_dict(state_dict, strict=True)
@@ -137,3 +135,99 @@ class CDRNetInferencer:
                 return tot2 / max(n, 1.0), tot3 / max(n, 1.0)
         return evaluate_stream(self.predict_eval, predict_cached, stream,
                                batch_size, device_cache_bytes)
+
+    def render_frames(self, stream, max_frames: int,
+                      out_jpg: str = "test.jpg", batch_size: int = 32):
+        """Reference-style per-frame visualisation frames (RGB arrays) of
+        the stream's first max_frames frames; the last is written to
+        out_jpg (utils/render.py)."""
+        from ..utils.render import render_prediction_frames
+        return render_prediction_frames(self.predict_batch, stream,
+                                        max_frames, out_jpg, batch_size)
+
+
+def main(argv=None):
+    """Returns {movement: (MPJPE2D, MPJPE3D)}."""
+    parser = argparse.ArgumentParser(
+        description="Evaluate CDRNet on MADS movements.")
+    parser.add_argument("--config_path", type=str,
+                        default="configs/mads_3d.yaml")
+    parser.add_argument("--movement", type=str, default="HipHop",
+                        help="The movement to evaluate, or 'all' for every "
+                             "movement in --data_path")
+    parser.add_argument("--save_frames", type=int, default=None,
+                        help="Number of frames to render into a gif")
+    parser.add_argument("--data_path", type=str,
+                        default="data/MADS_extract/valid")
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--device_cache_mb", type=int, default=2048,
+                        help="device memory budget for the movement's "
+                             "frames (0 disables; a movement over it is "
+                             "partly held or streamed)")
+    parser.add_argument("--weights_root", type=str, default="weights")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default; an error without a card) or "
+                             "cpu")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 compute (fp32 params)")
+    parser.add_argument("--fused_inference", action="store_true",
+                        help="run the fused-bottleneck kernel (K3) in the "
+                             "encoder blocks it covers (requires --bf16)")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 serving: not ported yet (A12), raises")
+    parser.add_argument("--int8_pack", type=str, default=None,
+                        help="int8 pack: not ported yet (A12), raises")
+    parser.add_argument("--calib_batches", type=int, default=8,
+                        help="int8 calibration batches (A12)")
+    args = parser.parse_args(argv)
+    if args.fused_inference and not args.bf16:
+        parser.error("--fused_inference requires --bf16 (K3 runs on "
+                     "bfloat16 activations only; without it every block "
+                     "would run the plain path)")
+    if args.int8 or args.int8_pack:
+        raise NotImplementedError(
+            "--int8 / --int8_pack: int8 serving is A12, slice 6 of the port")
+
+    logger = setup_logger()
+    config = load_config(args.config_path)
+    if args.movement == "all":
+        movements = sorted(os.path.basename(p) for p in
+                           glob.glob(os.path.join(args.data_path, "*"))
+                           if os.path.isdir(p))
+    else:
+        movements = [args.movement]
+    inferencer = CDRNetInferencer(
+        config, weights_root=args.weights_root,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        fused_inference=args.fused_inference, device=args.device)
+
+    results = {}
+    tot2 = tot3 = total_frames = 0.0
+    for movement in movements:
+        stream = LoadMADSData(args.data_path, config.MODEL.IMAGE_SIZE,
+                              movement, device=inferencer.device)
+        logger.info("%d frames in %s", len(stream), movement)
+        e2, e3 = inferencer.evaluate_movement(
+            stream, args.batch_size,
+            device_cache_bytes=args.device_cache_mb << 20)
+        print(f"[{movement}] MPJPE2D: ", e2)
+        print(f"[{movement}] MPJPE3D: ", e3)
+        results[movement] = (e2, e3)
+        tot2 += e2 * len(stream)
+        tot3 += e3 * len(stream)
+        total_frames += len(stream)
+
+        if args.save_frames:
+            from ..utils.visualize import save_gif
+            frames = inferencer.render_frames(stream, args.save_frames)
+            save_gif(frames, f"{movement}.gif")
+            logger.info("Wrote %s.gif (%d frames)", movement, len(frames))
+
+    if len(movements) > 1 and total_frames:
+        print("MPJPE2D (all): ", tot2 / total_frames)
+        print("MPJPE3D (all): ", tot3 / total_frames)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """The part of the YAML config (the reference schema, as read by
 fast3dhpe_tpu/config.py) that the model, the inferencer, the input
-pipeline, the loaders and the train steps read: MODEL.NAME / IMAGE_SIZE /
-NUM_JOINTS / NUM_LAYERS, MODEL.EXTRA.SIGMA / HEATMAP_SIZE / DLT_METHOD,
+pipeline, the loaders, the train steps and loops read: MODEL.NAME /
+PRETRAINED / IMAGE_SIZE / NUM_JOINTS / NUM_LAYERS, MODEL.EXTRA.SIGMA /
+HEATMAP_SIZE / DLT_METHOD,
 DATASET.TYPE / ROOT / TRAIN_SET / TEST_SET / FLIP / ROT_FACTOR /
 SCALE_FACTOR / OCCLUSION / CACHE_BYTES / DEVICE_CACHE_BYTES,
 TRAIN.BATCH_SIZE / WARMUP / EPOCH / LR / LR_STEP / LR_FACTOR /
@@ -28,6 +29,7 @@ class ExtraConfig:
 @dataclass
 class ModelConfig:
     NAME: str = "model"
+    PRETRAINED: str = ""     # a .pth whose encoder the training loops take
     IMAGE_SIZE: List[int] = field(default_factory=lambda: [256, 256])
     NUM_JOINTS: int = 19
     NUM_LAYERS: int = 101

@@ -1,4 +1,5 @@
-"""Weights into the port: JAX variable trees and reference .pth files.
+"""Weights into the port from JAX variable trees (reference .pth files
+load through train/checkpoint.py load_variables).
 
 `jax_variables_to_state_dict` is the port's copy of
 fast3dhpe_tpu/train/checkpoint.py `flax_to_torch_state_dict` (:161-251): it
@@ -91,7 +92,3 @@ def jax_variables_to_state_dict(
             torch.tensor(0, dtype=torch.int64)
     return out
 
-
-def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """A reference-format .pth state dict, on the CPU."""
-    return torch.load(path, map_location="cpu", weights_only=True)

@@ -112,7 +112,9 @@ def _prefetch(gen: Iterator, depth: int = 2) -> Iterator:
 
     The worker's puts poll a stop event that the consumer's `finally`
     sets, so an iterator closed or collected early releases the thread and
-    its buffered batches; an exception in `gen` is raised in the consumer.
+    its buffered batches, and waits for the thread to end (at most the
+    batch it is making), so that no thread is left inside torch when the
+    process exits; an exception in `gen` is raised in the consumer.
     """
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     sentinel = object()
@@ -150,6 +152,7 @@ def _prefetch(gen: Iterator, depth: int = 2) -> Iterator:
             yield item
     finally:
         stop.set()
+        t.join()
 
 
 class _BatchDecoder:

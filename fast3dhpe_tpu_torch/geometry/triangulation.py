@@ -1,7 +1,8 @@
 """Multi-view DLT triangulation, batched, in fp32.
 
 Port of fast3dhpe_tpu/geometry/triangulation.py: `pinv_projection`,
-`_dlt_system`, `_dehomogenize` and `dlt_triangulate(method="jacobi")`.
+`_dlt_system`, `_dehomogenize`, `dlt_triangulate` by all three methods
+("jacobi", "svd", "sii"), `sii_triangulate` and `triangulate_closed_form`.
 """
 
 from __future__ import annotations
@@ -43,14 +44,72 @@ def dlt_triangulate(proj, points, method: str = "jacobi"):
     """DLT triangulation batched over all leading axes.
 
     proj: (..., V, 3, 4); points: (..., V, 2). Returns (..., 3).
-    Only "jacobi" (the smallest right singular vector by the batched Jacobi
-    SVD) is ported yet.
+    method: "jacobi" (the smallest right singular vector by the batched
+    Jacobi SVD, the default), "svd" (torch.linalg.svd, a cross-check) or
+    "sii" (shifted inverse iteration, sii_triangulate: another estimator,
+    ~1 mm from the DLT under detection noise).
     """
-    if method in ("svd", "sii"):
-        raise NotImplementedError(
-            f"dlt_triangulate(method={method!r}) is not ported yet; "
-            f"use 'jacobi'")
-    if method != "jacobi":
+    if method == "sii":
+        return sii_triangulate(proj, points)
+    A = _dlt_system(proj, points)
+    if method == "jacobi":
+        homo = smallest_right_singular_vector(A)
+    elif method == "svd":
+        # 2V >= 4 rows: the reduced SVD keeps all 4 right singular vectors
+        _, _, vh = torch.linalg.svd(A, full_matrices=False)
+        homo = -vh[..., -1, :]
+    else:
         raise ValueError(f"unknown DLT method {method!r}")
-    return _dehomogenize(
-        smallest_right_singular_vector(_dlt_system(proj, points)))
+    return _dehomogenize(homo)
+
+
+def sii_triangulate(proj, points, num_iterations: int = 2,
+                    generator: torch.Generator = None, shift: float = 1e-6):
+    """Shifted-inverse-iteration triangulation, SVD-free
+    (triangulation.py:128-178).
+
+    Each column of A is scaled to unit norm first (a diagonal change of
+    homogeneous coordinates, undone at the end): on camera-scale rigs the
+    raw normal matrix sits at fp32's noise floor, the equilibrated one
+    does not. The shift is relative to its trace, 4. The start vector is
+    all ones, or uniform draws from `generator` (JAX's `key`), a
+    generator on the inputs' device.
+
+    proj: (..., V, 3, 4); points: (..., V, 2). Returns (..., 3).
+    """
+    A = _dlt_system(proj, points)
+    colnorm = torch.linalg.vector_norm(A, dim=-2, keepdim=True)
+    D = 1.0 / colnorm.clamp_min(1e-30)
+    An = A * D
+    M = An.transpose(-1, -2) @ An
+    B = M + (4.0 * shift) * torch.eye(4, dtype=M.dtype, device=M.device)
+    shape = M.shape[:-2] + (4,)
+    if generator is None:
+        b = torch.ones(shape, dtype=M.dtype, device=M.device)
+    else:
+        b = torch.rand(shape, generator=generator, dtype=M.dtype,
+                       device=M.device)
+    b = b / torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+    for _ in range(num_iterations):
+        b = torch.linalg.solve(B, b[..., None])[..., 0]
+        b = b / torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+    return _dehomogenize(-b * D[..., 0, :])
+
+
+def triangulate_closed_form(P1, P2, pts1, pts2):
+    """Two-view triangulation of N points (triangulation.py:181-209): per
+    point the rows [y P[2] - P[1] ; P[0] - x P[2]] of both views, and the
+    smallest right singular vector of that 4x4 system by the Jacobi SVD.
+
+    P1, P2: (3, 4) or (4, 4) projections (rows 0-2 used); pts1, pts2:
+    (N, 2). Returns (N, 3).
+    """
+    def rows(P, pts):
+        P = torch.as_tensor(P, dtype=torch.float32)
+        pts = torch.as_tensor(pts, dtype=torch.float32, device=P.device)
+        r0 = pts[:, 1:2] * P[2][None, :] - P[1][None, :]
+        r1 = P[0][None, :] - pts[:, 0:1] * P[2][None, :]
+        return torch.stack([r0, r1], dim=1)
+
+    M = torch.cat([rows(P1, pts1), rows(P2, pts2)], dim=1)
+    return _dehomogenize(smallest_right_singular_vector(M))

@@ -115,7 +115,14 @@ def test_dlt_triangulate_matches_jax_on_the_rig(seed):
 
 @pytest.mark.parametrize("method", ["svd", "sii"])
 def test_unported_dlt_methods_raise(method):
-    _, proj, pts = _observe(0, B=1)
-    with pytest.raises(NotImplementedError):
+    """"svd" and "sii" raised NotImplementedError until the port took them
+    (tests/test_torch_triangulation.py holds them against JAX); now they
+    recover the rig's points like "jacobi", and only a method the config
+    does not accept raises."""
+    X, proj, pts = _observe(0, B=1, noise_px=0.0)
+    got = dlt_triangulate(torch.from_numpy(proj), torch.from_numpy(pts),
+                          method=method).numpy()
+    assert np.abs(got - X).max() < 1.0
+    with pytest.raises(ValueError, match="unknown DLT method"):
         dlt_triangulate(torch.from_numpy(proj), torch.from_numpy(pts),
-                        method=method)
+                        method=method + "x")

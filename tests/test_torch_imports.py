@@ -29,7 +29,13 @@ def test_importing_the_port_loads_no_jax():
     assert "fast3dhpe_tpu_torch.ops.softargmax" in mods
     for name in ("data.mads", "data.mpii", "data.native_jpeg",
                  "data.synthetic", "data.loader", "data.stream",
-                 "data.extract", "apps.eval_loop", "apps.extract_data"):
+                 "data.extract", "apps.eval_loop", "apps.extract_data",
+                 "train.checkpoint", "train.loop2d", "train.loop_cdr",
+                 "train.resilience", "utils.logging", "utils.interrupt",
+                 "utils.profiling", "utils.visualize", "utils.render",
+                 "apps.train", "apps.train_cdr", "apps.inference",
+                 "apps.baseline", "apps.display_data_2d",
+                 "apps.display_data_3d"):
         assert f"fast3dhpe_tpu_torch.{name}" in mods, name
     # -I: no PYTHONPATH and no user site, so nothing but the port is loaded
     code = (
@@ -45,8 +51,10 @@ def test_importing_the_port_loads_no_jax():
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert bad == [], bad
     assert "triton" not in loaded       # the port has no Triton kernel
-    # cv2 and PIL are imported where a frame is read or written, not before
-    assert not {"cv2", "PIL"} & {m.split(".")[0] for m in loaded}
+    # cv2, PIL and matplotlib are imported where a frame is read, written
+    # or drawn, not before
+    assert not {"cv2", "PIL", "matplotlib"} & {m.split(".")[0]
+                                                for m in loaded}
 
 
 def _imported_names(path):
