@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py             # everything below
     python3 chip_smoke.py --kernels   # steps 1, 2 and the kernel timings
+    python3 chip_smoke.py --slice6    # steps 1-3, 5, 8a and 11
 
 1. Prints the card's name and power limit, builds the kernels
    (csrc/softargmax.cu and csrc/fused_bottleneck.cu, one nvcc each, in
@@ -114,7 +115,38 @@
    h. prints each epoch's wall time, checkpoint bytes and save ms
       (synchronous and asynchronous), the resume load ms and the apps'
       frames/s beside the card's name and power limit.
-11. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
+11. Slice 6, CDRNet-101 at 256 px on the serving phase's weights (a
+    train step's calibrated head for b-e), each path with the kernels'
+    counts set to 0 just before and read just after:
+   a. int8 serving: CDRNetInferencer(int8=True) calibrates a pack on 8
+      batches of 16 seeded pairs and writes it; 3 requests of 32 pairs
+      (1 K1, 0 K2, 0 K3 each); 2 pairs of one against the CPU's int8 path
+      on the same pack: every int8 code before cf_out bit-equal, cf_out's
+      (after the bf16 trunk) flipped in at most CF_FLIPS by one code, the
+      decoder on the CPU's cf_out codes bit-equal, heatmaps, pred_2d and
+      pred_3d within the serving phase's bounds; the request against the
+      bf16 fused one (heatmap correlation > 0.99, max error < 0.12 of the
+      max); both timed (wall, device busy by kernel group, peak memory);
+   b. `inference --bf16 --fused_inference`, `inference --int8 --int8_pack`
+      (calibrating on the tree, writing the pack) and the same from the
+      pack with no fp checkpoint, on valid/HipHop: MPJPEs side by side,
+      the pack's run equal to the calibrating one, launches;
+   c. exports fp32 and int8 at batch 32 (torch.export), saves them, loads
+      each in a new process that imports only fast3dhpe_tpu_torch.export,
+      and holds its call against predict_batch on the same frames (rtol
+      1e-4, atol 1e-3): one K1 launch inside each loaded call; a float
+      frame raises TypeError and a wrong batch ValueError; export seconds,
+      artifact bytes;
+   d. bf16 training: the train-mode BN layer on a bf16 input against the
+      CPU; the step at 32 pairs (4 padded, converging_rig) against the
+      card's fp32 step from the same weights (losses, encoder.bn1's
+      output; see BF16_LOSS_TOL), and at 2 pairs against the CPU's bf16
+      step; its time, device busy, peak memory, 1 K1 + 1 K2 a step and
+      K2's dtype; one `train_cdr --bf16` epoch on the tree;
+   e. remat: fp32 steps with remat None and "convs" against the plain
+      step (cuDNN deterministic): loss, gradients and BN statistics equal;
+      peak memory and step ms of all three at 32 and 96 pairs.
+12. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
 
 It needs one CUDA device. Without one, or when any phase fails, it exits
 non-zero and prints no result.
@@ -2474,6 +2506,780 @@ def run_apps(mads, dev, smi):
     return out
 
 
+# ----------------------------------------------------------------- slice 6
+
+S6_PAIRS = 32                     # int8 requests, exports, the bf16 step
+S6_CALIB = 8                      # calibration batches of 16 pairs
+S6_CPU_PAIRS = 2                  # rows of an int8 request also on the CPU
+S6_REMAT_PAIRS = (32, 96)
+# cf_out's int8 codes follow the bf16 trunk, which cuDNN and oneDNN round
+# apart: at most CF_FLIPS of them may differ from the CPU's, by one code;
+# every code before it is bit-equal (exact int32 accumulators, the same
+# fp32 epilogue and division)
+CF_FLIPS = 1e-3
+# int8 against the bf16 request, as tests/test_quantized.py:129-139
+INT8_CORR, INT8_MAX_ERR = 0.99, 0.12
+EXPORT_RTOL, EXPORT_ATOL = 1e-4, 1e-3     # as tests/test_export.py
+RIG_DISTANCE_MM = 3000.0                  # converging_rig's cameras
+# bf16 training. At random init the train-mode forward of CDRNet-101 in
+# bf16 leaves its fp32 twin far behind: the heatmaps differ by up to 0.9
+# of their largest value and the gradients by more than their norm (the
+# rounding compounds through 104 train-mode BNs; measured on the CPU at 2
+# and 32 pairs), so neither is held against fp32. What is held: the
+# losses (BF16_LOSS_TOL relative), the first BN site's output (the bf16
+# bounds of tests/test_pallas_kernels.py:116-119), and against the CPU's
+# bf16 step the gradient and BN statistics within BF16_NOISE_X times the
+# CPU's own bf16-vs-fp32 difference (the rule of
+# tests/test_torch_bf16_train.py), loose at this depth; the train-mode BN
+# layer itself on a bf16 input against the CPU within one bf16 rounding.
+BF16_LOSS_TOL, BF16_NOISE_X, BF16_ULP = 2e-2, 2.0, 2.0 ** -7
+HM_MAX_TOL, HM_MEAN_TOL = 0.05, 0.005     # tests/test_pallas_kernels.py
+
+
+def check_apis():
+    """The APIs this slice needs from the card's torch, named if absent."""
+    missing = [name for name, ok in (
+        ("torch.library.custom_op", hasattr(torch.library, "custom_op")),
+        ("torch.library.register_autograd",
+         hasattr(torch.library, "register_autograd")),
+        ("torch.export.export", hasattr(torch, "export")
+         and hasattr(torch.export, "export")),
+        ("torch._int_mm", hasattr(torch, "_int_mm"))) if not ok]
+    try:
+        import torch.export.passes as passes
+        if not hasattr(passes, "move_to_device_pass"):
+            missing.append("torch.export.passes.move_to_device_pass")
+    except ImportError:
+        missing.append("torch.export.passes")
+    require(not missing, f"torch {torch.__version__} lacks {missing}")
+    a = torch.ones((32, 32), dtype=torch.int8, device="cuda")
+    try:
+        got = torch._int_mm(a, a)
+    except RuntimeError as err:
+        raise RuntimeError(f"chip_smoke: torch._int_mm on CUDA failed: "
+                           f"{err}") from err
+    require(bool((got == 32).all()), "torch._int_mm on CUDA: wrong sums")
+
+
+class CalibFrames:
+    """A stream of seeded random uint8 pairs of bench.py's rig, as
+    CDRNetInferencer(int8=True) draws calibration batches from one."""
+
+    def __init__(self, seed, n):
+        self.seed, self.n = seed, n
+
+    def batches(self, batch_size):
+        rng = np.random.RandomState(self.seed)
+        for _ in range(self.n):
+            img_l, img_r, proj = stereo_request(rng, batch_size)
+            yield {"img_l": img_l, "img_r": img_r, "proj": proj}
+
+
+def requant_codes(fn):
+    """fn() with every int8 requant of ops/quant.py recorded (on the
+    CPU), in call order."""
+    from fast3dhpe_tpu_torch.ops import quant as Q
+    seen, orig = [], Q.requant
+
+    def recorded(y, s):
+        out = orig(y, s)
+        seen.append(out.cpu())
+        return out
+
+    Q.requant = recorded
+    try:
+        out = fn()
+    finally:
+        Q.requant = orig
+    return out, seen
+
+
+def device_groups(fn, calls=3):
+    """Device ms a call by kernel group (torch.profiler), and launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    groups = {"K1 soft-argmax": 0.0, "K3 fused bottleneck": 0.0,
+              "GEMM and convolution (cuBLAS, cuDNN)": 0.0,
+              "other (im2col copies, elementwise, geometry)": 0.0}
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        launches += e.count
+        ms = e.self_device_time_total / 1e3 / calls
+        if "softargmax_fwd" in e.key:
+            g = "K1 soft-argmax"
+        elif "bottleneck_kernel" in e.key:
+            g = "K3 fused bottleneck"
+        elif any(s in e.key.lower() for s in CONV_KERNELS + ("imma", "i8")):
+            g = "GEMM and convolution (cuBLAS, cuDNN)"
+        else:
+            g = "other (im2col copies, elementwise, geometry)"
+        groups[g] += ms
+    busy = sum(groups.values())
+    require(busy > 0, "the profiler recorded no device time")
+    return {"device_ms": busy, "launches": launches / calls,
+            "groups": groups}
+
+
+def run_int8(inf, cfg, dev, work):
+    """a. int8 serving: calibrate a pack on S6_CALIB batches, serve 3
+    requests of S6_PAIRS pairs (1 K1, no K2, no K3 each), one request's
+    first rows against the CPU's int8 path on the same pack, the request
+    against the bf16 fused one, and both timed."""
+    import os
+    from fast3dhpe_tpu_torch.apps.inference import CDRNetInferencer
+    from fast3dhpe_tpu_torch.geometry.triangulation import dlt_triangulate
+    from fast3dhpe_tpu_torch.models import quantized as qz
+    sd = {k: v.detach() for k, v in inf.model.state_dict().items()}
+    pack_path = os.path.join(work, "cdrnet101_int8.npz")
+    t = time.perf_counter()
+    inf8 = CDRNetInferencer(cfg, state_dict=sd, device=dev, int8=True,
+                            calib_stream=CalibFrames(SEED + 11, S6_CALIB),
+                            calib_batches=S6_CALIB, int8_pack=pack_path)
+    sync()
+    calib_s = time.perf_counter() - t
+    rng = np.random.RandomState(SEED + 12)
+    requests = [stereo_request(rng, S6_PAIRS) for _ in range(REQUESTS)]
+    counters = reset_counts()
+    outs = [inf8.predict_batch(*r) for r in requests]
+    n = read_counts(counters)
+    require_counts(n, REQUESTS, 1, 0, 0, "int8 serving")
+    for kp, p3 in outs:
+        require(kp.shape == (S6_PAIRS, 2, 19, 2)
+                and p3.shape == (S6_PAIRS, 19, 3)
+                and bool(torch.isfinite(kp).all() and torch.isfinite(p3)
+                         .all()), "int8 serving: bad outputs")
+
+    # the first rows of request 0 on the card and on the CPU, same pack
+    cpu8 = CDRNetInferencer(cfg, device="cpu", int8=True,
+                            int8_pack=pack_path)
+    il, ir, pj = (a[:S6_CPU_PAIRS] for a in requests[0])
+    with torch.inference_mode():
+        (gkp, gp3, ghm), gcodes = requant_codes(lambda: inf8.model(
+            normalized(il, ir, dev), torch.as_tensor(pj, device=dev),
+            return_heatmaps=True))
+        (ckp, cp3, chm), ccodes = requant_codes(lambda: cpu8.model(
+            normalized(il, ir, "cpu"), torch.as_tensor(pj),
+            return_heatmaps=True))
+        cf = len(ccodes) - 4              # cf_out, then the three deconvs
+        rt = inf8.model.rt
+        dec = qz._decoder_walk(qz._Int8Ctx(rt), (ccodes[cf].to(dev),
+                                                 rt.scale("cf_out")))
+        proj_j = torch.as_tensor(pj)[:, None].expand(S6_CPU_PAIRS, 19, 2,
+                                                     3, 4)
+        ref3 = dlt_triangulate(proj_j, gkp.cpu().transpose(1, 2))
+    require(len(gcodes) == len(ccodes), "int8: requant points differ")
+    enc_flips = sum(int((g != c).sum()) for g, c in zip(gcodes[:cf],
+                                                        ccodes[:cf]))
+    flips = [int((g != c).sum()) for g, c in zip(gcodes, ccodes)]
+    cf_d = (gcodes[cf].int() - ccodes[cf].int()).abs()
+    dec_exact = torch.equal(dec.cpu().reshape(chm.shape), chm)
+    hm_scale = float(chm.abs().max())
+    hm_err = float((ghm.cpu() - chm).abs().max()) / hm_scale
+    kp_err = float((gkp.cpu() - ckp).abs().max())
+    p3_rel = float(((gp3.cpu() - ref3).norm(dim=-1)
+                    / ref3.norm(dim=-1)).max())
+    vs_cpu = {"requant_points": len(ccodes), "encoder_flips": enc_flips,
+              "flips_by_point": flips, "cf_out_codes": cf_d.numel(),
+              "cf_out_flips": int((cf_d > 0).sum()),
+              "cf_out_max_code_diff": int(cf_d.max()),
+              "decoder_on_cpu_codes_exact": dec_exact,
+              "hm_max": hm_err, "kp_px": kp_err, "p3_rel": p3_rel}
+    print(f"# slice 6 a, int8 vs the CPU's int8 on the same pack "
+          f"({S6_CPU_PAIRS} pairs): {len(ccodes)} requant points, encoder "
+          f"flips {enc_flips}, cf_out {vs_cpu['cf_out_flips']} of "
+          f"{cf_d.numel()} (max {vs_cpu['cf_out_max_code_diff']} code), "
+          f"flips by point after it {flips[cf:]}; decoder on the CPU's "
+          f"cf_out codes exact: {dec_exact}; heatmaps {hm_err:.3g} of max, "
+          f"pred_2d {kp_err:.3g} px, pred_3d vs the CPU DLT of the card's "
+          f"pred_2d {p3_rel:.3g}")
+    require(enc_flips == 0, f"int8: {enc_flips} int8 codes before cf_out "
+                            f"differ from the CPU's (exact arithmetic)")
+    require(int((cf_d > 0).sum()) <= CF_FLIPS * cf_d.numel()
+            and int(cf_d.max()) <= 1,
+            f"int8: cf_out flips {vs_cpu['cf_out_flips']} (bound "
+            f"{CF_FLIPS} of {cf_d.numel()}, one code each)")
+    require(dec_exact, "int8: the decoder on the CPU's cf_out codes is not "
+                       "bit-equal to the CPU's")
+    require(hm_err < HM_MAX_TOL and kp_err < 2.0 and p3_rel < 1e-3,
+            f"int8 vs CPU: heatmaps {hm_err}, pred_2d {kp_err} px, pred_3d "
+            f"{p3_rel}")
+
+    # against the bf16 fused request on the same frames
+    il, ir, pj = requests[0]
+    with torch.inference_mode():
+        imgs = normalized(il, ir, dev)
+        pjt = torch.as_tensor(pj, device=dev)
+        _, _, h16 = inf.model(imgs, pjt, return_heatmaps=True)
+        _, _, h8 = inf8.model(imgs, pjt, return_heatmaps=True)
+    a, b = h16.float().cpu().numpy().ravel(), h8.cpu().numpy().ravel()
+    corr = float(np.corrcoef(a, b)[0, 1])
+    max_err = float(np.abs(a - b).max() / np.abs(a).max())
+    print(f"# slice 6 a, int8 vs the bf16 fused request ({S6_PAIRS} "
+          f"pairs): heatmap correlation {corr:.6f} (bound > {INT8_CORR}), "
+          f"max error {max_err:.4f} of max (bound < {INT8_MAX_ERR})")
+    require(corr > INT8_CORR and max_err < INT8_MAX_ERR,
+            f"int8 vs bf16: correlation {corr}, max error {max_err}")
+
+    # timing at S6_PAIRS pairs, inputs on the card
+    args = [torch.as_tensor(x, device=dev) for x in requests[1]]
+    times = {}
+    for name, fn in (("int8", lambda: inf8.predict_batch(*args)),
+                     ("bf16 fused", lambda: inf.predict_batch(*args))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        sync()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = device_groups(fn)
+        times[name] = dict(prof, wall_ms=host_ms(fn), peak_gib=peak)
+        print(f"# slice 6 a, {name} request at {S6_PAIRS} pairs: wall "
+              f"{times[name]['wall_ms']:.2f} ms, device busy "
+              f"{prof['device_ms']:.3f} ms in {prof['launches']:.0f} "
+              f"launches, peak {peak:.2f} GiB; "
+              + ", ".join(f"{k} {v:.3f}" for k, v in prof["groups"].items()))
+    return inf8, sd, requests, {
+        "launches": n, "calib_s": calib_s, "vs_cpu": vs_cpu,
+        "vs_bf16": {"corr": corr, "max_err": max_err}, "times": times,
+        "pack_bytes": os.path.getsize(pack_path)}
+
+
+def run_int8_apps(sd, cfg, mads, work, dev):
+    """b. `inference --int8 --int8_pack` on the tree (calibrating and
+    writing the pack, then loading it with no fp checkpoint), beside
+    `inference --bf16 --fused_inference` on the same weights."""
+    import contextlib
+    import io
+    import os
+    from fast3dhpe_tpu_torch.apps import inference
+    weights = os.path.join(work, "s6_weights")
+    os.makedirs(os.path.join(weights, cfg.MODEL.NAME))
+    torch.save({k: v.cpu() for k, v in sd.items()},
+               os.path.join(weights, cfg.MODEL.NAME, "best.pth"))
+    cfg_path = app_config("configs/mads_3d.yaml",
+                          os.path.join(work, "s6.yaml"), mads,
+                          MODEL={"PRETRAINED": ""})
+    B = cfg.TEST.BATCH_SIZE
+    batches = -(-TREE_VALID_FRAMES // B)
+    argv = ["--config_path", cfg_path, "--movement", "all", "--data_path",
+            os.path.join(mads, "valid"), "--batch_size", str(B), "--device",
+            dev.type]
+    pack = os.path.join(work, "app_int8.npz")
+    runs = {}
+    for name, extra in (
+            ("bf16 fused", ["--weights_root", weights, "--bf16",
+                            "--fused_inference"]),
+            ("int8, calibrating", ["--weights_root", weights, "--int8",
+                                   "--int8_pack", pack]),
+            ("int8, from the pack", ["--weights_root",
+                                     os.path.join(work, "no_weights"),
+                                     "--int8", "--int8_pack", pack])):
+        with contextlib.redirect_stdout(io.StringIO()):
+            res, n, wall = counted(inference.main, argv + extra)
+        e2, e3 = res[EVAL_MOVEMENT]
+        require(np.isfinite([e2, e3]).all(), f"{name} app: MPJPE {e2}, {e3}")
+        require_counts(n, batches, 1, 0, 4 if name == "bf16 fused" else 0,
+                       f"the {name} inference app")
+        runs[name] = {"mpjpe": [e2, e3], "launches": n, "wall_s": wall}
+    i8, i8b = runs["int8, calibrating"], runs["int8, from the pack"]
+    ratio = (i8["mpjpe"][0] + 1e-6) / (runs["bf16 fused"]["mpjpe"][0] + 1e-6)
+    print("# slice 6 b, inference apps on valid/HipHop: " + "; ".join(
+        f"{k} MPJPE2D {v['mpjpe'][0]:.6g} px, MPJPE3D {v['mpjpe'][1]:.6g} "
+        f"mm, {v['wall_s']:.1f} s" for k, v in runs.items())
+        + f"; int8/bf16 MPJPE2D {ratio:.4f}")
+    require(np.allclose(i8b["mpjpe"], i8["mpjpe"], rtol=1e-6),
+            "the int8 app from its pack differs from the calibrating run")
+    require(0.3 < ratio < 3.0, f"int8 app MPJPE2D / bf16 {ratio}")
+    return dict(runs, pack_bytes=os.path.getsize(pack))
+
+
+EXPORT_CHILD = r"""
+import json, sys, time
+import numpy as np, torch
+torch.backends.cudnn.allow_tf32 = False       # as the parent's fp32 run
+torch.backends.cuda.matmul.allow_tf32 = False
+from fast3dhpe_tpu_torch.export import load_serving
+d = np.load(sys.argv[1])
+out = {}
+for kind, path in json.loads(sys.argv[2]).items():
+    t = time.perf_counter()
+    serve = load_serving(path, "cuda")
+    load_s = time.perf_counter() - t
+    ops = [sys.modules[m] for m in ("fast3dhpe_tpu_torch.ops.softargmax",
+                                    "fast3dhpe_tpu_torch.ops.bottleneck")]
+    counters = {"soft_argmax": ops[0].soft_argmax_fused,
+                "soft_argmax_bwd": ops[0].soft_argmax_bwd_fused,
+                "fused_bottleneck": ops[1].fused_bottleneck}
+    for c in counters.values():
+        c.launches = 0
+    kp, p3 = serve(d["img_l"], d["img_r"], d["proj"])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    np.save(sys.argv[3] + kind + "_kp.npy", kp.cpu().numpy())
+    np.save(sys.argv[3] + kind + "_p3.npy", p3.cpu().numpy())
+    raised = []
+    for bad in ((d["img_l"].astype(np.float32), d["img_r"], d["proj"]),
+                (d["img_l"][:1], d["img_r"][:1], d["proj"][:1])):
+        try:
+            serve(*bad)
+            raised.append(None)
+        except (TypeError, ValueError) as err:
+            raised.append(type(err).__name__)
+    out[kind] = {"load_s": load_s, "launches": launches, "raised": raised}
+out["modules"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "fast3dhpe_tpu"))
+print(json.dumps(out))
+"""
+
+
+def start_export(sd, pack, request, cfg, dev, work):
+    """c. export fp32 and int8 at S6_PAIRS and save them; then start a new
+    process that imports only fast3dhpe_tpu_torch.export, loads each and
+    serves `request` (it runs while phase b's apps run; finish_export
+    waits for it)."""
+    import json
+    import os
+    from fast3dhpe_tpu_torch import export as E
+    from fast3dhpe_tpu_torch.models.cdrnet import CDRNet
+    size = tuple(cfg.MODEL.IMAGE_SIZE)
+    paths = {"fp32": os.path.join(work, "cdrnet101.pt2"),
+             "int8": os.path.join(work, "cdrnet101_int8.pt2")}
+    info = {}
+    for kind in ("fp32", "int8"):
+        t = time.perf_counter()
+        if kind == "fp32":
+            ep = E.export_cdrnet(CDRNet.from_config(cfg), sd, S6_PAIRS, size,
+                                 device=dev)
+        else:
+            ep = E.export_cdrnet_int8(pack, S6_PAIRS, size,
+                                      dlt_method=cfg.MODEL.EXTRA.DLT_METHOD,
+                                      device=dev)
+        export_s = time.perf_counter() - t
+        info[kind] = {"export_s": export_s,
+                      "bytes": E.save_exported(ep, paths[kind]),
+                      "graph_nodes": len(ep.graph.nodes)}
+        del ep
+    torch.cuda.empty_cache()
+    frames = os.path.join(work, "frames.npz")
+    np.savez(frames, **dict(zip(("img_l", "img_r", "proj"), request)))
+    prefix = os.path.join(work, "served_")
+    # run from the checkout's root, which `-c` puts on the child's path
+    child = subprocess.Popen(
+        [sys.executable, "-c", EXPORT_CHILD, frames, json.dumps(paths),
+         prefix], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return child, prefix, info, time.perf_counter()
+
+
+def finish_export(started, inf8, request, sd, cfg, dev):
+    """c, continued: wait for the child and hold what it served: pred_2d
+    against predict_batch on the same frames (EXPORT_RTOL, EXPORT_ATOL),
+    and pred_3d against the port's DLT on the card of the served pred_2d,
+    within EXPORT_ATOL of the scene's scale (the larger of the points'
+    extent and converging_rig's 3 m camera distance), or CPU_NOISE_X times
+    the DLT's own change under pred_2d x (1 +- 1e-7) if that is larger, as
+    train_vs_cpu holds the DLT's gradient (two near-equal smallest singular
+    values make the DLT's solution sensitive to rounding). pred_3d against
+    predict_batch's is reported, not held: the fp32 Jacobi DLT of an
+    untrained net's keypoints turns the two runs' 4.6e-5 px of fp32 noise
+    in pred_2d into 2.6-6 mm (converging_rig) or 1.2e-3 of the largest
+    coordinate at the w floor (bench.py's rig), in one run each."""
+    import json
+    from fast3dhpe_tpu_torch.apps.inference import CDRNetInferencer
+    from fast3dhpe_tpu_torch.geometry.triangulation import dlt_triangulate
+    child, prefix, info, t0 = started
+    try:
+        stdout, stderr = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    child_s = time.perf_counter() - t0
+    require(child.returncode == 0, f"the export child failed:\n"
+                                   f"{stderr[-4000:]}")
+    loaded = json.loads(stdout.strip().splitlines()[-1])
+    require(loaded["modules"] == [], f"the child loaded {loaded['modules']}")
+    il, ir, pj = request
+    fp32 = CDRNetInferencer(cfg, state_dict=sd, device=dev)
+    refs = {"fp32": fp32.predict_batch(il, ir, pj),
+            "int8": inf8.predict_batch(il, ir, pj)}
+    del fp32
+    for kind in ("fp32", "int8"):
+        kp = np.load(prefix + kind + "_kp.npy")
+        p3 = np.load(prefix + kind + "_p3.npy")
+        rkp, rp3 = (x.cpu().numpy() for x in refs[kind])
+        with torch.inference_mode():
+            proj_j = torch.as_tensor(pj, device=dev)[:, None].expand(
+                S6_PAIRS, kp.shape[2], 2, 3, 4)
+            kp_t = torch.as_tensor(kp, device=dev).transpose(1, 2)
+            dlt, up, down = (dlt_triangulate(proj_j, kp_t * f).cpu().numpy()
+                             for f in (1.0, 1.0 + 1e-7, 1.0 - 1e-7))
+        kp_err = float(np.abs(kp - rkp).max())
+        scale = max(float(np.abs(dlt).max()), RIG_DISTANCE_MM)
+        p3_err = float(np.abs(p3 - dlt).max()) / scale
+        noise = max(float(np.abs(d - dlt).max()) for d in (up, down)) / scale
+        p3_vs_eager = float(np.abs(p3 - rp3).max()) / scale
+        row = dict(info[kind], **loaded[kind], kp_err=kp_err, p3_err=p3_err,
+                   dlt_noise=noise, p3_vs_predict_batch=p3_vs_eager)
+        info[kind] = row
+        print(f"# slice 6 c, export {kind} at {S6_PAIRS} pairs: traced in "
+              f"{row['export_s']:.1f} s, {row['graph_nodes']} graph nodes, "
+              f"{row['bytes']} bytes; a new process (export only) loads it "
+              f"in {row['load_s']:.1f} s (beside phase b), launches "
+              f"{row['launches']}; pred_2d vs predict_batch {kp_err:.3g} px;"
+              f" pred_3d vs the DLT of its pred_2d {p3_err:.3g} (the DLT's"
+              f" own change under pred_2d x (1 +- 1e-7): {noise:.3g}), vs "
+              f"predict_batch {p3_vs_eager:.3g} of the scene's scale; a "
+              f"float frame and a wrong batch raise {row['raised']}")
+        require(np.allclose(kp, rkp, rtol=EXPORT_RTOL, atol=EXPORT_ATOL)
+                and p3_err <= max(EXPORT_ATOL, CPU_NOISE_X * noise),
+                f"export {kind}: pred_2d {kp_err}, pred_3d {p3_err} (DLT "
+                f"noise {noise})")
+        require(row["launches"] == {"soft_argmax": 1, "soft_argmax_bwd": 0,
+                                    "fused_bottleneck": 0},
+                f"export {kind}: the loaded call launched {row['launches']}")
+        require(row["raised"] == ["TypeError", "ValueError"],
+                f"export {kind}: bad inputs raised {row['raised']}")
+    info["child_s"] = child_s
+    return info
+
+
+def _grads_and_stats(model):
+    return ({n: p.grad.detach().float().cpu()
+             for n, p in model.named_parameters()},
+            {n: b.detach().cpu() for n, b in model.named_buffers()
+             if "running" in n})
+
+
+def _global_rel(got, ref):
+    num = sum(float(((got[n] - ref[n]) ** 2).sum()) for n in ref)
+    den = sum(float((ref[n] ** 2).sum()) for n in ref)
+    return (num / den) ** 0.5
+
+
+def s6_model(cfg, start_sd, dtype, dev, remat=False, policy=None):
+    from fast3dhpe_tpu_torch.models.cdrnet import CDRNet
+    model = CDRNet(num_joints=cfg.MODEL.NUM_JOINTS,
+                   num_layers=cfg.MODEL.NUM_LAYERS,
+                   dlt_method=cfg.MODEL.EXTRA.DLT_METHOD, dtype=dtype,
+                   remat=remat, remat_policy=policy)
+    model.load_state_dict(start_sd, strict=True)
+    return model.to(dev)
+
+
+def sgd0_step(cfg, start_sd, dtype, dev, batch, use_3d, bn1=None, **remat):
+    """One train step at lr 0 from start_sd: (metrics, grads, BN stats)
+    on the CPU, and encoder.bn1's output when bn1 is a list."""
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    model = s6_model(cfg, start_sd, dtype, dev, **remat)
+    if bn1 is not None:
+        model.encoder.bn1.register_forward_hook(
+            lambda m, a, out: bn1.append(out.detach().float().cpu()))
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0))
+    m = train_step_fn(cfg)(state, on_device(batch, dev), use_3d)
+    return ({k: v.item() for k, v in m.items()},) + _grads_and_stats(model)
+
+
+def check_bf16_bn(dev):
+    """The train-mode BN layer on one bf16 input (layer1's shape at 32
+    pairs), card against CPU: y and dx within one bf16 rounding of their
+    largest value, the running statistics 1e-5, the parameters'
+    gradients 1e-4."""
+    from fast3dhpe_tpu_torch.models.layers import BatchNorm2d, bn_row_mask
+    gen = torch.Generator().manual_seed(SEED + 21)
+    x = (torch.randn((2 * S6_PAIRS, 64, 64, 64), generator=gen) * 2 + 0.5
+         ).bfloat16().contiguous(memory_format=torch.channels_last)
+    cot = torch.randn(x.shape, generator=gen).bfloat16()
+    rv = torch.ones(2 * S6_PAIRS)
+    rv[-8:] = 0
+    res = {}
+    for d in ("cpu", dev):
+        bn = BatchNorm2d(64).train().to(d)
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 64))
+            bn.bias.copy_(torch.linspace(-1, 1, 64))
+        xd = x.to(d).detach().clone().requires_grad_(True)
+        y = bn(xd, bn_row_mask(rv.to(d)))
+        (y.float() * cot.to(d).float()).sum().backward()
+        res[str(d)] = [t.detach().float().cpu() for t in (
+            y, xd.grad, bn.running_mean, bn.running_var, bn.weight.grad,
+            bn.bias.grad)]
+    errs = [float((g - c).abs().max() / c.abs().max())
+            for g, c in zip(res[str(dev)], res["cpu"])]
+    print(f"# slice 6 d, bf16 train BN card vs CPU: y {errs[0]:.3g}, dx "
+          f"{errs[1]:.3g} (bound {BF16_ULP:.3g}), running mean / var "
+          f"{errs[2]:.3g} / {errs[3]:.3g} (1e-5), dweight / dbias "
+          f"{errs[4]:.3g} / {errs[5]:.3g} (1e-4)")
+    require(errs[0] <= BF16_ULP and errs[1] <= BF16_ULP
+            and max(errs[2:4]) <= 1e-5 and max(errs[4:]) <= 1e-4,
+            f"bf16 train BN card vs CPU: {errs}")
+    return errs
+
+
+def check_bf16_train(cfg, start_sd, dev):
+    """d. bf16 training, checked: the BN layer against the CPU; the step
+    at S6_PAIRS pairs (TRAIN_PAD padded) against the card's fp32 step, and
+    at 2 pairs against the CPU's bf16 step. Nothing here is timed, so it
+    runs while c's new process loads its artifacts."""
+    out = {"bn_vs_cpu": check_bf16_bn(dev)}
+    batch = train_batch(np.random.RandomState(SEED + 2), S6_PAIRS, TRAIN_PAD,
+                        cfg.MODEL.IMAGE_SIZE[0])
+    runs, bn1 = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        bn1[dt] = []
+        runs[dt] = sgd0_step(cfg, start_sd, dt, dev, batch, True, bn1[dt])
+    (m32, g32, s32), (m16, g16, s16) = runs[torch.float32], \
+        runs[torch.bfloat16]
+    a, b = bn1[torch.float32][0], bn1[torch.bfloat16][0]
+    bn1_max = float((a - b).abs().max() / a.abs().max())
+    bn1_mean = float((a - b).abs().mean() / a.abs().max())
+    loss_rel = max(abs(m16[k] - m32[k]) / abs(m32[k])
+                   for k in ("loss", "loss_2d", "loss_3d"))
+    vs32 = {"loss": loss_rel, "bn1_max": bn1_max, "bn1_mean": bn1_mean,
+            "grads": _global_rel(g16, g32), "bn_stats": _global_rel(s16, s32)}
+    print(f"# slice 6 d, bf16 step vs fp32 at {S6_PAIRS} pairs: losses "
+          f"{loss_rel:.3g} (bound {BF16_LOSS_TOL}), encoder.bn1 max "
+          f"{bn1_max:.3g} / mean {bn1_mean:.3g} of max (bounds "
+          f"{HM_MAX_TOL} / {HM_MEAN_TOL}); gradients {vs32['grads']:.3g} and "
+          f"BN statistics {vs32['bn_stats']:.3g} of their norms (not held)")
+    require(loss_rel <= BF16_LOSS_TOL and bn1_max < HM_MAX_TOL
+            and bn1_mean < HM_MEAN_TOL, f"bf16 vs fp32 step: {vs32}")
+    out["vs_fp32"] = vs32
+
+    # 2 pairs, card against the CPU, warmup (see BF16_NOISE_X)
+    b2 = train_batch(np.random.RandomState(SEED + 3), 2, 1,
+                     cfg.MODEL.IMAGE_SIZE[0])
+    card, cpu16, cpu32 = (sgd0_step(cfg, start_sd, dt, d, b2, False)
+                          for dt, d in ((torch.bfloat16, dev),
+                                        (torch.bfloat16, "cpu"),
+                                        (torch.float32, "cpu")))
+    vs_cpu = {"loss": max(abs(card[0][k] - cpu16[0][k]) / abs(cpu16[0][k])
+                          for k in ("loss", "loss_2d")),
+              "grads": _global_rel(card[1], cpu16[1]),
+              "grads_cpu_noise": _global_rel(cpu16[1], cpu32[1]),
+              "bn_stats": _global_rel(card[2], cpu16[2]),
+              "bn_stats_cpu_noise": _global_rel(cpu16[2], cpu32[2])}
+    print(f"# slice 6 d, bf16 step card vs CPU at 2 pairs (warmup): losses "
+          f"{vs_cpu['loss']:.3g}, gradients {vs_cpu['grads']:.3g} (CPU bf16 "
+          f"vs fp32 {vs_cpu['grads_cpu_noise']:.3g}), BN statistics "
+          f"{vs_cpu['bn_stats']:.3g} (CPU {vs_cpu['bn_stats_cpu_noise']:.3g})")
+    require(vs_cpu["loss"] <= 1e-2
+            and vs_cpu["grads"] <= BF16_NOISE_X * vs_cpu["grads_cpu_noise"]
+            and vs_cpu["bn_stats"] <= BF16_NOISE_X
+            * vs_cpu["bn_stats_cpu_noise"], f"bf16 card vs CPU: {vs_cpu}")
+    out["vs_cpu"] = vs_cpu
+    return out
+
+
+def time_bf16_train(cfg, start_sd, dev, mads, work):
+    """d, timed: the bf16 step at S6_PAIRS pairs with the config's Adam,
+    its time, device busy, peak memory, launches and K2's dtype; one
+    `train_cdr --bf16` epoch on the tree."""
+    import os
+    from fast3dhpe_tpu_torch.apps import train_cdr
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.ops import softargmax as sa
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    out = {}
+    batch = train_batch(np.random.RandomState(SEED + 2), S6_PAIRS, TRAIN_PAD,
+                        cfg.MODEL.IMAGE_SIZE[0])
+    db = on_device(batch, dev)
+    torch.cuda.empty_cache()
+    model = s6_model(cfg, start_sd, torch.bfloat16, dev)
+    state = TrainState.create(model, cfg, steps_per_epoch=1)
+    step = train_step_fn(cfg)
+    k2_dtypes, bwd = [], sa._bwd_cuda
+
+    def recorded(heatmaps, *args):
+        k2_dtypes.append(str(heatmaps.dtype).replace("torch.", ""))
+        return bwd(heatmaps, *args)
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counts()
+    sa._bwd_cuda = recorded
+    try:
+        step(state, db, True)
+    finally:
+        sa._bwd_cuda = bwd
+    n = read_counts(counters)
+    require_counts(n, 1, 1, 1, 0, "the bf16 train step")
+    require(k2_dtypes == ["bfloat16"], f"K2 ran on {k2_dtypes}")
+    times = []
+    for _ in range(TIMED_STEPS):
+        t = time.perf_counter()
+        step(state, db, True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_calls(lambda: step(state, db, True), calls=2)
+    out["step"] = {"step_ms": statistics.median(times), "times_ms": times,
+                   "peak_gib": peak, "launches": n, "k2_dtype": k2_dtypes,
+                   "device_ms": prof["device_ms"],
+                   "device_activities": prof["launches"]}
+    print(f"# slice 6 d, bf16 train step at {S6_PAIRS} pairs: median "
+          f"{out['step']['step_ms']:.1f} ms ({times}), device busy "
+          f"{prof['device_ms']:.1f} ms in {prof['launches']:.0f} launches, "
+          f"peak {peak:.2f} GiB, launches {n}, K2 on {k2_dtypes}")
+    del model, state
+    torch.cuda.empty_cache()
+
+    # one `train_cdr --bf16` epoch on the tree, stacked from the card
+    n_pairs = len(TREE_MOVEMENTS) * TREE_TRAIN_FRAMES
+    cfg_path = app_config(
+        "configs/mads_3d.yaml", os.path.join(work, "bf16.yaml"), mads,
+        MODEL={"PRETRAINED": "", "NAME": "cdrnet_bf16"},
+        DATASET={"DEVICE_CACHE_BYTES": 2 * n_pairs * RAW_H * RAW_W * 3},
+        TRAIN={"EPOCH": 1, "WARMUP": 0})
+    with EpochTimes() as et:
+        h, n, wall = counted(train_cdr.main, [
+            "--config_path", cfg_path, "--overwrite", "--bf16", "--device",
+            dev.type, "--weights_root", os.path.join(work, "s6_bf16")])
+    app_cfg = load_config(cfg_path)
+    steps = -(-n_pairs // app_cfg.TRAIN.BATCH_SIZE)
+    evals = -(-TREE_VALID_FRAMES // app_cfg.TEST.BATCH_SIZE)
+    want = {"soft_argmax": steps + evals, "soft_argmax_bwd": steps,
+            "fused_bottleneck": 0}
+    require(n == want, f"train_cdr --bf16 launched {n}, not {want}")
+    _finite_history(h, "train_cdr --bf16")
+    out["app"] = {"epoch_s": et.seconds, "wall_s": wall, "launches": n,
+                  "history": h}
+    print(f"# slice 6 d, train_cdr --bf16, one epoch: {et.seconds} s "
+          f"(wall {wall:.1f} s), launches {n}, history {h}")
+    return out
+
+
+def run_remat(cfg, start_sd, dev):
+    """e. remat: fp32 steps with remat None and "convs" against the plain
+    step (cuDNN deterministic): loss, gradients and BN statistics equal;
+    then peak memory and step ms at S6_REMAT_PAIRS."""
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    variants = {"plain": {}, "remat": {"remat": True},
+                "remat convs": {"remat": True, "policy": "convs"}}
+    batch = train_batch(np.random.RandomState(SEED + 2), S6_PAIRS, TRAIN_PAD,
+                        cfg.MODEL.IMAGE_SIZE[0])
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    launches = {}
+    try:
+        runs = {}
+        for name, kw in variants.items():
+            counters = reset_counts()
+            runs[name] = sgd0_step(cfg, start_sd, torch.float32, dev, batch,
+                                   False, **kw)
+            launches[name] = read_counts(counters)
+            require_counts(launches[name], 1, 1, 1, 0, f"the {name} step")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    m0, g0, s0 = runs["plain"]
+    eq = {}
+    for name in ("remat", "remat convs"):
+        m, g, s = runs[name]
+        eq[name] = {
+            "loss_rel": abs(m["loss"] - m0["loss"]) / abs(m0["loss"]),
+            "grads_rel": _global_rel(g, g0),
+            "bn_rel": max(float((s[k] - s0[k]).abs().max()
+                              / s0[k].abs().max().clamp_min(1e-30))
+                          for k in s0),
+            "bit_equal": all(torch.equal(g[k], g0[k]) for k in g0)
+            and all(torch.equal(s[k], s0[k]) for k in s0)}
+        require(eq[name]["loss_rel"] <= 1e-6 and eq[name]["grads_rel"] <= 1e-5
+                and eq[name]["bn_rel"] <= 1e-6,
+                f"{name} step differs from the plain one: {eq[name]}")
+    print(f"# slice 6 e, remat vs plain step at {S6_PAIRS} pairs (fp32, "
+          f"cuDNN deterministic): {eq}")
+    db = on_device(batch, dev)
+    step = train_step_fn(cfg)
+    mem = {}
+    for pairs in S6_REMAT_PAIRS:
+        b = {k: v[:pairs] for k, v in db.items()} if pairs <= S6_PAIRS \
+            else on_device(train_batch(np.random.RandomState(SEED + 4),
+                                       pairs, TRAIN_PAD,
+                                       cfg.MODEL.IMAGE_SIZE[0]), dev)
+        for name, kw in variants.items():
+            model = s6_model(cfg, start_sd, torch.float32, dev, **kw)
+            state = TrainState.create(model, cfg, steps_per_epoch=1)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step(state, b, True)
+            times = []
+            for _ in range(2):
+                t = time.perf_counter()
+                step(state, b, True)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            mem[f"{name}, {pairs} pairs"] = {
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "step_ms": statistics.median(times)}
+            del model, state
+    torch.cuda.empty_cache()
+    print("# slice 6 e, fp32 train step peak memory and ms: " + "; ".join(
+        f"{k} {v['peak_gib']:.2f} GiB {v['step_ms']:.1f} ms"
+        for k, v in mem.items()))
+    return {"vs_plain": eq, "launches": launches["remat convs"],
+            "memory": mem}
+
+
+def run_slice6(inf, cfg, start_sd, mads, dev, smi):
+    """Phase 11: int8 serving, the int8 apps, the export, bf16 training
+    and remat of CDRNet-101 at 256 px (a-e)."""
+    t0 = time.perf_counter()
+    out, parts = {}, {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return res
+
+    with tempfile.TemporaryDirectory() as work:
+        inf8, sd, requests, out["int8"] = part("a int8", run_int8, inf, cfg,
+                                               dev, work)
+        request = requests[2][:2] + (converging_rig(S6_PAIRS),)
+        started = part("c export", start_export, sd, inf8.pack, request,
+                       cfg, dev, work)
+        try:
+            out["int8_apps"] = part("b apps", run_int8_apps, sd, cfg, mads,
+                                    work, dev)
+            bf16 = part("d bf16 checks", check_bf16_train, cfg, start_sd,
+                        dev)
+        except BaseException:
+            started[0].kill()
+            started[0].wait()
+            raise
+        out["export"] = part("c loaded", finish_export, started, inf8,
+                             request, sd, cfg, dev)
+        del inf8
+        torch.cuda.empty_cache()
+        bf16.update(part("d bf16 timed", time_bf16_train, cfg, start_sd,
+                         dev, mads, work))
+        out["bf16"] = bf16
+    torch.cuda.empty_cache()
+    out["remat"] = part("e remat", run_remat, cfg, start_sd, dev)
+    out["launches"] = {
+        "int8 serving": out["int8"]["launches"],
+        **{f"{k} app": v["launches"] for k, v in out["int8_apps"].items()
+           if isinstance(v, dict)},
+        **{f"export {k}, loaded": out["export"][k]["launches"]
+           for k in ("fp32", "int8")},
+        "bf16 train step": out["bf16"]["step"]["launches"],
+        "train_cdr --bf16 app": out["bf16"]["app"]["launches"],
+        "remat convs step": out["remat"]["launches"]}
+    out["seconds"] = parts
+    print(f"# slice 6 ({smi}): {time.perf_counter() - t0:.1f} s; "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return out
+
+
 # ------------------------------------------------------------------ timing
 
 def _decoder_logits(gen, dev, n, dt):
@@ -2832,12 +3638,13 @@ def profile_train(train, wall_ms):
 
 def main():
     args = sys.argv[1:]
-    if args not in ([], ["--kernels"]):
-        sys.exit("usage: python3 chip_smoke.py [--kernels]")
+    if args not in ([], ["--kernels"], ["--slice6"]):
+        sys.exit("usage: python3 chip_smoke.py [--kernels | --slice6]")
     kernels_only = args == ["--kernels"]
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs a CUDA device")
+    check_apis()
     from fast3dhpe_tpu_torch.config import load_config
     from fast3dhpe_tpu_torch.ops._build import build
 
@@ -2886,6 +3693,17 @@ def main():
 
     cfg = load_config("configs/mads_3d.yaml")
     inf, serve_launches, cpu_inf = phase("serving path", run_path, cfg, dev)
+    if args == ["--slice6"]:
+        start_sd = phase("training path", run_train, cfg, dev)["start_sd"]
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            mads, _, _ = phase("trees", write_trees, tmp)
+            s6 = phase("slice 6", run_slice6, inf, cfg, start_sd, mads, dev,
+                       smi)
+        print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in phases.items()))
+        print(json.dumps({"slice6": s6}))
+        return
     k1 = phase("K1 timing", time_softargmax, dev, gen)
     k2 = phase("K2 timing", time_softargmax_bwd, dev, gen)
     k3 = phase("K3 timing", time_bottleneck, dev, gen)
@@ -2920,6 +3738,8 @@ def main():
                          mads, cfg, dev)
         torch.cuda.empty_cache()
         apps = phase("apps", run_apps, mads, dev, smi)
+        torch.cuda.empty_cache()
+        s6 = phase("slice 6", run_slice6, inf, cfg, start_sd, mads, dev, smi)
     del inf, cpu_inf
     torch.cuda.empty_cache()
     vs_cpu = phase("train card vs CPU", train_vs_cpu, cfg, start_sd, dev)
@@ -2939,6 +3759,8 @@ def main():
         by_path.update({f"{app} app": apps[app]["launches"][key]
                         for app in ("train", "train_cdr", "inference",
                                     "baseline")})
+        by_path.update({f"slice 6, {k}": n[key]
+                        for k, n in s6["launches"].items()})
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -2971,6 +3793,7 @@ def main():
         "trees": trees, "loader_training": loader_train,
         "loaders_2d": loader_2d, "movement_eval": movement}}))
     print(json.dumps({"apps": apps}))
+    print(json.dumps({"slice6": s6}))
     print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phases.items()))
     print(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -23,8 +23,8 @@ def parse_and_run(run_fn, default_config: str, description: str,
                         help="cuda (default; an error without a card) or "
                              "cpu")
     parser.add_argument("--bf16", action="store_true",
-                        help="bfloat16 compute: not ported yet (A10), "
-                             "raises")
+                        help="bfloat16 compute (fp32 params, Adam state "
+                             "and BN statistics)")
     parser.add_argument("--plot_dir", type=str, default=None,
                         help="write loss curves here after training")
     parser.add_argument("--resume", action="store_true",

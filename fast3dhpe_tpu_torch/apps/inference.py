@@ -24,6 +24,7 @@ from ..data.stream import LoadMADSData
 from ..device import resolve_device
 from ..geometry.camera import project_points
 from ..models.cdrnet import CDRNet
+from ..models import quantized as qz
 from ..models.metrics import per_sample_mpjpe
 from ..ops.warp import affine_warp, normalize_imagenet
 from ..train.checkpoint import load_variables
@@ -34,25 +35,67 @@ from .eval_loop import accum_eval, evaluate_stream, ground_truth, \
 
 class CDRNetInferencer:
     """Loads weights/<MODEL.NAME>/best.pth (or takes a state dict) and
-    predicts stereo batches on one device."""
+    predicts stereo batches on one device.
+
+    With int8=True the forward runs the PTQ path (models/quantized.py):
+    the pack is read from `int8_pack` when that file exists (no fp
+    checkpoint is read then), else calibrated from the first
+    `calib_batches` batches of `calib_stream` (a LoadMADSData on this
+    device) and written to `int8_pack` when one is named.
+    """
 
     def __init__(self, config, weights_root: str = "weights",
                  dtype=torch.float32, fused_inference: bool = False,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 device="cuda", int8: bool = False):
-        if int8:
-            raise NotImplementedError(
-                "int8 serving is A12, slice 6 (int8, export, multi-GPU) of "
-                "the port")
+                 device="cuda", int8: bool = False, calib_stream=None,
+                 calib_batches: int = 8, int8_pack: Optional[str] = None):
+        # calib_batches 8, as the JAX package: its PTQ penalty shrinks with
+        # more calibration data (its BASELINE.md)
         self.device = resolve_device(device)
         self.config = config
-        if state_dict is None:
+        self.int8 = int8
+        have_pack = bool(int8 and int8_pack and os.path.exists(int8_pack))
+        if state_dict is None and not have_pack:
             state_dict = load_variables(
                 os.path.join(weights_root, config.MODEL.NAME))
+        if int8:
+            if have_pack:
+                pack = qz.load_pack(int8_pack)
+            else:
+                if calib_stream is None:
+                    raise ValueError(
+                        "int8=True requires calib_stream (a LoadMADSData "
+                        "to draw calibration batches from) or an "
+                        "existing int8_pack file")
+                pack = self.build_int8_pack(state_dict, calib_stream,
+                                            calib_batches, self.device)
+                if int8_pack:
+                    qz.save_pack(int8_pack, pack)
+            self.pack = pack
+            self.model = qz.cdrnet_int8(pack, config.MODEL.EXTRA.DLT_METHOD,
+                                        self.device)
+            return
         model = CDRNet.from_config(config, dtype=dtype,
                                    fused_inference=fused_inference)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
+
+    @staticmethod
+    def build_int8_pack(state_dict, calib_stream, n_batches: int = 2,
+                        device="cuda", batch_size: int = 16):
+        """Calibrate the activation scales on the first n_batches batches
+        of `calib_stream` on `device` and quantize the weights (PTQ)."""
+        dev = resolve_device(device)
+        calib = []
+        for i, b in enumerate(calib_stream.batches(batch_size)):
+            if i >= n_batches:
+                break
+            imgs = torch.stack(
+                [normalize_imagenet(torch.as_tensor(b[k]).to(dev))
+                 for k in ("img_l", "img_r")], dim=1)
+            calib.append((imgs, torch.as_tensor(b["proj"], dtype=torch.float32,
+                                                device=dev)))
+        return qz.quantize_cdrnet(state_dict, calib)
 
     def predict_batch(self, img_l, img_r, proj, trans=None):
         """uint8 frames (B, H, W, 3) x2 + proj (B, 2, 3, 4) ->
@@ -174,19 +217,21 @@ def main(argv=None):
                         help="run the fused-bottleneck kernel (K3) in the "
                              "encoder blocks it covers (requires --bf16)")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 serving: not ported yet (A12), raises")
+                        help="serve the post-training-quantized int8 path "
+                             "(calibrated on the first batches of the first "
+                             "movement)")
     parser.add_argument("--int8_pack", type=str, default=None,
-                        help="int8 pack: not ported yet (A12), raises")
+                        help="path to a .npz quantized pack: loaded if it "
+                             "exists (skips calibration and the fp "
+                             "checkpoint), written after calibration "
+                             "otherwise")
     parser.add_argument("--calib_batches", type=int, default=8,
-                        help="int8 calibration batches (A12)")
+                        help="PTQ calibration batches of 16 pairs")
     args = parser.parse_args(argv)
     if args.fused_inference and not args.bf16:
         parser.error("--fused_inference requires --bf16 (K3 runs on "
                      "bfloat16 activations only; without it every block "
                      "would run the plain path)")
-    if args.int8 or args.int8_pack:
-        raise NotImplementedError(
-            "--int8 / --int8_pack: int8 serving is A12, slice 6 of the port")
 
     logger = setup_logger()
     config = load_config(args.config_path)
@@ -196,10 +241,16 @@ def main(argv=None):
                            if os.path.isdir(p))
     else:
         movements = [args.movement]
+    calib_stream = None
+    if args.int8 and not (args.int8_pack and os.path.exists(args.int8_pack)):
+        calib_stream = LoadMADSData(args.data_path, config.MODEL.IMAGE_SIZE,
+                                    movements[0], device=args.device)
     inferencer = CDRNetInferencer(
         config, weights_root=args.weights_root,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        fused_inference=args.fused_inference, device=args.device)
+        fused_inference=args.fused_inference, device=args.device,
+        int8=args.int8, calib_stream=calib_stream,
+        calib_batches=args.calib_batches, int8_pack=args.int8_pack)
 
     results = {}
     tot2 = tot3 = total_frames = 0.0

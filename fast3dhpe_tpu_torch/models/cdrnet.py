@@ -87,16 +87,20 @@ class CDRNet(nn.Module):
     Parameters are fp32; `dtype` is the compute dtype of the encoder,
     fusion and decoder. The decode and the geometry run in fp32. In train
     mode (`.train()`) every BN takes batch statistics over the valid rows
-    of `row_valid`; training runs in fp32 only.
+    of `row_valid`, in fp32 whatever the compute dtype. remat and
+    remat_policy rematerialise the encoder's blocks in the backward
+    (models/resnet.py).
     """
 
     def __init__(self, num_joints=19, num_layers=101, dlt_method="jacobi",
-                 fused_inference=False, dtype=torch.float32):
+                 fused_inference=False, dtype=torch.float32, remat=False,
+                 remat_policy=None):
         super().__init__()
         self.num_joints = num_joints
         self.dlt_method = dlt_method
         self.dtype = dtype
-        self.encoder = ResNetEncoder(num_layers, fused_inference)
+        self.encoder = ResNetEncoder(num_layers, fused_inference, remat,
+                                     remat_policy)
         in_dim = self.encoder.out_channels
         self.CF = CanonicalFusion(in_dim)
         self.decoder = PoseDecoder(in_dim, num_joints)
@@ -129,7 +133,10 @@ class CDRNet(nn.Module):
         z = self.encoder(x, mask_bv)
         fused = self.CF(z, projs, pinv_projection(projs), mask)
         h = self.decoder(fused, mask_bv)               # (B*V, J, hh, hw)
-        hm = h.permute(0, 2, 3, 1)                     # (B*V, hh, hw, J)
+        # (B*V, hh, hw, J): a view of the channels_last output, which K1
+        # takes as it is; contiguous() is a no-op then, and keeps an
+        # exported graph, whose tracer assumed NCHW strides, right
+        hm = h.permute(0, 2, 3, 1).contiguous()
         kp = soft_argmax_fused(hm) * (H / hm.shape[1])
         kp = kp.reshape(B, V, self.num_joints, 2)
         proj_j = projs[:, None].expand(B, self.num_joints, V, 3, 4)

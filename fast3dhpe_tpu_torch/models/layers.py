@@ -3,8 +3,9 @@
 Parameters are fp32. Each layer computes in the dtype of its input, casting
 its weights to it explicitly, so a bf16 network rounds where flax's
 `dtype=bf16` layers round: a conv rounds its output to bf16 and then adds
-its bias in bf16; eval-mode BN computes in fp32 from the bf16 input and
-rounds once. (Autocast would keep BN in fp32 and round elsewhere.)
+its bias in bf16; BN, in eval and in train mode, computes in fp32 from the
+bf16 input and rounds once. (Autocast would keep BN in fp32 and round
+elsewhere.)
 
 Activations are NCHW tensors in channels_last memory, so cuDNN runs NHWC.
 
@@ -52,6 +53,14 @@ class _MaskedBatchNorm(torch.autograd.Function):
     rows x H x W, var = max(E[x^2] - E[x]^2, 0), then
     y = (x - mean) * (rsqrt(var + eps) * weight) + bias over every row.
 
+    A bf16 input is promoted to fp32 for all of it, and y rounds to bf16
+    once, as flax's `dtype=bf16` BatchNorm rounds. Its backward follows
+    the gradient JAX takes of that: x enters twice, through the cast in
+    the statistics and through the promotion in x - mean, so dx is the
+    bf16 sum of the two fp32 parts, each rounded to bf16 (two
+    convert_element_type transposes and a bf16 add_any in the jaxpr of
+    jax.grad).
+
     The backward is the closed form of that expression, gradients through
     the batch statistics included. It saves the input and per-channel
     vectors only, as the native BN does.
@@ -61,72 +70,83 @@ class _MaskedBatchNorm(torch.autograd.Function):
     def forward(ctx, x, weight, bias, mask, eps):
         B, C, H, W = x.shape
         dims = (0, 2, 3)
+        xf = x.float()
         if mask is None:
             count = B * H * W
-            mean = x.sum(dims) / count
-            mu2 = (x * x).sum(dims) / count
+            mean = xf.sum(dims) / count
+            mu2 = (xf * xf).sum(dims) / count
         else:
-            xm = x * mask.view(B, 1, 1, 1)
+            xm = xf * mask.view(B, 1, 1, 1)
             count = mask.sum() * (H * W)
             mean = xm.sum(dims) / count
-            mu2 = (xm * x).sum(dims) / count
+            mu2 = (xm * xf).sum(dims) / count
         var_raw = mu2 - mean * mean
         var = var_raw.clamp_min(0.0)
         r = torch.rsqrt(var + eps)
-        y = ((x - mean.view(1, C, 1, 1)) * (r * weight).view(1, C, 1, 1)
+        y = ((xf - mean.view(1, C, 1, 1)) * (r * weight).view(1, C, 1, 1)
              + bias.view(1, C, 1, 1))
         ctx.save_for_backward(x, weight, mean, r, var_raw > 0, mask)
         ctx.count = count
         ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        return y.to(x.dtype), mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, r, var_pos, mask = ctx.saved_tensors
         B, C, H, W = x.shape
         dims = (0, 2, 3)
+        xf, dy = x.float(), dy.float()
 
         def ch(v):
             return v.view(1, C, 1, 1)
 
-        s = (dy * (x - ch(mean))).sum(dims)
+        s = (dy * (xf - ch(mean))).sum(dims)
         dbias = dy.sum(dims)
         dweight = s * r
         g = weight * r
         # through var = max(mu2 - mean^2, 0) into mean and mu2 = E[x^2]
         dvar = torch.where(var_pos, -0.5 * s * weight * r * r * r, 0.0)
         dmean = -dbias * g - 2.0 * mean * dvar
-        stat = ch(dmean / ctx.count) + x * ch(2.0 * dvar / ctx.count)
+        stat = ch(dmean / ctx.count) + xf * ch(2.0 * dvar / ctx.count)
         if mask is not None:
             stat = stat * mask.view(B, 1, 1, 1)
-        return dy * ch(g) + stat, dweight, dbias, None, None
+        direct = dy * ch(g)
+        if x.dtype == torch.float32:
+            dx = direct + stat
+        else:
+            dx = direct.to(x.dtype) + stat.to(x.dtype)
+        return dx, dweight, dbias, None, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm2d(eps=1e-5, momentum=0.1) with running statistics.
 
     Eval mode: fp32 arithmetic from the running statistics, the result in
-    x.dtype. Train mode (fp32 only): batch statistics over the rows that
-    `mask` (bn_row_mask) marks valid, and running = 0.9 * running + 0.1 *
-    batch with the biased batch variance, as flax updates it.
-    `num_batches_tracked` is kept for the state-dict keys and not used.
+    x.dtype. Train mode (fp32 or bf16): batch statistics in fp32 over the
+    rows that `mask` (bn_row_mask) marks valid, the result in x.dtype, and
+    running = 0.9 * running + 0.1 * batch (fp32) with the biased batch
+    variance, as flax updates it. `num_batches_tracked` is kept for the
+    state-dict keys and not used.
+
+    `recomputing` is set while torch.utils.checkpoint recomputes a block
+    in the backward (models/resnet.py remat): the recomputation then leaves
+    the running statistics alone, so a step updates them once.
     """
+
+    recomputing = False
 
     def forward(self, x, mask=None):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        if x.dtype != torch.float32:
-            raise NotImplementedError(
-                f"train-mode BatchNorm on {x.dtype}: bf16 training is not "
-                f"ported yet (ROADMAP A, item 12b); train in float32")
         y, mean, var = _MaskedBatchNorm.apply(x, self.weight, self.bias,
                                               mask, self.eps)
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - self.momentum).add_(
-                self.momentum * mean)
-            self.running_var.mul_(1.0 - self.momentum).add_(
-                self.momentum * var)
+        if not self.recomputing:
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - self.momentum).add_(
+                    self.momentum * mean)
+                self.running_var.mul_(1.0 - self.momentum).add_(
+                    self.momentum * var)
         return y
 
 

@@ -15,12 +15,16 @@ from .resnet import ResNetEncoder
 
 class PoseResNet(nn.Module):
     """Parameters are fp32; `dtype` is the compute dtype. In train mode
-    every BN takes batch statistics over the valid rows of `row_valid`."""
+    every BN takes batch statistics over the valid rows of `row_valid`.
+    remat and remat_policy rematerialise the encoder's blocks in the
+    backward (models/resnet.py)."""
 
-    def __init__(self, num_joints=19, num_layers=101, dtype=torch.float32):
+    def __init__(self, num_joints=19, num_layers=101, dtype=torch.float32,
+                 remat=False, remat_policy=None):
         super().__init__()
         self.dtype = dtype
-        self.encoder = ResNetEncoder(num_layers)
+        self.encoder = ResNetEncoder(num_layers, remat=remat,
+                                     remat_policy=remat_policy)
         self.decoder = PoseDecoder(self.encoder.out_channels, num_joints)
 
     @classmethod

@@ -4,14 +4,25 @@ BasicBlock keeps the JAX package's canonical form (stride on conv1 only).
 Bottleneck keeps its opt-in fused inference path: with fused_inference=True,
 eval-mode stride-1 bf16 blocks that pass `Bottleneck.fusable` run as one
 launch of the fused-bottleneck kernel (ops/bottleneck.py).
+
+With remat=True each residual block is rematerialised in the backward
+(torch.utils.checkpoint, as the JAX encoder's nn.remat): remat_policy None
+recomputes the whole block from its input; "convs" saves the convolution
+outputs and recomputes only the BN and ReLU chains (selective
+checkpointing, as save_only_these_names("conv_out")). A recomputed
+train-mode BN leaves its running statistics alone, so they update once a
+step.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import contextlib
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.bottleneck import (PackedBottleneck, fold_bn,
                               fused_bottleneck_packed, pack_weights)
@@ -26,6 +37,44 @@ RESNET_SPEC = {
     152: ("bottleneck", (3, 8, 36, 3)),
 }
 EXPANSION = {"basic": 1, "bottleneck": 4}
+
+
+REMAT_POLICIES = (None, "convs")
+
+
+def _save_convs(ctx, op, *args, **kwargs):
+    """The "convs" policy: keep what a convolution returns, recompute the
+    rest of the block."""
+    return (CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.aten.convolution.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _recomputing(block: nn.Module, inner):
+    """The recompute context: `inner` (selective checkpointing's, or
+    none), and the block's BNs leave their running statistics alone (the
+    forward already updated them)."""
+    bns = [m for m in block.modules() if isinstance(m, BatchNorm2d)]
+    with inner:
+        for m in bns:
+            m.recomputing = True
+        try:
+            yield
+        finally:
+            for m in bns:
+                del m.recomputing
+
+
+def _remat_contexts(block: nn.Module, policy: Optional[str]):
+    """checkpoint's context_fn: (forward context, recompute context)."""
+    def contexts():
+        if policy == "convs":
+            fwd, rec = create_selective_checkpoint_contexts(_save_convs)
+        else:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, _recomputing(block, rec)
+    return contexts
 
 
 def _downsample(cin, cout, stride):
@@ -149,10 +198,18 @@ def _conv_out(size: int, k: int, s: int, p: int) -> int:
 
 
 class ResNetEncoder(nn.Module):
-    """(B, 3, H, W) -> (B, 512 * expansion, H/32, W/32)."""
+    """(B, 3, H, W) -> (B, 512 * expansion, H/32, W/32).
 
-    def __init__(self, num_layers=101, fused_inference=False):
+    remat / remat_policy: rematerialise each block in the backward (see
+    the module's docstring); an unknown policy raises ValueError."""
+
+    def __init__(self, num_layers=101, fused_inference=False, remat=False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}; "
+                             f"expected one of {REMAT_POLICIES}")
+        self.remat, self.remat_policy = remat, remat_policy
         block_name, stage_sizes = RESNET_SPEC[num_layers]
         expansion = EXPANSION[block_name]
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
@@ -193,6 +250,12 @@ class ResNetEncoder(nn.Module):
     def forward(self, x, mask=None):
         """mask: the (B,) BN row mask (layers.bn_row_mask) of x's rows."""
         x = max_pool(torch.relu(self.bn1(self.conv1(x), mask)))
+        remat = self.remat and torch.is_grad_enabled()
         for _, blk in self.blocks():
-            x = blk(x, mask)
+            if remat:
+                x = checkpoint(blk, x, mask, use_reentrant=False,
+                               context_fn=_remat_contexts(
+                                   blk, self.remat_policy))
+            else:
+                x = blk(x, mask)
         return x

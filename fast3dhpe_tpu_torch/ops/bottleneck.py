@@ -196,19 +196,21 @@ def _entry():
     return fn
 
 
-def fused_bottleneck_packed(x, packed: PackedBottleneck):
-    """One stride-1 eval-mode Bottleneck as one kernel launch, with the
-    weights packed by `pack_weights`.
+# K3 as a registered operator, so that torch.export traces it (its fake
+# tensors have no data_ptr): the CPU implementation is the plain version,
+# the CUDA one the kernel, which raises on what it does not take.
 
-    x: (B, Cin, H, W), channels_last. On a CPU tensor this runs
-    `bottleneck_plain` on the packed weights; on a CUDA tensor it launches
-    csrc/fused_bottleneck.cu (bf16 only) or raises.
-    Returns (B, Cout, H, W) in x.dtype, channels_last.
-    """
-    if x.device.type == "cpu":
-        return bottleneck_plain(x, *packed.args())
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_bottleneck: unsupported device {x.device}")
+@torch.library.custom_op("fast3dhpe::fused_bottleneck", mutates_args=(),
+                         device_types="cpu")
+def _k3_op(x: torch.Tensor, w: torch.Tensor, sb: torch.Tensor, cin: int,
+           planes: int, cout: int, downsample: bool) -> torch.Tensor:
+    packed = PackedBottleneck(w, sb, cin, planes, cout, downsample)
+    return bottleneck_plain(x, *packed.args()).contiguous(
+        memory_format=torch.channels_last)
+
+
+@_k3_op.register_kernel("cuda")
+def _k3_cuda(x, w, sb, cin, planes, cout, downsample):
     if x.dtype != torch.bfloat16:
         raise TypeError(f"fused_bottleneck: the kernel takes bf16, "
                         f"got {x.dtype}")
@@ -216,25 +218,47 @@ def fused_bottleneck_packed(x, packed: PackedBottleneck):
         raise ValueError("fused_bottleneck: x must be a 4-d channels_last "
                          "tensor")
     B, Cin, H, W = x.shape
-    if Cin != packed.cin:
+    if Cin != cin:
         raise ValueError(f"fused_bottleneck: x has {Cin} channels, the "
-                         f"weights take {packed.cin}")
-    if packed.w.device != x.device or packed.sb.device != x.device:
-        raise ValueError(f"fused_bottleneck: weights on {packed.w.device}, "
+                         f"weights take {cin}")
+    if w.device != x.device or sb.device != x.device:
+        raise ValueError(f"fused_bottleneck: weights on {w.device}, "
                          f"x on {x.device}")
-    check_launch(B, Cin, packed.planes, packed.cout, packed.downsample)
+    check_launch(B, Cin, planes, cout, downsample)
     if x.data_ptr() % 16:
         raise ValueError("fused_bottleneck: x must be 16-byte aligned")
-    out = torch.empty((B, packed.cout, H, W), dtype=torch.bfloat16,
+    out = torch.empty((B, cout, H, W), dtype=torch.bfloat16,
                       device=x.device, memory_format=torch.channels_last)
-    err = _entry()(_ptr(x), _ptr(packed.w), _ptr(packed.sb), _ptr(out), B, H,
-                   W, Cin, packed.planes, packed.cout, int(packed.downsample),
-                   ctypes.c_void_p(
+    err = _entry()(_ptr(x), _ptr(w), _ptr(sb), _ptr(out), B, H, W, Cin,
+                   planes, cout, int(downsample), ctypes.c_void_p(
                        torch.cuda.current_stream(x.device).cuda_stream))
     if err:
         raise RuntimeError(f"fused_bottleneck: CUDA error {err} at launch")
     fused_bottleneck.launches += 1
     return out
+
+
+@_k3_op.register_fake
+def _k3_fake(x, w, sb, cin, planes, cout, downsample):
+    B, _, H, W = x.shape
+    return torch.empty((B, cout, H, W), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
+
+
+def fused_bottleneck_packed(x, packed: PackedBottleneck):
+    """One stride-1 eval-mode Bottleneck as one kernel launch, with the
+    weights packed by `pack_weights`, through the registered operator
+    fast3dhpe::fused_bottleneck.
+
+    x: (B, Cin, H, W), channels_last. On a CPU tensor this runs
+    `bottleneck_plain` on the packed weights; on a CUDA tensor it launches
+    csrc/fused_bottleneck.cu (bf16 only) or raises.
+    Returns (B, Cout, H, W) in x.dtype, channels_last.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_bottleneck: unsupported device {x.device}")
+    return _k3_op(x, packed.w, packed.sb, packed.cin, packed.planes,
+                  packed.cout, packed.downsample)
 
 
 def fused_bottleneck(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,

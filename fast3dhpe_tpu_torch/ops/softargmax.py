@@ -1,5 +1,6 @@
 """Soft-argmax forward (K1) and backward (K2): launch plan, launch rules,
-ctypes binding and wrappers, joined by a torch.autograd.Function.
+ctypes binding and wrappers, registered as the PyTorch operators
+fast3dhpe::soft_argmax and its backward fast3dhpe::soft_argmax_bwd.
 
 The kernels are csrc/softargmax.cu (CUDA C++ for sm_90a, built by
 ops/_build.py). K1 replaces fast3dhpe_tpu/ops/pallas_softargmax.py
@@ -8,7 +9,7 @@ ops/_build.py). K1 replaces fast3dhpe_tpu/ops/pallas_softargmax.py
 then cx = sum p*x and cy = sum p*y in heatmap pixels. K2 replaces
 `_softargmax_bwd_kernel` (:45, launched by `_bwd_pallas`, pallas_call at
 :79): dL/dh = p * (gx*(x - cx) + gy*(y - cy)). K1 also returns, per (image,
-joint), the statistics (m, 1/S, cx, cy), and the autograd Function saves
+joint), the statistics (m, 1/S, cx, cy), and the operator's autograd saves
 them beside the logits, so K2 reads the logits once; the JAX custom VJP
 recomputes p, cx and cy from the logits instead.
 
@@ -142,10 +143,13 @@ def check_launch(device: str, dtype: torch.dtype, shape: Sequence[int],
 
 
 def _check(heatmaps):
+    """check_launch on a tensor. While torch.export traces, the tensor has
+    no data: its address is checked when the traced call runs (in the
+    CUDA implementation, which checks again)."""
     dev = heatmaps.device.type
+    real = dev == "cuda" and not torch.compiler.is_compiling()
     check_launch(dev, heatmaps.dtype, tuple(heatmaps.shape),
-                 heatmaps.stride(),
-                 heatmaps.data_ptr() if dev == "cuda" else 0)
+                 heatmaps.stride(), heatmaps.data_ptr() if real else 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -204,6 +208,87 @@ def _plan_of(heatmaps) -> LaunchPlan:
     return launch_plan(N, H * W, J, heatmaps.element_size())
 
 
+def _plain_stats(heatmaps, out):
+    """K1's statistics (m, 1/S, cx, cy) in plain PyTorch, fp32."""
+    h = heatmaps.float()
+    N, H, W, J = h.shape
+    flat = h.reshape(N, H * W, J)
+    m = flat.amax(dim=1)
+    s = (flat - m[:, None]).exp().sum(dim=1)
+    return torch.stack([m, 1.0 / s, out[..., 0], out[..., 1]], dim=-1)
+
+
+# K1 and K2 as registered operators, so that torch.export (whose fake
+# tensors have no data_ptr) traces them and an exported graph calls them:
+# the CPU implementation is the plain version, the CUDA one the kernel
+# (which raises on what it does not take), and K2 is K1's backward.
+
+@torch.library.custom_op("fast3dhpe::soft_argmax", mutates_args=(),
+                         device_types="cpu")
+def _k1_op(heatmaps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    out = soft_argmax(heatmaps)
+    return out, _plain_stats(heatmaps, out)
+
+
+@_k1_op.register_kernel("cuda")
+def _k1_cuda(heatmaps):
+    _check(heatmaps)
+    out = _fwd_cuda(heatmaps, _plan_of(heatmaps))
+    soft_argmax_fused.launches += 1
+    return out
+
+
+@_k1_op.register_fake
+def _k1_fake(heatmaps):
+    N, _, _, J = heatmaps.shape
+    return (heatmaps.new_empty((N, J, 2), dtype=torch.float32),
+            heatmaps.new_empty((N, J, 4), dtype=torch.float32))
+
+
+@torch.library.custom_op("fast3dhpe::soft_argmax_bwd", mutates_args=(),
+                         device_types="cpu")
+def _k2_op(heatmaps: torch.Tensor, stats: torch.Tensor,
+           g: torch.Tensor) -> torch.Tensor:
+    dh = torch.empty_like(heatmaps)
+    dh.copy_(soft_argmax_bwd(heatmaps, g))
+    return dh
+
+
+@_k2_op.register_kernel("cuda")
+def _k2_cuda(heatmaps, stats, g):
+    _check(heatmaps)
+    N, H, W, J = heatmaps.shape
+    dev = heatmaps.device
+    if (tuple(stats.shape) != (N, J, 4) or stats.dtype != torch.float32
+            or stats.device != dev or not stats.is_contiguous()):
+        raise ValueError(f"soft_argmax_bwd_fused: statistics must be a "
+                         f"contiguous (N, J, 4) float32 tensor on {dev}")
+    g = g.to(device=dev, dtype=torch.float32).contiguous()
+    dh = _bwd_cuda(heatmaps, stats, g, _plan_of(heatmaps))
+    soft_argmax_bwd_fused.launches += 1
+    return dh
+
+
+@_k2_op.register_fake
+def _k2_fake(heatmaps, stats, g):
+    return torch.empty_like(heatmaps)
+
+
+def _k1_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0], output[1])
+
+
+def _k1_backward(ctx, g, _g_stats):
+    heatmaps, stats = ctx.saved_tensors
+    if g is None:
+        g = heatmaps.new_zeros((heatmaps.shape[0], heatmaps.shape[3], 2),
+                               dtype=torch.float32)
+    return _k2_op(heatmaps, stats, g)
+
+
+_k1_op.register_autograd(_k1_backward, setup_context=_k1_setup)
+
+
 def soft_argmax_fwd_fused(heatmaps) -> Tuple[torch.Tensor,
                                              Optional[torch.Tensor]]:
     """K1: (N, H, W, J) logits -> ((N, J, 2) fp32 (x, y), statistics).
@@ -216,9 +301,7 @@ def soft_argmax_fwd_fused(heatmaps) -> Tuple[torch.Tensor,
     _check(heatmaps)
     if heatmaps.device.type == "cpu":
         return soft_argmax(heatmaps), None
-    out = _fwd_cuda(heatmaps, _plan_of(heatmaps))
-    soft_argmax_fused.launches += 1
-    return out
+    return _k1_op(heatmaps)
 
 
 def soft_argmax_bwd_fused(heatmaps, g, stats=None):
@@ -237,40 +320,16 @@ def soft_argmax_bwd_fused(heatmaps, g, stats=None):
                          f"{(N, J, 2)}, got {tuple(g.shape)}")
     if heatmaps.device.type == "cpu":
         return soft_argmax_bwd(heatmaps, g)
-    dev = heatmaps.device
     if stats is None:
         _, stats = soft_argmax_fwd_fused(heatmaps)
-    if (tuple(stats.shape) != (N, J, 4) or stats.dtype != torch.float32
-            or stats.device != dev or not stats.is_contiguous()):
-        raise ValueError(f"soft_argmax_bwd_fused: statistics must be a "
-                         f"contiguous (N, J, 4) float32 tensor on {dev}")
-    g = g.to(device=dev, dtype=torch.float32).contiguous()
-    dh = _bwd_cuda(heatmaps, stats, g, _plan_of(heatmaps))
-    soft_argmax_bwd_fused.launches += 1
-    return dh
-
-
-class _SoftArgmax(torch.autograd.Function):
-    """K1 forward; K2 backward from the saved logits and K1's statistics
-    (`_fused_fwd` / `_fused_bwd` in the JAX package, which save only the
-    logits). Autograd's version check on the saved tensors catches an
-    in-place edit of either."""
-
-    @staticmethod
-    def forward(ctx, heatmaps):
-        out, stats = soft_argmax_fwd_fused(heatmaps)
-        ctx.save_for_backward(heatmaps, stats)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        heatmaps, stats = ctx.saved_tensors
-        return soft_argmax_bwd_fused(heatmaps, g, stats)
+    return _k2_op(heatmaps, stats, g)
 
 
 def soft_argmax_fused(heatmaps):
     """(N, H, W, J) logits, fp32 or bf16 -> (N, J, 2) fp32 (x, y),
-    differentiable.
+    differentiable, through the registered operator fast3dhpe::soft_argmax
+    (K2, fast3dhpe::soft_argmax_bwd, is its backward; the JAX custom VJP
+    recomputes p, cx and cy from the logits, K2 reads K1's statistics).
 
     On a CPU tensor this runs the plain `soft_argmax` and `soft_argmax_bwd`
     (any strides); on a CUDA tensor it launches K1 (forward) and K2
@@ -279,7 +338,7 @@ def soft_argmax_fused(heatmaps):
     `soft_argmax_bwd_fused.launches` K2 launches.
     """
     _check(heatmaps)
-    return _SoftArgmax.apply(heatmaps)
+    return _k1_op(heatmaps)[0]
 
 
 soft_argmax_fused.launches = 0

@@ -75,16 +75,22 @@ def affine_warp(images, trans, out_size):
     return rows[0] * (1 - fy) + rows[1] * fy
 
 
-@functools.lru_cache(maxsize=None)
-def _mean_std(device: torch.device):
-    """ImageNet mean and std as fp32 tensors on `device`, made once."""
+def _new_mean_std(device):
     return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
             torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(device: torch.device):
+    """ImageNet mean and std as fp32 tensors on `device`, made once."""
+    return _new_mean_std(device)
+
+
 def normalize_imagenet(images):
     """uint8 or float [0, 255] RGB (..., 3) -> ImageNet-normalised fp32,
-    channels last."""
+    channels last. While torch.export traces, the constants are made anew
+    (the cache would keep the tracer's fake tensors)."""
     x = images.float() / 255.0
-    mean, std = _mean_std(x.device)
+    mean, std = (_new_mean_std(x.device) if torch.compiler.is_compiling()
+                 else _mean_std(x.device))
     return (x - mean) / std

@@ -64,22 +64,26 @@ def _prepare_model_dir(model_path: str, overwrite: bool, logger,
         os.makedirs(model_path, exist_ok=True)
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def _check_port_options(logger, mesh, compute_dtype, segments,
-                        segment_epochs) -> None:
+                        segment_epochs) -> torch.dtype:
     """Refuse what the port has not got yet; log once what has no effect
-    in it."""
+    in it. Returns the compute dtype: "float32" or "bfloat16" (parameters,
+    Adam's state and the BN statistics stay fp32)."""
     if mesh is not None:
         raise NotImplementedError(
-            "multi-GPU training (mesh=) is A14, slice 6 of the port")
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: bf16 training is A10, slice "
-            f"6 of the port; train in float32")
+            "multi-GPU training (mesh=) is A14, the last slice of the port")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={compute_dtype!r}: expected one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
     if segments is not None or segment_epochs is not None:
         logger.info("segments=%s, segment_epochs=%s: no effect; the port "
                     "runs no segments (they amortise the JAX package's "
                     "relay calls, and the card has no relay)", segments,
                     segment_epochs)
+    return COMPUTE_DTYPES[compute_dtype]
 
 
 def _restore_state(model_path, state: TrainState, logger):
@@ -188,12 +192,14 @@ def run(config, mesh=None, overwrite: bool = False,
         (checkpoint.AsyncCheckpointWriter).
       early_stop_patience: stop once val PCK has not improved for this
         many epochs.
-      mesh, compute_dtype="bfloat16": not ported yet (raise);
+      compute_dtype: "float32" or "bfloat16" (bf16 compute, fp32
+        parameters, Adam state and BN statistics);
+      mesh: not ported yet (raises; A14);
       segments, segment_epochs: no effect (see the module's docstring).
     """
     logger = setup_logger()
-    _check_port_options(logger, mesh, compute_dtype, segments,
-                        segment_epochs)
+    dtype = _check_port_options(logger, mesh, compute_dtype, segments,
+                                segment_epochs)
     dev = resolve_device(device)
     model_path = os.path.join(weights_root, config.MODEL.NAME)
     if not resume:
@@ -209,7 +215,7 @@ def run(config, mesh=None, overwrite: bool = False,
                       logger, max_epochs, max_steps_per_epoch, seed,
                       plot_dir, resume, log_every, trace_dir, scan_epochs,
                       checkpoint_every, async_checkpoint,
-                      early_stop_patience)
+                      early_stop_patience, dtype)
     finally:
         train_loader.close()
         valid_loader.close()
@@ -218,8 +224,9 @@ def run(config, mesh=None, overwrite: bool = False,
 def _train(config, train_loader, valid_loader, model_path, dev, logger,
            max_epochs, max_steps_per_epoch, seed, plot_dir, resume,
            log_every, trace_dir, scan_epochs, checkpoint_every,
-           async_checkpoint, early_stop_patience) -> Dict:
+           async_checkpoint, early_stop_patience, dtype) -> Dict:
     model = _init_model(config, seed)
+    model.dtype = dtype         # the compute dtype; parameters stay fp32
     _load_pretrained(model, config, logger)
     model.to(dev)
     steps_per_epoch = len(train_loader)

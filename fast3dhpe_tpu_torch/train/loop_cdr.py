@@ -68,8 +68,8 @@ def run(config, mesh=None, overwrite: bool = False,
     post-warmup epochs without a better val MPJPE3D, and the LR schedule
     still follows TRAIN.EPOCH."""
     logger = setup_logger()
-    _check_port_options(logger, mesh, compute_dtype, segments,
-                        segment_epochs)
+    dtype = _check_port_options(logger, mesh, compute_dtype, segments,
+                                segment_epochs)
     dev = resolve_device(device)
     model_path = os.path.join(weights_root, config.MODEL.NAME)
     if not resume:
@@ -85,7 +85,7 @@ def run(config, mesh=None, overwrite: bool = False,
                       logger, max_epochs, max_steps_per_epoch, seed,
                       plot_dir, resume, log_every, trace_dir, scan_epochs,
                       checkpoint_every, async_checkpoint,
-                      early_stop_patience)
+                      early_stop_patience, dtype)
     finally:
         train_loader.close()
         valid_loader.close()
@@ -94,8 +94,9 @@ def run(config, mesh=None, overwrite: bool = False,
 def _train(config, train_loader, valid_loader, model_path, dev, logger,
            max_epochs, max_steps_per_epoch, seed, plot_dir, resume,
            log_every, trace_dir, scan_epochs, checkpoint_every,
-           async_checkpoint, early_stop_patience) -> Dict:
+           async_checkpoint, early_stop_patience, dtype) -> Dict:
     model = _init_model(config, seed)
+    model.dtype = dtype         # the compute dtype; parameters stay fp32
     _load_pretrained(model, config, logger)
     model.to(dev)
     steps_per_epoch = len(train_loader)

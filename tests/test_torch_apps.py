@@ -90,13 +90,20 @@ def test_train_apps_write_checkpoints(ws):
         os.listdir(os.path.join(ws["weights"], "pose")))
 
 
-def test_train_app_flags(ws):
+def test_train_app_flags(ws, monkeypatch):
     argv = ["--config_path", ws["cfg3"], "--device", "cpu",
             "--weights_root", ws["weights"]]
     with pytest.raises(FileExistsError, match="--overwrite"):
         train_cdr.main(argv)
-    with pytest.raises(NotImplementedError, match="A10"):
-        train_cdr.main(argv + ["--overwrite", "--bf16"])
+    # --bf16, refused until bf16 training was ported, reaches the loop as
+    # compute_dtype (tests/test_torch_bf16_train.py trains with it)
+    from fast3dhpe_tpu_torch.train import loop_cdr
+    seen = {}
+    monkeypatch.setattr(loop_cdr, "run",
+                        lambda config, **kw: seen.update(kw) or {})
+    train_cdr.main(argv + ["--overwrite", "--bf16"])
+    assert seen["compute_dtype"] == "bfloat16"
+    monkeypatch.undo()
     with pytest.raises(RuntimeError, match="CUDA"):
         if not torch.cuda.is_available():
             train.main(["--config_path", ws["cfg2"], "--overwrite",
@@ -137,7 +144,10 @@ def test_inference_app_matches_jax(ws, tmp_path, monkeypatch, capsys):
 
 def test_inference_app_bf16_fused_and_refusals(ws, tmp_path, capsys):
     """--bf16 --fused_inference runs (K3's plain version on the CPU);
-    --fused_inference needs --bf16; int8 is not ported yet."""
+    --fused_inference needs --bf16; --int8, refused until int8 serving was
+    ported, runs, and an int8 inferencer with neither a calibration stream
+    nor a pack raises (tests/test_torch_quantized.py holds int8 against
+    JAX)."""
     argv = ["--config_path", ws["cfg3"], "--device", "cpu", "--weights_root",
             ws["weights"], "--data_path", ws["valid"], "--batch_size", "4",
             "--device_cache_mb", "0"]
@@ -145,8 +155,12 @@ def test_inference_app_bf16_fused_and_refusals(ws, tmp_path, capsys):
     assert np.isfinite(got["HipHop"]).all()
     with pytest.raises(SystemExit):
         inference.main(argv + ["--fused_inference"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        inference.main(argv + ["--int8"])
+    got = inference.main(argv + ["--int8"])
+    assert np.isfinite(got["HipHop"]).all()
+    with pytest.raises(ValueError, match="calib_stream"):
+        inference.CDRNetInferencer(load_config(ws["cfg3"]),
+                                   weights_root=ws["weights"], device="cpu",
+                                   int8=True)
 
 
 def test_baseline_matches_jax(ws, tmp_path, monkeypatch, capsys):

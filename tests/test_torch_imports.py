@@ -35,7 +35,8 @@ def test_importing_the_port_loads_no_jax():
                  "utils.profiling", "utils.visualize", "utils.render",
                  "apps.train", "apps.train_cdr", "apps.inference",
                  "apps.baseline", "apps.display_data_2d",
-                 "apps.display_data_3d"):
+                 "apps.display_data_3d", "ops.quant", "models.quantized",
+                 "export", "apps.export"):
         assert f"fast3dhpe_tpu_torch.{name}" in mods, name
     # -I: no PYTHONPATH and no user site, so nothing but the port is loaded
     code = (

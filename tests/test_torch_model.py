@@ -132,7 +132,9 @@ def test_inferencer_errors(tmp_path):
     os.makedirs(tmp_path / "tiny_cdr" / "best")           # an orbax dir
     with pytest.raises(NotImplementedError):
         CDRNetInferencer(cfg, weights_root=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # int8 serving, refused until it was ported, needs a calibration
+    # stream or a pack
+    with pytest.raises(ValueError, match="calib_stream"):
         CDRNetInferencer(cfg, state_dict={}, device="cpu", int8=True)
 
 

@@ -109,13 +109,22 @@ def test_masked_batch_norm_matches_flax(row_valid):
 
 
 def test_train_bn_takes_the_biased_variance_and_rejects_bf16():
+    """The running variance takes the biased batch variance. bf16 input,
+    refused until bf16 training was ported, now trains: fp32 statistics
+    of the bf16 values, the output in bf16 (tests/test_torch_bf16_train.py
+    holds it against flax)."""
     x = torch.randn(2, 3, 4, 4)
     bn = BatchNorm2d(3).train()
     bn(x)
     biased = x.var(dim=(0, 2, 3), unbiased=False)
     torch.testing.assert_close(bn.running_var, 0.9 + 0.1 * biased)
-    with pytest.raises(NotImplementedError, match="ROADMAP A, item 12b"):
-        bn(x.bfloat16())
+    xb = x.bfloat16()
+    before = bn.running_var.clone()
+    y = bn(xb)
+    assert y.dtype == torch.bfloat16 and bn.running_var.dtype == torch.float32
+    torch.testing.assert_close(
+        bn.running_var,
+        0.9 * before + 0.1 * xb.float().var(dim=(0, 2, 3), unbiased=False))
     bn.eval()
     assert bn(x.bfloat16()).dtype == torch.bfloat16     # eval stays bf16
 
