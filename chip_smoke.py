@@ -3,6 +3,7 @@
     python3 chip_smoke.py             # everything below
     python3 chip_smoke.py --kernels   # steps 1, 2 and the kernel timings
     python3 chip_smoke.py --slice6    # steps 1-3, 5, 8a and 11
+    python3 chip_smoke.py --slice7    # steps 1-3 and 12
 
 1. Prints the card's name and power limit, builds the kernels
    (csrc/softargmax.cu and csrc/fused_bottleneck.cu, one nvcc each, in
@@ -146,7 +147,39 @@
    e. remat: fp32 steps with remat None and "convs" against the plain
       step (cuDNN deterministic): loss, gradients and BN statistics equal;
       peak memory and step ms of all three at 32 and 96 pairs.
-12. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
+12. Slice 7, data parallelism of the CDRNet-101 train step (256 px, 19
+    joints, fp32, TF32 off), the kernels' counts set to 0 just before each
+    path and read just after:
+   a. NCCL at world size 1 in this process (MASTER_ADDR/MASTER_PORT set,
+      init_distributed, make_mesh): the step at 32 pairs (4 padded,
+      converging_rig) through replicate(mesh, model) against the plain
+      step from the same weights, with cuDNN deterministic: loss, every
+      gradient, the parameters after the Adam update and every BN running
+      statistic equal bit for bit (the all-reduces over one rank are
+      identities); the collectives a step by kind (the row counts, a
+      forward and a backward one a BN, the gradient, the metrics), 1 K1
+      + 1 K2 + 0 K3; then the two steps in turns (ms), a step's peak
+      memory above what was allocated, and one step of each under
+      torch.profiler (device busy, the NCCL kernels' time);
+   b. two gloo ranks sharing cuda:0: this script starts itself twice
+      (init_distributed(backend="gloo", device="cuda:0"), loop_cdr.run
+      with make_mesh()), at 16 pairs a rank, against loop_cdr.run in this
+      process at 32, 2 epochs (WARMUP 1) on a MADS tree of 32 pairs a
+      split (768x1024 JPEGs), augmentation off, so that an epoch is one
+      step and the global batches hold the same pairs. Each rank runs
+      the loop three times: one epoch to warm up; then as users run it,
+      into one weights root that the ranks share, without overwrite (the
+      CLI's default): the ranks' histories equal but the throughput, and
+      within tests/test_distributed_real.py's tolerances of the
+      1-process run (S7_*); one checkpoint set; per rank 2 K1 + 1 K2 an
+      epoch (a train step and an eval batch); the train step's ms. Then
+      one epoch into a root of each rank's own, every all_reduce timed
+      between two synchronisations: the gloo ms a step, the gradient's
+      and the BN's apart, the step's ms under that timing, and rank 1's
+      root empty.
+      Beside them, two NCCL ranks on the one card, a probe of the
+      machine whose failure is printed and is no failure of the phase.
+13. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
 
 It needs one CUDA device. Without one, or when any phase fails, it exits
 non-zero and prints no result.
@@ -838,13 +871,13 @@ def seeded_train_model(cfg):
     return model
 
 
-def train_step_fn(cfg):
+def train_step_fn(cfg, mesh=None):
     from fast3dhpe_tpu_torch.models.losses import make_loss
     from fast3dhpe_tpu_torch.train.steps import make_train_step_cdr
     return make_train_step_cdr(
         make_loss(cfg.LOSS.TYPE, cfg.LOSS.USE_TARGET_WEIGHT),
         loss_3d_weight=cfg.TRAIN.LOSS_3D_WEIGHT,
-        num_joints=cfg.MODEL.NUM_JOINTS)
+        num_joints=cfg.MODEL.NUM_JOINTS, mesh=mesh)
 
 
 def run_train(cfg, dev):
@@ -3280,6 +3313,457 @@ def run_slice6(inf, cfg, start_sd, mads, dev, smi):
     return out
 
 
+# ----------------------------------------------------------------- slice 7
+
+S7_TIMED = 4                      # a: timed steps of each, in turns
+S7_FRAMES = 16                    # b: 2 movements x 16 frames a split,
+S7_MOVEMENTS = ("HipHop", "Jazz")  # 32 pairs: one step an epoch either way
+S7_EPOCHS = 2
+S7_TIMED_EPOCHS = 1               # b: the run with every all_reduce timed
+S7_CHILD_TIMEOUT = 600            # s: a gloo rank's whole run
+S7_PROBE_TIMEOUT = 60             # s: the NCCL two-ranks-on-one-card probe
+# b against the 1-process run: tests/test_distributed_real.py's tolerances
+S7_WARMUP_RTOL, S7_POST_RTOL, S7_2D_RTOL = 1e-4, 5e-2, 1e-2
+S7_GRAD_MIN_NUMEL = 1 << 20       # b: an all_reduce this large is the
+S7_SCALAR_MAX_NUMEL = 4           # gradient's; this small the counts' or
+                                  # the metrics'; between, a BN's
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(rank, world, port):
+    return {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+            "RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": str(rank)}
+
+
+def _s7_record(model, metrics):
+    return ({k: v.item() for k, v in metrics.items()},
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            {n: p.detach().clone() for n, p in model.named_parameters()},
+            {n: b.detach().clone() for n, b in model.named_buffers()
+             if "running" in n})
+
+
+def _nccl_ms(step, state, batch):
+    """Device ms of one step under torch.profiler: all of it, the NCCL
+    kernels', and the number of NCCL kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch, True)
+        torch.cuda.synchronize()
+    busy = nccl = 0.0
+    n_nccl = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.self_device_time_total / 1e3
+            if "nccl" in e.key.lower():
+                nccl += e.self_device_time_total / 1e3
+                n_nccl += e.count
+    require(busy > 0, "the profiler recorded no device time")
+    return busy, nccl, n_nccl
+
+
+def run_dp_world1(cfg, dev):
+    """a. NCCL at world size 1 in this process: the global-batch train step
+    through replicate against the plain step from the same weights, bit
+    for bit with cuDNN deterministic; collectives a step by kind, the NCCL
+    kernels' device time, step ms in turns with the plain step's, peak
+    memory, K1 and K2 launches."""
+    import os
+    import torch.distributed as dist
+    from fast3dhpe_tpu_torch.models.cdrnet import CDRNet
+    from fast3dhpe_tpu_torch.parallel import (destroy_distributed,
+                                              init_distributed, make_mesh,
+                                              replicate, shard_batch)
+    from fast3dhpe_tpu_torch.parallel.mesh import COUNTS
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    env = rank_env(0, 1, free_port())
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        require(init_distributed(), "init_distributed made no group")
+        mesh = make_mesh()
+        require(dist.get_backend() == "nccl" and mesh.size == 1
+                and mesh.device == torch.device("cuda", 0),
+                f"world size 1: backend {dist.get_backend()}, mesh {mesh}")
+        init_s = time.perf_counter() - t0
+        batch = shard_batch(mesh, train_batch(
+            np.random.RandomState(SEED + 2), TRAIN_PAIRS, TRAIN_PAD,
+            cfg.MODEL.IMAGE_SIZE[0]))
+        model = seeded_train_model(cfg).to(dev)
+        calibrate_train_head(model, batch)
+        start_sd = {k: v.detach().clone()
+                    for k, v in model.state_dict().items()}
+        n_bn = sum(1 for k in start_sd if k.endswith("running_mean"))
+        del model
+        steps = {"plain": train_step_fn(cfg), "synced":
+                 train_step_fn(cfg, mesh)}
+
+        def build(name):
+            m = CDRNet.from_config(cfg)
+            m.load_state_dict(start_sd, strict=True)
+            m.to(dev)
+            if name == "synced":
+                replicate(mesh, m)
+            return m, TrainState.create(m, cfg, steps_per_epoch=1)
+
+        flags = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        runs, launches, counts = {}, {}, {}
+        try:
+            for name in ("plain", "synced"):
+                m, state = build(name)
+                COUNTS.clear()
+                counters = reset_counts()
+                metrics = steps[name](state, batch, True)
+                launches[name] = read_counts(counters)
+                counts[name] = dict(COUNTS)
+                runs[name] = _s7_record(m, metrics)
+                del m, state
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = flags
+        (pm, pg, pp, ps), (sm, sg, sp, ss) = runs["plain"], runs["synced"]
+        differ = [k for k in pm if pm[k] != sm[k]]
+        for what, a, b in (("grad", pg, sg), ("param", pp, sp),
+                           ("stat", ps, ss)):
+            differ += [f"{what} {n}" for n in a if not torch.equal(a[n], b[n])]
+        require(not differ, f"the NCCL world-1 step differs from the plain "
+                            f"step in {len(differ)}: {differ[:5]}")
+        require_counts(launches["synced"], 1, 1, 1, 0, "the NCCL world-1 step")
+        want = {"rows": 1, "bn forward": n_bn, "bn backward": n_bn,
+                "gradients": 1, "metrics": 1}
+        require(counts["synced"] == want and not counts["plain"],
+                f"collectives a step {counts}, not {want}")
+        del runs
+
+        # in turns: plain, synced, plain, synced, ...; the first of each
+        # warms up
+        built = {name: build(name) for name in steps}
+        times = {name: [] for name in steps}
+        extra = {name: 0.0 for name in steps}
+        for i in range(1 + S7_TIMED):
+            for name, step in steps.items():
+                st = built[name][1]
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                step(st, batch, True)
+                torch.cuda.synchronize()
+                if i:
+                    times[name].append((time.perf_counter() - t) * 1e3)
+                extra[name] = max(extra[name], (
+                    torch.cuda.max_memory_allocated() - before) / 2 ** 30)
+        prof = {name: _nccl_ms(steps[name], built[name][1], batch)
+                for name in steps}
+        step_ms = {k: statistics.median(v) for k, v in times.items()}
+        out = {"init_s": init_s, "collectives": counts["synced"],
+               "launches": launches["synced"], "step_ms": step_ms,
+               "step_times_ms": times,
+               "synced_over_plain": step_ms["synced"] / step_ms["plain"],
+               "step_peak_gib": extra,
+               "device_ms": {k: v[0] for k, v in prof.items()},
+               "nccl_device_ms": prof["synced"][1],
+               "nccl_kernels": prof["synced"][2], "bit_equal": True}
+        print(f"# slice 7 a, NCCL world 1 ({TRAIN_PAIRS} pairs, "
+              f"{TRAIN_PAD} padded): bit-equal to the plain step (loss, "
+              f"{len(pg)} gradients and parameters, {len(ps)} BN "
+              f"statistics); collectives a step {counts['synced']}; step "
+              f"{step_ms['synced']:.1f} ms against the plain "
+              f"{step_ms['plain']:.1f} ms ({out['synced_over_plain']:.4f}x;"
+              f" {[round(t, 1) for t in times['synced']]} / "
+              f"{[round(t, 1) for t in times['plain']]}); device busy "
+              f"{prof['synced'][0]:.1f} / {prof['plain'][0]:.1f} ms, NCCL "
+              f"kernels {prof['synced'][1]:.3f} ms in {prof['synced'][2]}; "
+              f"a step's peak above "
+              f"what was allocated {extra['synced']:.2f} / "
+              f"{extra['plain']:.2f} GiB; launches {launches['synced']}")
+        return out
+    finally:
+        destroy_distributed()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_child(rank, world, port, cfg_path, shared, own, out):
+    """One gloo rank of b, on cuda:0 beside the other: loop_cdr.run through
+    make_mesh three times, into `own` but the second. One epoch to warm
+    up, so that the two runs after it are timed warm. Then as users run
+    it, into the `shared` weights root without overwrite (its launches
+    and collectives are counted). Then one epoch with every all_reduce
+    timed (synchronised on both sides: gloo stages CUDA tensors through
+    the host, so each one waits for the device anyway)."""
+    import os
+    import torch.distributed as dist
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.parallel import (destroy_distributed,
+                                              init_distributed, make_mesh)
+    from fast3dhpe_tpu_torch.parallel.mesh import COUNTS
+    from fast3dhpe_tpu_torch.train import loop_cdr
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ.update(rank_env(rank, world, port))
+    require(init_distributed(backend="gloo", device="cuda:0"),
+            "init_distributed made no group")
+    calls = []
+    orig = dist.all_reduce
+
+    def timed(tensor, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = orig(tensor, *args, **kw)
+        torch.cuda.synchronize()
+        calls.append((tensor.numel(), (time.perf_counter() - t) * 1e3))
+        return r
+
+    try:
+        mesh = make_mesh()
+        loop_cdr.run(load_config(cfg_path), mesh=mesh, overwrite=True,
+                     seed=SEED, weights_root=own, max_epochs=1)
+        COUNTS.clear()
+        counters = reset_counts()
+        with EpochTimes() as et:
+            hist = loop_cdr.run(load_config(cfg_path), mesh=mesh,
+                                seed=SEED, weights_root=shared)
+        launches = read_counts(counters)
+        counts = dict(COUNTS)
+        dist.all_reduce = timed
+        timed_hist = loop_cdr.run(load_config(cfg_path), mesh=mesh,
+                                  overwrite=True, seed=SEED,
+                                  weights_root=own,
+                                  max_epochs=S7_TIMED_EPOCHS)
+    finally:
+        dist.all_reduce = orig
+        destroy_distributed()
+    with open(out, "w") as f:
+        json.dump({"history": hist, "launches": launches,
+                   "counts": counts, "calls": calls,
+                   "epoch_s": et.seconds, "timed_history": timed_hist}, f)
+
+
+def nccl_probe_child(rank, port):
+    """One of two NCCL ranks on cuda:0: one all_reduce."""
+    import os
+    import torch.distributed as dist
+    from fast3dhpe_tpu_torch.parallel import (destroy_distributed,
+                                              init_distributed)
+    os.environ.update(rank_env(rank, 2, port))
+    init_distributed(device="cuda:0")
+    try:
+        t = torch.ones(1, device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        print(f"NCCL probe rank {rank}: all_reduce gave {t.item()}")
+    finally:
+        destroy_distributed()
+
+
+def _spawn_self(*args, env=None):
+    import os
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *map(str, args)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, **(env or {})))
+
+
+def _finish(procs, timeout):
+    """(returncode or None when killed at the timeout, output) each."""
+    deadline = time.perf_counter() + timeout
+    out = []
+    for p in procs:
+        try:
+            log = p.communicate(timeout=max(deadline - time.perf_counter(),
+                                            1))[0]
+            out.append((p.returncode, log))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out.append((None, p.communicate()[0]))
+    return out
+
+
+def run_dp_gloo(dev, work):
+    """b. Two gloo ranks sharing cuda:0, each `loop_cdr.run(cfg,
+    mesh=make_mesh())` at 16 pairs, against one process at 32, on a MADS
+    tree of 32 pairs a split (one step an epoch), augmentation off; the
+    NCCL two-ranks probe beside them."""
+    import os
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.data import synthetic
+    from fast3dhpe_tpu_torch.train import loop_cdr
+    t0 = time.perf_counter()
+    mads = os.path.join(work, "s7_mads")
+    synthetic.make_synthetic_mads(mads, n_frames=S7_FRAMES,
+                                  movements=S7_MOVEMENTS, img_w=RAW_W,
+                                  img_h=RAW_H)
+
+    def cfg_at(pairs, name):
+        return app_config(
+            "configs/mads_3d.yaml", os.path.join(work, f"{name}.yaml"), mads,
+            MODEL={"PRETRAINED": "", "NAME": name},
+            DATASET={"FLIP": False, "ROT_FACTOR": 0, "SCALE_FACTOR": 0,
+                     "OCCLUSION": "None", "DEVICE_CACHE_BYTES": 0},
+            TRAIN={"BATCH_SIZE": pairs, "EPOCH": S7_EPOCHS, "WARMUP": 1},
+            TEST={"BATCH_SIZE": pairs})
+
+    n_pairs = len(S7_MOVEMENTS) * S7_FRAMES
+    rank_cfg, one_cfg = cfg_at(n_pairs // 2, "dist"), cfg_at(n_pairs,
+                                                               "single")
+    tree_s = time.perf_counter() - t0
+    probe_port, port = free_port(), free_port()
+    probe = [_spawn_self("--nccl-probe", r, probe_port,
+                         env={"NCCL_DEBUG": "WARN"}) for r in range(2)]
+    shared = os.path.join(work, "w_shared")
+    roots = [os.path.join(work, f"w_rank{r}") for r in range(2)]
+    outs = [os.path.join(work, f"rank{r}.json") for r in range(2)]
+    t = time.perf_counter()
+    ranks = [_spawn_self("--dp-child", r, 2, port, rank_cfg, shared,
+                         roots[r], outs[r]) for r in range(2)]
+    probed = _finish(probe, S7_PROBE_TIMEOUT)
+    done = _finish(ranks, S7_CHILD_TIMEOUT)
+    ranks_s = time.perf_counter() - t
+    for r, (rc, log) in enumerate(done):
+        require(rc == 0, f"gloo rank {r} exited {rc}:\n{log[-3000:]}")
+    said = [[ln for ln in log.splitlines()
+             if "Duplicate" in ln or "Error" in ln or "probe" in ln][-2:]
+            or log.strip().splitlines()[-2:] for _, log in probed]
+    nccl_probe = {"returncodes": [rc for rc, _ in probed], "said": said}
+    print(f"# slice 7 b, NCCL with two ranks on cuda:0 (a probe of the "
+          f"machine, not a path of the port): exit codes "
+          f"{nccl_probe['returncodes']} (None: killed after "
+          f"{S7_PROBE_TIMEOUT} s); it said {said}")
+    got = []
+    for out in outs:
+        with open(out) as f:
+            got.append(json.load(f))
+    h0, h1 = got[0]["history"], got[1]["history"]
+    for k in h0:
+        if not k.endswith("_per_sec"):
+            require(h0[k] == h1[k], f"the ranks' {k} differ: {h0[k]} / "
+                                    f"{h1[k]}")
+    counters = reset_counts()
+    t = time.perf_counter()
+    ref = loop_cdr.run(load_config(one_cfg), overwrite=True, seed=SEED,
+                       weights_root=os.path.join(work, "w_single"),
+                       device=dev.type)
+    one_launches = read_counts(counters)
+    one_s = time.perf_counter() - t
+    require(h0["train_loss"][0] > 1e-5 and h0["grad_norm"][0] > 1e-5,
+            f"vacuous training: {h0}")
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                            / np.abs(np.asarray(b))))
+
+    errs = {"train_loss warmup": rel(h0["train_loss"][:1],
+                                     ref["train_loss"][:1]),
+            "train_loss after": rel(h0["train_loss"][1:],
+                                    ref["train_loss"][1:]),
+            "val_mpjpe_2d": rel(h0["val_mpjpe_2d"], ref["val_mpjpe_2d"]),
+            "val_loss warmup": rel(h0["val_loss"][:1], ref["val_loss"][:1])}
+    decades = {k: float(np.max(np.abs(np.log10(np.asarray(h0[k], float))
+                                      - np.log10(np.asarray(ref[k], float)))))
+               for k in ("val_mpjpe_3d", "val_loss")}
+    print(f"# slice 7 b, 2 gloo ranks x {n_pairs // 2} pairs against 1 "
+          f"process x {n_pairs}: relative {errs}, decades {decades}; "
+          f"rank 0 {h0}; 1 process {ref}")
+    for k, bound in (("train_loss warmup", S7_WARMUP_RTOL),
+                     ("train_loss after", S7_POST_RTOL),
+                     ("val_mpjpe_2d", S7_2D_RTOL),
+                     ("val_loss warmup", S7_2D_RTOL)):
+        require(errs[k] <= bound, f"gloo ranks vs 1 process: {k} "
+                                  f"{errs[k]:.3g} (bound {bound})")
+    for k, d in decades.items():
+        require(np.isfinite(h0[k]).all() and min(h0[k]) > 0 and d < 1.0,
+                f"gloo ranks vs 1 process: {k} {h0[k]} / {ref[k]}")
+    name = load_config(rank_cfg).MODEL.NAME
+    files = sorted(os.listdir(os.path.join(shared, name)))
+    files0 = sorted(os.listdir(os.path.join(roots[0], name)))
+    left1 = [os.path.join(d, f) for d, _, fs in os.walk(roots[1])
+             for f in fs] if os.path.exists(roots[1]) else []
+    require(os.listdir(shared) == [name]
+            and files == files0 == ["latest.opt.pt", "latest.pth"]
+            and not left1, f"checkpoints: shared root {files}, rank 0's "
+                           f"own {files0}, rank 1's own {left1}")
+    launches = [g["launches"] for g in got]
+    steps = S7_EPOCHS       # one train step and one eval batch an epoch
+    for r, n in enumerate(launches):
+        require(n == {"soft_argmax": 2 * steps, "soft_argmax_bwd": steps,
+                      "fused_bottleneck": 0},
+                f"gloo rank {r}: launches {n} over {steps} train steps and "
+                f"{steps} eval batches")
+    step_ms = [[n_pairs // 2 / pps * 1e3
+                for pps in g["history"]["train_pairs_per_sec"]] for g in got]
+    timed_step_ms = [[n_pairs // 2 / pps * 1e3 for pps in
+                      g["timed_history"]["train_pairs_per_sec"]]
+                     for g in got]
+    parts = []
+    for g in got:
+        grad = [ms for n, ms in g["calls"] if n >= S7_GRAD_MIN_NUMEL]
+        bn = [ms for n, ms in g["calls"]
+              if S7_SCALAR_MAX_NUMEL < n < S7_GRAD_MIN_NUMEL]
+        small = [ms for n, ms in g["calls"] if n <= S7_SCALAR_MAX_NUMEL]
+        parts.append({"gradient_ms_a_step": sum(grad) / S7_TIMED_EPOCHS,
+                      "bn_ms_a_step": sum(bn) / S7_TIMED_EPOCHS,
+                      "counts_and_metrics_ms": sum(small),
+                      "calls": {"gradient": len(grad), "bn": len(bn),
+                                "counts_and_metrics": len(small)},
+                      "gradient_numel": max(n for n, _ in g["calls"])})
+    out = {"tree_s": tree_s, "ranks_s": ranks_s, "one_process_s": one_s,
+           "vs_one_process": errs, "decades": decades,
+           "step_ms_by_rank": step_ms,
+           "timed_step_ms_by_rank": timed_step_ms, "allreduce": parts,
+           "collectives_by_rank": [g["counts"] for g in got],
+           "epoch_s_by_rank": [g["epoch_s"] for g in got],
+           "launches_by_rank": launches, "one_process_launches": one_launches,
+           "one_process_step_ms": [n_pairs / pps * 1e3 for pps in
+                                   ref["train_pairs_per_sec"]],
+           "nccl_probe": nccl_probe}
+    print(f"# slice 7 b: ranks' train step {step_ms} ms by epoch (1 process"
+          f" {out['one_process_step_ms']}); with every all_reduce timed "
+          f"{timed_step_ms} ms; gloo all_reduce a step "
+          + "; ".join(f"rank {r}: gradient {p['gradient_ms_a_step']:.1f} ms "
+                      f"({p['gradient_numel']} fp32), BN "
+                      f"{p['bn_ms_a_step']:.1f} ms ({p['calls']['bn']} calls "
+                      f"in {S7_TIMED_EPOCHS} step)" for r, p in
+                      enumerate(parts))
+          + f"; launches {launches}; ranks' wall {ranks_s:.1f} s, 1 process "
+          f"{one_s:.1f} s")
+    return out
+
+
+def run_slice7(cfg, dev, smi):
+    """Phase 12: data parallelism (a, b)."""
+    t0 = time.perf_counter()
+    out = {"a_nccl_world1": run_dp_world1(cfg, dev)}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        out["b_gloo_two_ranks"] = run_dp_gloo(dev, work)
+    out["launches"] = {
+        "NCCL world 1 step": out["a_nccl_world1"]["launches"],
+        **{f"gloo rank {r}, {S7_EPOCHS} epochs": n for r, n in enumerate(
+            out["b_gloo_two_ranks"]["launches_by_rank"])},
+        "1 process, the same epochs":
+            out["b_gloo_two_ranks"]["one_process_launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"# slice 7 ({smi}): {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------ timing
 
 def _decoder_logits(gen, dev, n, dt):
@@ -3638,8 +4122,16 @@ def profile_train(train, wall_ms):
 
 def main():
     args = sys.argv[1:]
-    if args not in ([], ["--kernels"], ["--slice6"]):
-        sys.exit("usage: python3 chip_smoke.py [--kernels | --slice6]")
+    # the processes that slice 7 starts (not in the usage text)
+    if args[:1] == ["--dp-child"]:
+        rank, world, port, cfg_path, shared, own, out = args[1:]
+        return dp_child(int(rank), int(world), int(port), cfg_path, shared,
+                        own, out)
+    if args[:1] == ["--nccl-probe"]:
+        return nccl_probe_child(int(args[1]), int(args[2]))
+    if args not in ([], ["--kernels"], ["--slice6"], ["--slice7"]):
+        sys.exit("usage: python3 chip_smoke.py [--kernels | --slice6 | "
+                 "--slice7]")
     kernels_only = args == ["--kernels"]
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3704,6 +4196,12 @@ def main():
                                            for k, v in phases.items()))
         print(json.dumps({"slice6": s6}))
         return
+    if args == ["--slice7"]:
+        s7 = phase("slice 7", run_slice7, cfg, dev, smi)
+        print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in phases.items()))
+        print(json.dumps({"slice7": s7}))
+        return
     k1 = phase("K1 timing", time_softargmax, dev, gen)
     k2 = phase("K2 timing", time_softargmax_bwd, dev, gen)
     k3 = phase("K3 timing", time_bottleneck, dev, gen)
@@ -3743,6 +4241,8 @@ def main():
     del inf, cpu_inf
     torch.cuda.empty_cache()
     vs_cpu = phase("train card vs CPU", train_vs_cpu, cfg, start_sd, dev)
+    torch.cuda.empty_cache()
+    s7 = phase("slice 7", run_slice7, cfg, dev, smi)
 
     def launch_counts(key):
         by_path = {"serving": serve_launches[key],
@@ -3761,6 +4261,8 @@ def main():
                                     "baseline")})
         by_path.update({f"slice 6, {k}": n[key]
                         for k, n in s6["launches"].items()})
+        by_path.update({f"slice 7, {k}": n[key]
+                        for k, n in s7["launches"].items()})
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -3794,6 +4296,7 @@ def main():
         "loaders_2d": loader_2d, "movement_eval": movement}}))
     print(json.dumps({"apps": apps}))
     print(json.dumps({"slice6": s6}))
+    print(json.dumps({"slice7": s7}))
     print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phases.items()))
     print(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -1,11 +1,19 @@
 """The flags both training CLIs share (fast3dhpe_tpu/apps/train.py and
-train_cdr.py), and the call into a loop through run_with_retries."""
+train_cdr.py), and the call into a loop through run_with_retries.
+
+Under torchrun (`torchrun --nproc_per_node N -m
+fast3dhpe_tpu_torch.apps.train_cdr ...`) each process joins the process
+group (NCCL on cuda:LOCAL_RANK; gloo with --device cpu), trains on its
+shard through the mesh, and leaves the group on exit."""
 
 from __future__ import annotations
 
 import argparse
 
+import torch.distributed as dist
+
 from ..config import load_config
+from ..parallel import destroy_distributed, init_distributed, make_mesh
 from ..train.resilience import run_with_retries
 
 
@@ -56,15 +64,22 @@ def parse_and_run(run_fn, default_config: str, description: str,
                              "lines; the port runs no segments")
     args = parser.parse_args(argv)
 
-    config = load_config(args.config_path)
-    return run_with_retries(
-        run_fn, config, retries=args.retries, overwrite=args.overwrite,
-        weights_root=args.weights_root, seed=args.seed,
-        compute_dtype="bfloat16" if args.bf16 else "float32",
-        plot_dir=args.plot_dir, resume=args.resume,
-        log_every=args.log_every, trace_dir=args.trace_dir,
-        scan_epochs=False if args.per_batch else None,
-        segments=False if (args.no_segments or args.per_batch) else None,
-        checkpoint_every=args.checkpoint_every,
-        segment_epochs=args.segment_epochs,
-        async_checkpoint=args.async_checkpoint, device=args.device)
+    created = init_distributed(device=args.device)  # no-op without torchrun
+    try:
+        mesh = make_mesh() if dist.is_initialized() else None
+        config = load_config(args.config_path)
+        return run_with_retries(
+            run_fn, config, retries=args.retries, overwrite=args.overwrite,
+            weights_root=args.weights_root, seed=args.seed,
+            compute_dtype="bfloat16" if args.bf16 else "float32",
+            plot_dir=args.plot_dir, resume=args.resume,
+            log_every=args.log_every, trace_dir=args.trace_dir,
+            scan_epochs=False if args.per_batch else None,
+            segments=False if (args.no_segments or args.per_batch) else None,
+            checkpoint_every=args.checkpoint_every,
+            segment_epochs=args.segment_epochs,
+            async_checkpoint=args.async_checkpoint, device=args.device,
+            mesh=mesh)
+    finally:
+        if created:
+            destroy_distributed()

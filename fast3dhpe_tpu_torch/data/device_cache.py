@@ -7,8 +7,9 @@ gathered there by row index, and per step only the indices and the
 per-sample affines cross to the device. The cache holds raw (pre-warp)
 frames, so a cached batch is bit-identical to an uncached one.
 
-The JAX build's `mesh` argument (replication over a device mesh) waits
-for the port's multi-GPU slice and is not accepted.
+Under a data-parallel mesh (parallel/mesh.py) the cache lives on the
+rank's device: the JAX build replicates the frames over its mesh, and a
+PyTorch rank holds its own copy, on its own card.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..parallel.mesh import mesh_device
 
 
 class DeviceFrameCache:
@@ -48,7 +49,7 @@ class DeviceFrameCache:
     def build(cls, paths: Sequence[str], decode_batch, budget_bytes: int,
               chunk_frames: int = 64, allow_partial: bool = False,
               pair_stride: int = 1, pad_frames_to: int = 1,
-              device="cuda") -> Optional["DeviceFrameCache"]:
+              device="cuda", mesh=None) -> Optional["DeviceFrameCache"]:
         """Decode `paths` (duplicates collapse, order kept) and copy them to
         `device`.
 
@@ -66,12 +67,19 @@ class DeviceFrameCache:
           pad_frames_to: round the row count of a full cache up to this
             multiple with zero frames, within the budget.
           device: where the frames live; the GPU unless "cpu" is asked for.
+          mesh: a parallel.mesh.Mesh: the frames live on its device, in
+            place of `device`, whole: a partial cache's upload lanes are a
+            single-process schedule, so allow_partial must be False (the
+            JAX loaders pass allow_partial=mesh is None).
         Returns:
           The cache, or None: over budget without allow_partial, frames of
           mixed sizes, or nothing fits. None is the JAX API's answer, for
           which callers stream from the host; it is not a device fallback.
         """
-        dev = resolve_device(device)
+        if mesh is not None and allow_partial:
+            raise ValueError("a partial cache is single-process: pass "
+                             "allow_partial=False with a mesh")
+        dev = mesh_device(mesh, device)
         if not budget_bytes:
             return None
         unique: List[str] = list(dict.fromkeys(paths))

@@ -21,9 +21,18 @@ A background thread keeps up to two batches in flight, device work
 included; it uses the same CUDA stream as the consumer.
 
 A final partial batch is padded by repeating the last record and carries a
-(B,) 0/1 "row_valid" mask. `_shard_for_host` and `_num_lockstep_batches`
-keep their single-process meaning (the port runs on one GPU), and the
-JAX `mesh` argument is not accepted.
+(B,) 0/1 "row_valid" mask.
+
+Under a process group (parallel/distributed.py), as under the JAX
+package's multi-process runs, each rank keeps the records [rank::world]
+and makes BATCH_SIZE local rows a batch; every rank runs the same number
+of lockstep batches (from the largest shard), and rows past a rank's
+shard, or all of them where its shard is empty, are filler with
+row_valid 0. The device frame cache is then off: the ranks' shards hold
+different frames. The sharding follows the process group, as the JAX
+loaders' follows jax.process_count(); `mesh=` (parallel/mesh.py), the JAX
+API's argument, puts the batches on the mesh's device in place of `device`
+and keeps the device cache whole.
 """
 
 from __future__ import annotations
@@ -39,11 +48,13 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..geometry.affine import (affine_transform_points, fliplr_joints,
                                get_affine_transform)
 from ..ops.heatmap import render_gaussian_heatmaps
 from ..ops.warp import affine_warp, normalize_imagenet
+from ..parallel import distributed
+from ..parallel.mesh import mesh_device
+from ..utils.logging import setup_logger
 from . import native_jpeg
 from .device_cache import DeviceFrameCache
 from .device_pipeline import (preprocess_mono_batch,
@@ -216,13 +227,26 @@ def _train_scale_rot(rng: np.random.RandomState, sf: float, rf: float):
 
 
 def _shard_for_host(records):
-    """(local records, global count, filler record): one process holds
-    every record."""
+    """(local records, global count, filler record). Under several
+    processes the local records are this rank's shard. The filler backs
+    lockstep batches past the shard, also where the shard is empty (more
+    ranks than records): such a rank must keep stepping, or the others
+    wait in the collectives for ever. It is kept outside the records, so it
+    is never counted valid; its rows carry row_valid 0."""
+    pc = distributed.process_count()
+    if pc > 1:
+        local = distributed.shard_records_for_host(
+            records, distributed.process_index(), pc)
+        filler = local[0] if local else (records[0] if records else None)
+        return local, len(records), filler
     return records, len(records), records[0] if records else None
 
 
 def _num_lockstep_batches(global_n: int, batch_size: int) -> int:
-    return math.ceil(global_n / batch_size)
+    """The batches an epoch that every rank runs: those of the largest
+    shard."""
+    max_shard = math.ceil(global_n / max(distributed.process_count(), 1))
+    return math.ceil(max_shard / batch_size)
 
 
 def _row_mask(n_valid: int, batch_size: int) -> np.ndarray:
@@ -291,8 +315,9 @@ class _LoaderBase:
     lifecycle and the per-batch log."""
 
     def __init__(self, cfg, image_set, records, seed, decode_threads,
-                 device_cache_bytes, device):
-        self.device = resolve_device(device)
+                 device_cache_bytes, device, mesh):
+        self.device = mesh_device(mesh, device)
+        self.mesh = mesh
         self.cfg = cfg
         self.image_set = image_set
         self.train = image_set == cfg.DATASET.TRAIN_SET
@@ -341,16 +366,24 @@ class _LoaderBase:
 
     def _build_cache(self, paths, pair_stride):
         """DeviceFrameCache of `paths` on the loader's device, partial when
-        over budget; None (recorded) when there is no budget or the frames
-        have mixed sizes."""
+        over budget and there is no mesh; None (recorded) when there is no
+        budget, the frames have mixed sizes, or several processes hold
+        shards (logged)."""
         if self._device_cache is not None or self._device_cache_failed:
             return self._device_cache
         cache = None
-        if self._device_cache_budget:
+        if self._device_cache_budget and distributed.process_count() > 1:
+            setup_logger().info(
+                "%s: device frame cache off under %d processes: each rank "
+                "holds other frames, so the batches are made from the host",
+                self.image_set, distributed.process_count())
+        elif self._device_cache_budget:
+            # a partial cache's lanes are a single-process schedule, as in
+            # the JAX package (loader.py:400-405)
             cache = DeviceFrameCache.build(
                 paths, self._decode_paths, self._device_cache_budget,
-                allow_partial=True, pair_stride=pair_stride,
-                device=self.device)
+                allow_partial=self.mesh is None, pair_stride=pair_stride,
+                device=self.device, mesh=self.mesh)
         self._device_cache = cache
         self._device_cache_failed = cache is None
         return cache
@@ -396,16 +429,19 @@ class Stereo3DLoader(_LoaderBase):
         partial cache keeps the largest prefix of whole stereo pairs.
       return_masks: also yield the occlusion keep-masks.
       device: where batches are made; the GPU unless "cpu" is asked for.
+      mesh: a parallel.mesh.Mesh: batches on its device, in place of
+        `device` (the records' sharding follows the process group).
     """
 
     def __init__(self, cfg, image_set: str, seed: int = 0,
                  decode_threads: int = 4, cache_bytes: int = 0,
                  device_cache_bytes: int = 0, return_masks: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         super().__init__(cfg, image_set,
                          build_mads_stereo_index(cfg.DATASET.ROOT,
                                                  image_set),
-                         seed, decode_threads, device_cache_bytes, device)
+                         seed, decode_threads, device_cache_bytes, device,
+                         mesh)
         self.occlusion = cfg.DATASET.OCCLUSION
         self._cache_budget = cache_bytes
         self._cache_used = 0
@@ -592,7 +628,7 @@ class Mono2DLoader(_LoaderBase):
     def __init__(self, cfg, image_set: str, seed: int = 0,
                  decode_threads: int = 4,
                  device_preprocess: Optional[bool] = None,
-                 device_cache_bytes: int = 0, device="cuda"):
+                 device_cache_bytes: int = 0, device="cuda", mesh=None):
         dataset_type = cfg.DATASET.TYPE
         if dataset_type == "MPII":
             records = build_mpii_index(cfg.DATASET.ROOT, image_set,
@@ -604,7 +640,7 @@ class Mono2DLoader(_LoaderBase):
         else:
             raise NotImplementedError(dataset_type)
         super().__init__(cfg, image_set, records, seed, decode_threads,
-                         device_cache_bytes, device)
+                         device_cache_bytes, device, mesh)
         self.dataset_type = dataset_type
         self.device_preprocess = (True if device_preprocess is None
                                   else device_preprocess)
@@ -819,13 +855,13 @@ class Mono2DLoader(_LoaderBase):
         return _prefetch(cached_gen() if cache is not None else gen())
 
 
-def load_data(config, seed: int = 0, device="cuda"):
+def load_data(config, mesh=None, seed: int = 0, device="cuda"):
     """(train_loader, valid_loader) for DATASET.TYPE: MPII and MADS_2d give
     Mono2DLoader, MADS_3d Stereo3DLoader; the valid loader's seed is
-    seed + 1."""
+    seed + 1. mesh: as the loaders take it."""
     t = config.DATASET.TYPE
     kwargs = {"device_cache_bytes": config.DATASET.DEVICE_CACHE_BYTES,
-              "device": device}
+              "device": device, "mesh": mesh}
     if t in ("MPII", "MADS_2d"):
         cls = Mono2DLoader
     elif t == "MADS_3d":

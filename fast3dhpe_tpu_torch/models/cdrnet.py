@@ -113,9 +113,10 @@ class CDRNet(nn.Module):
                    fused_inference=fused_inference, dtype=dtype)
 
     def forward(self, imgs, projs, return_heatmaps: bool = False,
-                row_valid=None):
+                row_valid=None, valid_rows=None):
         """imgs (B, V, H, W, 3) normalised; projs (B, V, 3, 4); row_valid
-        optional (B,) 0/1, read by train-mode BN only.
+        optional (B,) 0/1, read by train-mode BN only; valid_rows the
+        global count of valid rows under a process group (bn_row_mask).
 
         Returns (pred_2d, pred_3d), plus the raw heatmaps (B, V, h, w, J)
         in the compute dtype with return_heatmaps=True.
@@ -123,7 +124,7 @@ class CDRNet(nn.Module):
         B, V, H, W, _ = imgs.shape
         if V != N_VIEWS:
             raise ValueError(f"expected {N_VIEWS} views, got {V}")
-        mask = bn_row_mask(row_valid)                  # (B,)
+        mask = bn_row_mask(row_valid, valid_rows)      # (B,)
         # the views are stacked b-major, so the mask repeats per view
         # (jnp.repeat(mask, V, axis=0)), not tiled
         mask_bv = None if mask is None else mask.repeat_interleave(V, dim=0)

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce
+
 
 class Conv2d(nn.Conv2d):
     """Conv2d with symmetric integer padding, computing in x.dtype."""
@@ -33,17 +35,23 @@ class Conv2d(nn.Conv2d):
         return y
 
 
-def bn_row_mask(row_valid):
+def bn_row_mask(row_valid, valid_rows=None):
     """(B,) 0/1 row validity -> the (B,) fp32 BN mask (layers.py:47-64).
 
-    Padded loader rows stay out of train-mode batch statistics. An
-    all-invalid mask falls back to the whole batch instead of empty-set NaN
-    statistics. No host sync: the fallback is a tensor op.
+    Padded loader rows stay out of train-mode batch statistics. A global
+    batch with no valid row falls back to the whole batch instead of
+    empty-set NaN statistics. No host sync: the fallback is a tensor op.
+
+    valid_rows: under a process group, the GLOBAL count of valid rows
+    (parallel/mesh.py row_counts), so that a rank whose rows are all
+    filler keeps them out while another rank has valid rows; None when the
+    local batch is the global one.
     """
     if row_valid is None:
         return None
     m = torch.as_tensor(row_valid) > 0
-    return (m | ~m.any()).float()
+    any_valid = m.any() if valid_rows is None else valid_rows > 0
+    return (m | ~any_valid).float()
 
 
 class _MaskedBatchNorm(torch.autograd.Function):
@@ -64,22 +72,36 @@ class _MaskedBatchNorm(torch.autograd.Function):
     The backward is the closed form of that expression, gradients through
     the batch statistics included. It saves the input and per-channel
     vectors only, as the native BN does.
+
+    With a process group the batch is the ranks' rows together, as under
+    the JAX package's mesh: the forward all-reduces one packed tensor of
+    the masked sums, sums of squares and count, and the backward one of
+    the two sums that carry the statistics' gradient into dx. dweight and
+    dbias stay the local rank's share, which the step's gradient
+    all-reduce sums. At world size 1 every reduction is an identity, so
+    the arithmetic is the one without a group, bit for bit.
     """
 
     @staticmethod
-    def forward(ctx, x, weight, bias, mask, eps):
+    def forward(ctx, x, weight, bias, mask, eps, group):
         B, C, H, W = x.shape
         dims = (0, 2, 3)
         xf = x.float()
         if mask is None:
             count = B * H * W
-            mean = xf.sum(dims) / count
-            mu2 = (xf * xf).sum(dims) / count
+            s1, s2 = xf.sum(dims), (xf * xf).sum(dims)
         else:
             xm = xf * mask.view(B, 1, 1, 1)
             count = mask.sum() * (H * W)
-            mean = xm.sum(dims) / count
-            mu2 = (xm * xf).sum(dims) / count
+            s1, s2 = xm.sum(dims), (xm * xf).sum(dims)
+        if group is not None:
+            if mask is None:
+                count = torch.tensor(float(count), device=x.device)
+            s1, s2, count = all_reduce(group, [s1, s2, count.reshape(1)],
+                                       "bn forward")
+            count = count.reshape(())
+        mean = s1 / count
+        mu2 = s2 / count
         var_raw = mu2 - mean * mean
         var = var_raw.clamp_min(0.0)
         r = torch.rsqrt(var + eps)
@@ -87,6 +109,7 @@ class _MaskedBatchNorm(torch.autograd.Function):
              + bias.view(1, C, 1, 1))
         ctx.save_for_backward(x, weight, mean, r, var_raw > 0, mask)
         ctx.count = count
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y.to(x.dtype), mean, var
 
@@ -103,6 +126,10 @@ class _MaskedBatchNorm(torch.autograd.Function):
         s = (dy * (xf - ch(mean))).sum(dims)
         dbias = dy.sum(dims)
         dweight = s * r
+        if ctx.group is not None:
+            # dx takes the whole batch's sums; dweight and dbias the rank's
+            dbias_local = dbias
+            s, dbias = all_reduce(ctx.group, [s, dbias], "bn backward")
         g = weight * r
         # through var = max(mu2 - mean^2, 0) into mean and mu2 = E[x^2]
         dvar = torch.where(var_pos, -0.5 * s * weight * r * r * r, 0.0)
@@ -115,7 +142,9 @@ class _MaskedBatchNorm(torch.autograd.Function):
             dx = direct + stat
         else:
             dx = direct.to(x.dtype) + stat.to(x.dtype)
-        return dx, dweight, dbias, None, None
+        if ctx.group is not None:
+            dbias = dbias_local
+        return dx, dweight, dbias, None, None, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -130,17 +159,26 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     `recomputing` is set while torch.utils.checkpoint recomputes a block
     in the backward (models/resnet.py remat): the recomputation then leaves
-    the running statistics alone, so a step updates them once.
+    the running statistics alone, so a step updates them once. It still
+    reduces over the process group, since every rank recomputes the same
+    blocks.
+
+    `process_group` (parallel/mesh.py replicate sets it) makes train mode
+    take the statistics of the ranks' rows together; the running
+    statistics then update from the global mean and biased variance, the
+    same on every rank.
     """
 
     recomputing = False
+    process_group = None
 
     def forward(self, x, mask=None):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         y, mean, var = _MaskedBatchNorm.apply(x, self.weight, self.bias,
-                                              mask, self.eps)
+                                              mask, self.eps,
+                                              self.process_group)
         if not self.recomputing:
             with torch.no_grad():
                 self.running_mean.mul_(1.0 - self.momentum).add_(

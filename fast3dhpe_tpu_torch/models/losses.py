@@ -55,24 +55,36 @@ def mpjpe_loss(pred, target, target_weight=None):
 
 
 def make_loss(loss_type: str, use_target_weight: bool, layout="BJHW"):
-    """fn(pred, target, target_weight, sample_mask=None) -> scalar.
+    """fn(pred, target, target_weight, sample_mask=None, rows=None) ->
+    scalar.
 
     sample_mask: optional (B,) 0/1 row validity. Masked rows contribute
     zero residual, and the mean is renormalised to the valid rows by
     B / max(sum(mask), 1).
+
+    rows: under a process group, the global batch's (valid rows, rows)
+    (parallel/mesh.py row_counts). The loss is then this rank's share of
+    the global loss, the mean over the global batch renormalised by
+    B_global / max(n_valid_global, 1) as JAX's losses.py computes it over
+    a sharded mask: the ranks' shares sum to the global loss, and so do
+    their gradients.
     """
     def wrap(fn):
-        def call(pred, target, target_weight=None, sample_mask=None):
+        def call(pred, target, target_weight=None, sample_mask=None,
+                 rows=None):
             tw = target_weight if use_target_weight else None
             if sample_mask is None:
-                return fn(pred, target, tw)
+                loss = fn(pred, target, tw)
+                return loss if rows is None else loss * (pred.shape[0]
+                                                         / rows[1])
             m = torch.as_tensor(sample_mask, device=pred.device).float()
             if tw is None:
                 tw_m = m[:, None]                       # (B, 1) broadcasts
             else:
                 tw_a = torch.as_tensor(tw, device=pred.device)
                 tw_m = tw_a * m.reshape((-1,) + (1,) * (tw_a.dim() - 1))
-            scale = m.shape[0] / m.sum().clamp_min(1.0)
+            n_valid = m.sum() if rows is None else rows[0]
+            scale = m.shape[0] / n_valid.clamp_min(1.0)
             return fn(pred, target, tw_m) * scale
         return call
 

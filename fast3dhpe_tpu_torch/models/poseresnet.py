@@ -32,10 +32,11 @@ class PoseResNet(nn.Module):
         return cls(num_joints=cfg.MODEL.NUM_JOINTS,
                    num_layers=cfg.MODEL.NUM_LAYERS, dtype=dtype)
 
-    def forward(self, x, row_valid=None):
+    def forward(self, x, row_valid=None, valid_rows=None):
         """x (B, H, W, 3) normalised -> heatmaps (B, h, w, J), a view of
-        the decoder's channels_last output."""
-        mask = bn_row_mask(row_valid)
+        the decoder's channels_last output. row_valid and valid_rows as
+        CDRNet's."""
+        mask = bn_row_mask(row_valid, valid_rows)
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
         h = self.decoder(self.encoder(x, mask), mask)

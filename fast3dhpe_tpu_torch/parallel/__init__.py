@@ -1,0 +1,20 @@
+"""Data parallelism over a process group, one GPU a process. Port of
+fast3dhpe_tpu/parallel (parallel/mesh.py says what each JAX name is
+here)."""
+
+from .distributed import (  # noqa: F401
+    destroy_distributed,
+    init_distributed,
+    process_count,
+    process_index,
+    shard_records_for_host,
+)
+from .mesh import (  # noqa: F401
+    Mesh,
+    barrier,
+    make_mesh,
+    replicate,
+    shard_batch,
+    shard_batch_spatial,
+    spatial_sharding,
+)

@@ -1,0 +1,187 @@
+"""The data-parallel mesh and the collectives of a global-batch step. Port
+of fast3dhpe_tpu/parallel/mesh.py.
+
+The JAX package runs one program over the global batch: XLA shards the
+batch over the mesh's "data" axis and inserts the reductions. PyTorch runs
+a process per GPU (parallel/distributed.py), so here the mesh is the
+process group, and each rank holds the local rows of the global batch.
+The port computes what the JAX program computes by reducing, by hand,
+exactly what the global program reduces:
+
+  - train-mode BN: the masked sums, sums of squares and count in the
+    forward, and the two sums of the backward (models/layers.py);
+  - the valid and total row counts of the step, which the BN fallback,
+    the loss normaliser and the metrics' denominators share;
+  - the gradient (SUM of the ranks' gradients of their shares of the
+    global loss), and the reported losses and metrics.
+
+Every reduction is one `all_reduce` of one packed tensor (per dtype), and
+the slice uses no collective beyond all_reduce, broadcast and barrier,
+which gloo also runs on CUDA tensors. The explicit reduction in one place
+(train/steps.py) takes the place of DistributedDataParallel: DDP would
+average rather than sum, wrap the model (and its state-dict keys) and
+broadcast the BN buffers, none of which the global-batch step wants.
+
+JAX names and what they are here:
+  make_mesh, replicate, shard_batch: below.
+  batch_sharding, replicated_sharding, local_mesh_devices: no PyTorch
+    counterpart. PyTorch has no sharding annotations: a rank's tensors are
+    its shard by construction, replication is `replicate`, and a process
+    drives one device (Mesh.device), not a list of them.
+  shard_stacked: not applicable. It feeds the JAX scan segments, which the
+    port does not run (ROADMAP A8); under a process group the loops take
+    the per-batch path.
+  spatial_sharding, shard_batch_spatial, make_mesh(model_parallel > 1):
+    spatial partitioning, ROADMAP A15; they raise.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from . import distributed
+
+#: collectives issued since a caller last cleared it, by kind ("bn
+#: forward", "bn backward", "rows", "gradients", "metrics", "broadcast",
+#: "barrier"), as the kernel wrappers count their launches
+COUNTS: Counter = Counter()
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A data-parallel group: one process, one device a rank."""
+    group: object
+    rank: int
+    size: int
+    device: torch.device
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              model_parallel: int = 1) -> Mesh:
+    """The mesh of the process group that init_distributed joined.
+
+    n_devices other than the world size raises: the JAX package puts N
+    devices in one process, PyTorch runs one process a device, so an
+    N-device mesh is N processes (torchrun --nproc_per_node N).
+    """
+    if model_parallel != 1:
+        raise NotImplementedError(
+            f"model_parallel={model_parallel}: spatial partitioning is "
+            f"ROADMAP A15, not yet ported")
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: start the ranks with torchrun "
+                           "and call init_distributed() first")
+    device = distributed.rank_device()
+    if device is None:
+        raise RuntimeError("the process group was not made by "
+                           "init_distributed, so this rank's device is "
+                           "unknown")
+    size = dist.get_world_size()
+    if n_devices is not None and n_devices != size:
+        raise ValueError(
+            f"n_devices={n_devices}, but the process group has {size} "
+            f"ranks: PyTorch runs one process a device, so a mesh of N "
+            f"devices is N processes (torchrun --nproc_per_node N)")
+    return Mesh(dist.group.WORLD, dist.get_rank(), size, device)
+
+
+def mesh_device(mesh: Optional[Mesh], device) -> torch.device:
+    """The device a loop or loader runs on: the mesh's under a mesh (which
+    init_distributed chose; `device` is then not read), else `device`."""
+    if mesh is not None:
+        return mesh.device
+    from ..device import resolve_device
+    return resolve_device(device)
+
+
+def _pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unpack(flat: torch.Tensor, like: Sequence[torch.Tensor]
+            ) -> List[torch.Tensor]:
+    out, o = [], 0
+    for t in like:
+        out.append(flat[o:o + t.numel()].view(t.shape))
+        o += t.numel()
+    return out
+
+
+def all_reduce(group, tensors: Sequence[torch.Tensor], kind: str
+               ) -> List[torch.Tensor]:
+    """The SUM over the ranks of each tensor, packed into one all_reduce:
+    new tensors of the same shapes (one dtype; the inputs are untouched)."""
+    flat = _pack(tensors)
+    COUNTS[kind] += 1
+    dist.all_reduce(flat, group=group)
+    return _unpack(flat, tensors)
+
+
+def broadcast_(group, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
+    """Rank src's values into every rank's tensors, one broadcast a dtype."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = _pack(ts)
+        COUNTS["broadcast"] += 1
+        dist.broadcast(flat, src=src, group=group)
+        for t, s in zip(ts, _unpack(flat, ts)):
+            t.copy_(s)
+
+
+def barrier(mesh: Optional[Mesh]) -> None:
+    """Wait for every rank (nothing without a mesh)."""
+    if mesh is not None:
+        COUNTS["barrier"] += 1
+        dist.barrier(group=mesh.group)
+
+
+def replicate(mesh: Mesh, model: nn.Module) -> nn.Module:
+    """Rank 0's parameters and buffers on every rank, and the process group
+    on every BatchNorm2d of the port (as SyncBatchNorm.convert_sync_batchnorm
+    sets it), so that train-mode BN takes global batch statistics. The
+    model must already lie on mesh.device. Returns the model."""
+    from ..models.layers import BatchNorm2d
+    with torch.no_grad():
+        broadcast_(mesh.group, list(model.parameters())
+                   + list(model.buffers()))
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.process_group = mesh.group
+    return model
+
+
+def shard_batch(mesh: Mesh, batch) -> Dict[str, torch.Tensor]:
+    """This rank's local rows of the global batch, on its device (the JAX
+    package's multi-process meaning: each host supplies its own rows)."""
+    return {k: torch.as_tensor(v).to(mesh.device) for k, v in batch.items()}
+
+
+def row_counts(mesh: Optional[Mesh], row_valid, n_rows: int, device):
+    """(valid rows, rows) of the global batch as 0-d fp32 tensors, one
+    all_reduce; None without a mesh (the local batch is the global one)."""
+    if mesh is None:
+        return None
+    valid = (torch.as_tensor(row_valid, device=device).float().sum()
+             if row_valid is not None
+             else torch.tensor(float(n_rows), device=device))
+    counts = torch.stack([valid, torch.tensor(float(n_rows), device=device)])
+    valid, total = all_reduce(mesh.group, [counts], "rows")[0]
+    return valid, total
+
+
+def spatial_sharding(mesh, ndim: int):
+    raise NotImplementedError("spatial_sharding: spatial partitioning is "
+                              "ROADMAP A15, not yet ported")
+
+
+def shard_batch_spatial(mesh, batch):
+    raise NotImplementedError("shard_batch_spatial: spatial partitioning "
+                              "is ROADMAP A15, not yet ported")

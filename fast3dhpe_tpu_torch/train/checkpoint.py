@@ -27,6 +27,8 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 
+from ..parallel.distributed import process_index
+
 OPT_FILE = "latest.opt.pt"
 
 
@@ -252,7 +254,27 @@ class SyncCheckpointWriter:
         pass
 
 
+class NullCheckpointWriter:
+    """The writer of every rank but 0 under a process group: rank 0 owns
+    the checkpoint directory, so saves here do nothing. Without the gate N
+    writers would race on the same files. The state is the same on every
+    rank (parallel/mesh.py replicate and the global-batch step), so what
+    rank 0 writes is what any rank would."""
+
+    def save(self, path: str, obj) -> None:
+        pass
+
+    def wait(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def make_checkpoint_writer(async_: bool):
-    """The loops' writer. One process writes: the multi-GPU gate waits for
-    the port's parallel slice."""
+    """The loops' writer, gated on the process: rank 0 writes, every other
+    rank gets a NullCheckpointWriter. Assumes the usual checkpoint
+    directory that every host shares."""
+    if process_index() != 0:
+        return NullCheckpointWriter()
     return AsyncCheckpointWriter() if async_ else SyncCheckpointWriter()

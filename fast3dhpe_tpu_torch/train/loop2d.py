@@ -18,6 +18,16 @@ calls; the card has no relay, so the port runs no segments and accepts
 PyTorch updates weights in place where XLA's buffers are immutable, so the
 best state is a clone of the model's state dict at the improving epoch,
 and the checkpoint writers copy what they are given before they return.
+
+Data parallelism (`mesh=`, parallel/mesh.py; the training CLIs under
+torchrun): each rank loads its shard of the records, the model is
+`replicate`d once it is built or restored, and every step is the global
+batch's (train/steps.py), so the history and the best decisions are the
+same on every rank. Epochs then run batch by batch: the stacked epoch
+functions are single-process, as the JAX package's scan segments are
+fed from one host. Only rank 0 deletes or creates the model directory and
+writes checkpoints (checkpoint.NullCheckpointWriter elsewhere); the
+directory is assumed shared by every host.
 """
 
 from __future__ import annotations
@@ -30,11 +40,12 @@ from typing import Dict, Optional
 import torch
 
 from ..data.loader import load_data
-from ..device import resolve_device
 from ..models.layers import init_weights
 from ..models.losses import make_loss
 from ..models.metrics import pck_from_counts
 from ..models.poseresnet import PoseResNet
+from ..parallel.distributed import process_index
+from ..parallel.mesh import barrier, mesh_device, replicate
 from ..utils.interrupt import interruptible
 from ..utils.logging import setup_logger
 from ..utils.profiling import StepTracer, ThroughputMeter
@@ -50,7 +61,14 @@ def _prepare_model_dir(model_path: str, overwrite: bool, logger,
                        check_only: bool = False) -> None:
     """check_only=True checks the overwrite flag without deleting: the
     loops call it before load_data and delete only after the data loaded,
-    so a wrong dataset path never costs an existing checkpoint."""
+    so a wrong dataset path never costs an existing checkpoint.
+
+    Every rank checks, so all of them raise together; the deleting call
+    does nothing on ranks other than 0 (as in the JAX package): the ranks
+    share the directory, and another rank would find the one rank 0 has
+    just made, or race its rmtree and makedirs."""
+    if not check_only and process_index() != 0:
+        return
     if os.path.exists(model_path):
         if not overwrite:
             raise FileExistsError(
@@ -67,14 +85,11 @@ def _prepare_model_dir(model_path: str, overwrite: bool, logger,
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _check_port_options(logger, mesh, compute_dtype, segments,
+def _check_port_options(logger, compute_dtype, segments,
                         segment_epochs) -> torch.dtype:
-    """Refuse what the port has not got yet; log once what has no effect
-    in it. Returns the compute dtype: "float32" or "bfloat16" (parameters,
+    """Refuse an unknown compute dtype; log once what has no effect in the
+    port. Returns the compute dtype: "float32" or "bfloat16" (parameters,
     Adam's state and the BN statistics stay fp32)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-GPU training (mesh=) is A14, the last slice of the port")
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype={compute_dtype!r}: expected one of "
                          f"{sorted(COMPUTE_DTYPES)}")
@@ -89,10 +104,12 @@ def _check_port_options(logger, mesh, compute_dtype, segments,
 def _restore_state(model_path, state: TrainState, logger):
     """Resume from <model_path>/latest.pth + latest.opt.pt into `state`;
     returns (start_step, best_metric or None). No latest.pth: a fresh
-    start."""
+    start. Under a process group every rank reads the files (nothing in
+    the run writes them before) and rank 0 alone makes a missing dir."""
     loaded = load_resume(model_path)
     if loaded is None:
-        os.makedirs(model_path, exist_ok=True)
+        if process_index() == 0:
+            os.makedirs(model_path, exist_ok=True)
         logger.info("No checkpoint to resume; starting fresh")
         return 0, None
     weights, payload = loaded
@@ -194,18 +211,23 @@ def run(config, mesh=None, overwrite: bool = False,
         many epochs.
       compute_dtype: "float32" or "bfloat16" (bf16 compute, fp32
         parameters, Adam state and BN statistics);
-      mesh: not ported yet (raises; A14);
+      mesh: a parallel.mesh.Mesh: data-parallel training on its device,
+        which takes the place of `device` (see the module's docstring);
       segments, segment_epochs: no effect (see the module's docstring).
     """
     logger = setup_logger()
-    dtype = _check_port_options(logger, mesh, compute_dtype, segments,
+    dtype = _check_port_options(logger, compute_dtype, segments,
                                 segment_epochs)
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     model_path = os.path.join(weights_root, config.MODEL.NAME)
     if not resume:
         _prepare_model_dir(model_path, overwrite, logger, check_only=True)
+    # every rank has checked before rank 0 deletes or makes the dir: the
+    # one write of a run that another rank could race
+    barrier(mesh)
 
-    train_loader, valid_loader = load_data(config, seed=seed, device=dev)
+    train_loader, valid_loader = load_data(config, mesh=mesh, seed=seed,
+                                           device=dev)
     try:
         logger.info("Train samples: %d, valid samples: %d",
                     train_loader.num_samples, valid_loader.num_samples)
@@ -215,7 +237,7 @@ def run(config, mesh=None, overwrite: bool = False,
                       logger, max_epochs, max_steps_per_epoch, seed,
                       plot_dir, resume, log_every, trace_dir, scan_epochs,
                       checkpoint_every, async_checkpoint,
-                      early_stop_patience, dtype)
+                      early_stop_patience, dtype, mesh)
     finally:
         train_loader.close()
         valid_loader.close()
@@ -224,7 +246,7 @@ def run(config, mesh=None, overwrite: bool = False,
 def _train(config, train_loader, valid_loader, model_path, dev, logger,
            max_epochs, max_steps_per_epoch, seed, plot_dir, resume,
            log_every, trace_dir, scan_epochs, checkpoint_every,
-           async_checkpoint, early_stop_patience, dtype) -> Dict:
+           async_checkpoint, early_stop_patience, dtype, mesh) -> Dict:
     model = _init_model(config, seed)
     model.dtype = dtype         # the compute dtype; parameters stay fp32
     _load_pretrained(model, config, logger)
@@ -239,17 +261,21 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
         start_epoch = start_step // max(steps_per_epoch, 1)
         if best is not None:
             best_acc = best
+    if mesh is not None:
+        replicate(mesh, model)
 
     loss_fn = make_loss(config.LOSS.TYPE, config.LOSS.USE_TARGET_WEIGHT,
                         layout="NHWC")
-    train_step = make_train_step_2d(loss_fn)
-    eval_step = make_eval_step_2d(loss_fn)
+    # the steps' single-process call is the one without the keyword
+    mesh_kw = {} if mesh is None else {"mesh": mesh}
+    train_step = make_train_step_2d(loss_fn, **mesh_kw)
+    eval_step = make_eval_step_2d(loss_fn, **mesh_kw)
 
     scan_allowed = (scan_epochs is not False and log_every is None
-                    and trace_dir is None)
+                    and trace_dir is None and mesh is None)
     if scan_epochs and not scan_allowed:
-        logger.info("scan_epochs=True ignored: log_every/trace_dir need "
-                    "the per-batch loop")
+        logger.info("scan_epochs=True ignored: log_every, trace_dir and "
+                    "mesh need the per-batch loop")
     train_epoch_fn = eval_epoch_fn = None
     if scan_allowed and (scan_epochs or config.DATASET.DEVICE_CACHE_BYTES):
         args = (loss_fn, config.MODEL.IMAGE_SIZE,

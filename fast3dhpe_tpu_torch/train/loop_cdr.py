@@ -11,7 +11,8 @@ epoch (and once a --log_every window); the best metric is kept beside
 
 The epoch runs as loop2d describes: stacked epochs through
 make_train_epoch_cdr / make_eval_epoch_cdr when the device cache holds
-the dataset, else the loader's batches; no segments. Occlusion is keyed
+the dataset, else the loader's batches; no segments. Under a mesh it is
+data-parallel as loop2d describes. Occlusion is keyed
 by the loader's epoch counter, which starts at 0 in every new loader, so a
 resumed run replays epoch 0's draws, as the JAX epoch path does.
 """
@@ -25,10 +26,10 @@ from typing import Dict, Optional
 import torch
 
 from ..data.loader import load_data
-from ..device import resolve_device
 from ..models.cdrnet import CDRNet
 from ..models.layers import init_weights
 from ..models.losses import make_loss
+from ..parallel.mesh import barrier, mesh_device, replicate
 from ..utils.interrupt import interruptible
 from ..utils.logging import setup_logger
 from ..utils.profiling import StepTracer, ThroughputMeter
@@ -68,14 +69,16 @@ def run(config, mesh=None, overwrite: bool = False,
     post-warmup epochs without a better val MPJPE3D, and the LR schedule
     still follows TRAIN.EPOCH."""
     logger = setup_logger()
-    dtype = _check_port_options(logger, mesh, compute_dtype, segments,
+    dtype = _check_port_options(logger, compute_dtype, segments,
                                 segment_epochs)
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     model_path = os.path.join(weights_root, config.MODEL.NAME)
     if not resume:
         _prepare_model_dir(model_path, overwrite, logger, check_only=True)
+    barrier(mesh)   # as in loop2d.run
 
-    train_loader, valid_loader = load_data(config, seed=seed, device=dev)
+    train_loader, valid_loader = load_data(config, mesh=mesh, seed=seed,
+                                           device=dev)
     try:
         logger.info("Train samples: %d, valid samples: %d",
                     train_loader.num_samples, valid_loader.num_samples)
@@ -85,7 +88,7 @@ def run(config, mesh=None, overwrite: bool = False,
                       logger, max_epochs, max_steps_per_epoch, seed,
                       plot_dir, resume, log_every, trace_dir, scan_epochs,
                       checkpoint_every, async_checkpoint,
-                      early_stop_patience, dtype)
+                      early_stop_patience, dtype, mesh)
     finally:
         train_loader.close()
         valid_loader.close()
@@ -94,7 +97,7 @@ def run(config, mesh=None, overwrite: bool = False,
 def _train(config, train_loader, valid_loader, model_path, dev, logger,
            max_epochs, max_steps_per_epoch, seed, plot_dir, resume,
            log_every, trace_dir, scan_epochs, checkpoint_every,
-           async_checkpoint, early_stop_patience, dtype) -> Dict:
+           async_checkpoint, early_stop_patience, dtype, mesh) -> Dict:
     model = _init_model(config, seed)
     model.dtype = dtype         # the compute dtype; parameters stay fp32
     _load_pretrained(model, config, logger)
@@ -109,18 +112,21 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
         start_epoch = start_step // max(steps_per_epoch, 1)
         if best is not None and best > 0:
             best_err = best
+    if mesh is not None:
+        replicate(mesh, model)
 
     loss_fn = make_loss(config.LOSS.TYPE, config.LOSS.USE_TARGET_WEIGHT)
     kw = dict(loss_3d_weight=config.TRAIN.LOSS_3D_WEIGHT, scale_3d=SCALE_3D,
               base_joint=BASE_JOINT, num_joints=config.MODEL.NUM_JOINTS)
-    train_step = make_train_step_cdr(loss_fn, **kw)
-    eval_step = make_eval_step_cdr(loss_fn, **kw)
+    mesh_kw = {} if mesh is None else {"mesh": mesh}
+    train_step = make_train_step_cdr(loss_fn, **kw, **mesh_kw)
+    eval_step = make_eval_step_cdr(loss_fn, **kw, **mesh_kw)
 
     scan_allowed = (scan_epochs is not False and log_every is None
-                    and trace_dir is None)
+                    and trace_dir is None and mesh is None)
     if scan_epochs and not scan_allowed:
-        logger.info("scan_epochs=True ignored: log_every/trace_dir need "
-                    "the per-batch loop")
+        logger.info("scan_epochs=True ignored: log_every, trace_dir and "
+                    "mesh need the per-batch loop")
     train_epoch_fn = eval_epoch_fn = None
     if scan_allowed and (scan_epochs or config.DATASET.DEVICE_CACHE_BYTES):
         image_size = tuple(config.MODEL.IMAGE_SIZE)

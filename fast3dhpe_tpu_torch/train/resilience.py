@@ -31,6 +31,8 @@ from typing import Callable
 
 import torch
 
+from ..parallel.distributed import process_count
+
 _RETRYABLE_CUDA = ("busy or unavailable",)
 _RETRYABLE_ERRNO = (errno.EIO, errno.ESTALE, errno.ETIMEDOUT)
 
@@ -57,8 +59,20 @@ def run_with_retries(run_fn: Callable, config, retries: int = 0,
     makes one round trip to the device (a failure there propagates).
     `resume` and `overwrite` of the first attempt come from kwargs.
     _sleep and _probe replace time.sleep and the round trip in tests.
-    Returns the history of the attempt that completed."""
+    Returns the history of the attempt that completed.
+
+    Retries are off under several processes: a rank that resumed on its
+    own would issue new collectives while the others still wait in the
+    failed step's, and hang or corrupt the run. There all ranks restart
+    together from the shared checkpoint (the job's restart policy and
+    --resume)."""
     log = logger or logging.getLogger("fast3dhpe_tpu_torch")
+    if retries and process_count() > 1:
+        log.warning("--retries disabled under multi-process execution "
+                    "(%d processes): in-process resume cannot rejoin the "
+                    "collective gang; rely on whole-job restart with "
+                    "--resume", process_count())
+        retries = 0
     sleep = _sleep or time.sleep
     probe = _probe or (lambda: _device_round_trip(
         kwargs.get("device", "cuda")))

@@ -10,6 +10,20 @@ Padded final batches carry `batch["row_valid"]`, a (B,) 0/1 mask. The
 steps keep padded rows out of the loss (renormalised to the valid rows),
 out of every metric, and out of the train-mode BN batch statistics.
 
+Data parallelism (`mesh=`, parallel/mesh.py): each rank steps on its local
+rows of the global batch, with a model that `replicate` gave the process
+group. A step then computes what the JAX package's global-batch step
+computes under a mesh: one all_reduce of the row counts first (the BN
+fallback, the loss normaliser and the metrics' denominators), the BN
+statistics of the global batch, the loss as this rank's share of the
+global loss, the gradients summed over the ranks (one packed all_reduce,
+before the clip, so grad_norm and Adam's moves are the global ones on every
+rank) and the reported losses and metrics of the global batch. This
+explicit reduction takes the place of DistributedDataParallel, which would
+average the ranks' gradients of their local losses (parallel/mesh.py says
+why that is not the JAX step). Without a mesh the arithmetic is the
+single-process one, operation for operation.
+
 An epoch function runs S batches from a device frame cache
 (data/device_cache.py): each batch is preprocessed on the device
 (data/device_pipeline.py), then stepped. It is a Python loop where the
@@ -27,6 +41,7 @@ import torch
 from ..data.device_pipeline import (preprocess_mono_batch_cached,
                                     preprocess_stereo_batch_cached)
 from ..models.metrics import pck_counts, pck_from_counts, per_sample_mpjpe
+from ..parallel.mesh import all_reduce, row_counts
 from .state import TrainState, clip_grads_by_norm, global_grad_norm
 
 
@@ -44,8 +59,25 @@ def _masked_count(mask, batch_size, device):
     return mask.float().sum()
 
 
+def _sync_grads(mesh, state: TrainState) -> None:
+    """The gradients summed over the ranks (nothing without a mesh)."""
+    if mesh is not None:
+        grads = state.grads()
+        for g, total in zip(grads, all_reduce(mesh.group, grads,
+                                              "gradients")):
+            g.copy_(total)
+
+
+def _global(mesh, values):
+    """The sums over the ranks of detached device scalars or vectors, one
+    all_reduce (the values themselves without a mesh)."""
+    if mesh is None:
+        return values
+    return all_reduce(mesh.group, [v.detach() for v in values], "metrics")
+
+
 def _cdr_loss(model, loss_fn, batch, use_3d: bool, loss_3d_weight,
-              scale_3d, base_joint, num_joints, train: bool):
+              scale_3d, base_joint, num_joints, train: bool, rows=None):
     """The CDR loss: 2D only during warmup, 2D + loss_3d_weight * 3D after
     (steps.py:162-220).
 
@@ -53,12 +85,15 @@ def _cdr_loss(model, loss_fn, batch, use_3d: bool, loss_3d_weight,
     every OTHER joint; the base joint keeps its absolute coordinates. Eval
     skips the alignment, as the reference's eval loop does. The 3D term
     joins the loss under a Python `if`, so during warmup it adds nothing to
-    the graph's gradient; loss_3d is still computed and reported.
+    the graph's gradient; loss_3d is still computed and reported. rows:
+    the global row counts under a mesh; the losses are then this rank's
+    shares.
     """
     mask = batch.get("row_valid")
     if train:
         pred_2d, pred_3d = model(batch["image"], batch["proj"],
-                                 row_valid=mask)
+                                 row_valid=mask,
+                                 valid_rows=None if rows is None else rows[0])
     else:
         pred_2d, pred_3d = model(batch["image"], batch["proj"])
     target_3d = batch["target_3d"]
@@ -75,12 +110,14 @@ def _cdr_loss(model, loss_fn, batch, use_3d: bool, loss_3d_weight,
         pred_3d_rel, target_3d_rel = pred_3d, target_3d
 
     t2d = batch["target_2d"]
-    loss_2d = (loss_fn(pred_2d[:, 0], t2d[:, 0], w, sample_mask=mask)
-               + loss_fn(pred_2d[:, 1], t2d[:, 1], w, sample_mask=mask))
+    loss_2d = (loss_fn(pred_2d[:, 0], t2d[:, 0], w, sample_mask=mask,
+                       rows=rows)
+               + loss_fn(pred_2d[:, 1], t2d[:, 1], w, sample_mask=mask,
+                         rows=rows))
     # +-1e6 mm bounds a degenerate triangulation (steps.py:206-213)
     pred_3d_loss = pred_3d_rel.clamp(-1e6, 1e6)
     loss_3d = loss_fn(pred_3d_loss * scale_3d, target_3d_rel * scale_3d, w,
-                      sample_mask=mask)
+                      sample_mask=mask, rows=rows)
     loss = loss_2d + loss_3d_weight * loss_3d if use_3d else loss_2d
     return loss, {"pred_2d": pred_2d, "pred_3d": pred_3d,
                   "loss_2d": loss_2d, "loss_3d": loss_3d}
@@ -89,7 +126,7 @@ def _cdr_loss(model, loss_fn, batch, use_3d: bool, loss_3d_weight,
 def make_train_step_cdr(loss_fn, loss_3d_weight: float = 4.0,
                         scale_3d: float = 0.1, base_joint: int = 1,
                         num_joints: int = 19,
-                        clip_norm: float = 100.0) -> Callable:
+                        clip_norm: float = 100.0, mesh=None) -> Callable:
     """CDR train step: train_step(state, batch, use_3d) -> metrics.
 
     batch: {"image": (B, V, H, W, 3) normalised, "proj": (B, V, 3, 4),
@@ -97,41 +134,53 @@ def make_train_step_cdr(loss_fn, loss_3d_weight: float = 4.0,
             "target_weight": (B, J), optional "row_valid": (B,)}
     use_3d: a Python bool, False during the warmup epochs. The gradients
     are clipped to clip_norm only when it is set. metrics: loss, loss_2d,
-    loss_3d and grad_norm (before clipping), detached device scalars.
+    loss_3d and grad_norm (before clipping), detached device scalars, of
+    the global batch under a mesh.
     """
 
     def train_step(state: TrainState, batch, use_3d: bool):
         model = state.model
         model.train()
-        batch = _on_device(batch, _device_of(model))
+        dev = _device_of(model)
+        batch = _on_device(batch, dev)
+        rows = row_counts(mesh, batch.get("row_valid"),
+                          batch["image"].shape[0], dev)
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = _cdr_loss(model, loss_fn, batch, use_3d, loss_3d_weight,
-                              scale_3d, base_joint, num_joints, train=True)
+                              scale_3d, base_joint, num_joints, train=True,
+                              rows=rows)
         loss.backward()
+        _sync_grads(mesh, state)
         grad_norm = clip_grads_by_norm(state.grads(), clip_norm, use_3d)
         state.apply_gradients()
-        return {"loss": loss.detach(), "loss_2d": aux["loss_2d"].detach(),
-                "loss_3d": aux["loss_3d"].detach(), "grad_norm": grad_norm}
+        loss, loss_2d, loss_3d = _global(
+            mesh, [loss.detach(), aux["loss_2d"].detach(),
+                   aux["loss_3d"].detach()])
+        return {"loss": loss, "loss_2d": loss_2d, "loss_3d": loss_3d,
+                "grad_norm": grad_norm}
 
     return train_step
 
 
 def make_eval_step_cdr(loss_fn, loss_3d_weight: float = 4.0,
                        scale_3d: float = 0.1, base_joint: int = 1,
-                       num_joints: int = 19) -> Callable:
+                       num_joints: int = 19, mesh=None) -> Callable:
     """CDR eval step in eval mode: eval_step(state, batch, use_3d) ->
     batch-mean loss / mpjpe_2d / mpjpe_3d, and the masked per-sample sums
     loss_sum / e2_sum / e3_sum / n that accumulate into per-frame epoch
-    metrics."""
+    metrics; those of the global batch under a mesh."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, use_3d: bool):
         model = state.model
         model.eval()
-        batch = _on_device(batch, _device_of(model))
+        dev = _device_of(model)
+        batch = _on_device(batch, dev)
         mask = batch.get("row_valid")
+        rows = row_counts(mesh, mask, batch["image"].shape[0], dev)
         loss, aux = _cdr_loss(model, loss_fn, batch, use_3d, loss_3d_weight,
-                              scale_3d, base_joint, num_joints, train=False)
+                              scale_3d, base_joint, num_joints, train=False,
+                              rows=rows)
         t2d = batch["target_2d"]
         e2_s, e3_s = per_sample_mpjpe(aux["pred_2d"], aux["pred_3d"],
                                       batch["target_3d"], t2d[:, 0],
@@ -139,8 +188,12 @@ def make_eval_step_cdr(loss_fn, loss_3d_weight: float = 4.0,
         if mask is not None:
             m = mask.float()
             e2_s, e3_s = e2_s * m, e3_s * m
-        n = _masked_count(mask, e2_s.shape[0], e2_s.device)
         e2_sum, e3_sum = e2_s.sum(), e3_s.sum()
+        if mesh is None:
+            n = _masked_count(mask, e2_s.shape[0], e2_s.device)
+        else:
+            n = rows[0]
+            loss, e2_sum, e3_sum = _global(mesh, [loss, e2_sum, e3_sum])
         denom = n.clamp_min(1.0)
         return {"loss": loss, "mpjpe_2d": e2_sum / denom,
                 "mpjpe_3d": e3_sum / denom, "loss_sum": loss * n,
@@ -149,9 +202,9 @@ def make_eval_step_cdr(loss_fn, loss_3d_weight: float = 4.0,
     return eval_step
 
 
-def make_train_step_2d(loss_fn) -> Callable:
+def make_train_step_2d(loss_fn, mesh=None) -> Callable:
     """PoseResNet train step (steps.py:48-77): train_step(state, batch) ->
-    loss, acc (PCK) and grad_norm.
+    loss, acc (PCK) and grad_norm, of the global batch under a mesh.
 
     batch: {"image": (B, H, W, 3), "target": (B, h, w, J),
             "target_weight": (B, J), optional "row_valid": (B,)}
@@ -160,39 +213,49 @@ def make_train_step_2d(loss_fn) -> Callable:
     def train_step(state: TrainState, batch):
         model = state.model
         model.train()
-        batch = _on_device(batch, _device_of(model))
+        dev = _device_of(model)
+        batch = _on_device(batch, dev)
         mask = batch.get("row_valid")
+        rows = row_counts(mesh, mask, batch["image"].shape[0], dev)
         state.optimizer.zero_grad(set_to_none=True)
-        out = model(batch["image"], row_valid=mask)
+        out = model(batch["image"], row_valid=mask,
+                    valid_rows=None if rows is None else rows[0])
         loss = loss_fn(out, batch["target"], batch["target_weight"],
-                       sample_mask=mask)
+                       sample_mask=mask, rows=rows)
         loss.backward()
+        _sync_grads(mesh, state)
         grad_norm = global_grad_norm(state.grads())
         state.apply_gradients()
         hits, cnt, _ = pck_counts(out.detach(), batch["target"],
                                   row_mask=mask)
+        loss, hits, cnt = _global(mesh, [loss.detach(), hits, cnt])
         acc, _ = pck_from_counts(hits, cnt)
-        return {"loss": loss.detach(), "acc": acc, "grad_norm": grad_norm}
+        return {"loss": loss, "acc": acc, "grad_norm": grad_norm}
 
     return train_step
 
 
-def make_eval_step_2d(loss_fn) -> Callable:
+def make_eval_step_2d(loss_fn, mesh=None) -> Callable:
     """PoseResNet eval step (steps.py:80-100): batch-mean loss and acc, and
-    the accumulatable loss_sum / hits / cnt / n."""
+    the accumulatable loss_sum / hits / cnt / n; those of the global batch
+    under a mesh."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
         model = state.model
         model.eval()
-        batch = _on_device(batch, _device_of(model))
+        dev = _device_of(model)
+        batch = _on_device(batch, dev)
         mask = batch.get("row_valid")
+        rows = row_counts(mesh, mask, batch["image"].shape[0], dev)
         out = model(batch["image"])
         loss = loss_fn(out, batch["target"], batch["target_weight"],
-                       sample_mask=mask)
+                       sample_mask=mask, rows=rows)
         hits, cnt, _ = pck_counts(out, batch["target"], row_mask=mask)
+        loss, hits, cnt = _global(mesh, [loss, hits, cnt])
         acc, _ = pck_from_counts(hits, cnt)
-        n = _masked_count(mask, out.shape[0], out.device)
+        n = (_masked_count(mask, out.shape[0], out.device) if mesh is None
+             else rows[0])
         return {"loss": loss, "acc": acc, "loss_sum": loss * n,
                 "hits": hits, "cnt": cnt, "n": n}
 

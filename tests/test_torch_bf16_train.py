@@ -265,9 +265,10 @@ def tree(tmp_path_factory):
 
 
 @pytest.mark.parametrize("dataset", ["MADS_3d", "MADS_2d"])
-def test_bf16_loop_epochs(tree, tmp_path, dataset):
+def test_bf16_loop_epochs(tree, tmp_path, monkeypatch, dataset):
     """Two epochs of each loop in bf16 (the CDR loop's second with the 3D
-    loss): finite history, fp32 weights in latest.pth."""
+    loss): finite history, fp32 weights in latest.pth; the same history,
+    bit for bit, through a mesh of one rank."""
     from fast3dhpe_tpu_torch.config import load_config
     from fast3dhpe_tpu_torch.train import loop2d, loop_cdr
     cfg = load_config(_config(tmp_path / "c.yaml", tree / "data", dataset,
@@ -283,8 +284,24 @@ def test_bf16_loop_epochs(tree, tmp_path, dataset):
     with pytest.raises(ValueError, match="compute_dtype"):
         run(cfg, overwrite=True, weights_root=weights,
             compute_dtype="float16", device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        run(cfg, mesh=object(), device="cpu")
+    # mesh= runs since slice 7 (tests/test_torch_distributed.py): through
+    # a gloo group of one rank, whose mesh device (the CPU) takes the place
+    # of the default `device`, the bf16 history is the one above bit for
+    # bit but the throughput
+    from fast3dhpe_tpu_torch.parallel import distributed, make_mesh
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    try:
+        assert distributed.init_distributed(
+            device="cpu", init_method="file://" + str(tmp_path / "store"))
+        meshed = run(cfg, mesh=make_mesh(), overwrite=True,
+                     weights_root=str(tmp_path / "w_mesh"),
+                     compute_dtype="bfloat16")
+    finally:
+        distributed.destroy_distributed()
+    for k in hist:
+        if not k.endswith("_per_sec"):
+            assert meshed[k] == hist[k], k
 
 
 def test_train_cdr_cli_bf16(tree, tmp_path):

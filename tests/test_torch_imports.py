@@ -36,7 +36,8 @@ def test_importing_the_port_loads_no_jax():
                  "apps.train", "apps.train_cdr", "apps.inference",
                  "apps.baseline", "apps.display_data_2d",
                  "apps.display_data_3d", "ops.quant", "models.quantized",
-                 "export", "apps.export"):
+                 "export", "apps.export", "parallel", "parallel.mesh",
+                 "parallel.distributed"):
         assert f"fast3dhpe_tpu_torch.{name}" in mods, name
     # -I: no PYTHONPATH and no user site, so nothing but the port is loaded
     code = (
