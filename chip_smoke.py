@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels   # steps 1, 2 and the kernel timings
     python3 chip_smoke.py --slice6    # steps 1-3, 5, 8a and 11
     python3 chip_smoke.py --slice7    # steps 1-3 and 12
+    python3 chip_smoke.py --slice8    # steps 1-3 and 13
 
 1. Prints the card's name and power limit, builds the kernels
    (csrc/softargmax.cu and csrc/fused_bottleneck.cu, one nvcc each, in
@@ -14,7 +15,10 @@
    and K2 also at batch 1 pair, on a ragged plane, with one chunk's logits
    120 above the rest, and (K1) at J = 2, and shows that their wrappers
    refuse strided or misaligned logits; K3 also at batch 1 pair, at
-   layer1.1 and on a plane that is not a multiple of its tile.
+   layer1.1 and on a plane that is not a multiple of its tile. K1 and K2
+   also at a 1-pair heatmap's rows under M = 2 and M = 4 ((2, 32, 64, 19),
+   (2, 16, 64, 19)), K3 on every haloed tile phase 13 gives it (layer1.0
+   at 33, 17 and 18 rows, layer2.x at 17, 9 and 10).
 3. Serving path: three requests of four uint8 stereo pairs through
    `CDRNetInferencer.predict_batch` at the width of configs/mads_3d.yaml
    (CDRNet-101, 256 px, 19 joints), bf16 with fused_inference=True, from
@@ -179,7 +183,30 @@
       root empty.
       Beside them, two NCCL ranks on the one card, a probe of the
       machine whose failure is printed and is no failure of the phase.
-13. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
+13. Slice 8, spatial partitioning: CDRNet-101 at 256 px (phase 3's
+    weights) split over the image height by gloo ranks sharing cuda:0
+    (`--s8-child`), against one unsplit forward in this process:
+   a. M = 2 (world 2): fp32 (TF32 off) and bf16 fused_inference at 1 and
+      4 pairs; the int8 forward at 2 pairs from a pack that this process
+      calibrates (8 batches of 16 seeded pairs, as phase 11) and saves
+      with save_pack; make_eval_step_cdr on 4 pairs (one padded). Model
+      ranks' pred_2d and pred_3d bit-equal; fp32 keypoints within
+      S8_FP32_KP_PX, heatmap rows within S8_FP32_HM of max|heatmap| and
+      pred_3d within phase 11's export rule (s8_check); bf16 within
+      S8_BF16_*; int8's encoder codes bit-equal, cf_out's codes bit-equal
+      to the unsplit CanonicalFusion on each rank's rows and within one
+      code of the unsplit forward's, the split decoder on the unsplit
+      cf_out codes bit-equal, keypoints and heatmaps within phase 11's
+      card-vs-CPU bounds; the eval metrics those of the unsplit step.
+      Every K1 input and K3 tile of the phase is one that step 2 checks
+      (s8_shapes_checked). Each forward: 38 halo exchanges and one
+      keypoint combine, K1 once a rank, K3 once a block that the global
+      gate fuses (on a haloed tile); the unsplit forwards none.
+   b. M = 4 (world 4): fp32 and bf16 at 1 pair, with interior ranks.
+   Each rank's forward at 1 pair timed (wall ms), and in a run of its
+   own every all_reduce timed between synchronisations (the halos' ms a
+   forward), beside the unsplit forward's wall ms.
+14. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
 
 It needs one CUDA device. Without one, or when any phase fails, it exits
 non-zero and prints no result.
@@ -327,7 +354,15 @@ def stereo_request(rng, pairs, size=256):
 SOFTARGMAX_SHAPES = (("2 images", (2, 64, 64, 19)),
                      ("8 images", (2 * PAIRS, 64, 64, 19)),
                      ("64 images", (2 * TIMING_PAIRS, 64, 64, 19)),
-                     ("ragged", (2, 36, 44, 17)))
+                     ("ragged", (2, 36, 44, 17)),
+                     # phase 13's heatmaps split over M = 2 and M = 4,
+                     # K1 on a model rank's rows: 1 pair at M = 2 and 4,
+                     # 4 pairs (bf16, fp32 and the eval step) and 2
+                     # (int8) at M = 2 (run_slice8 checks the list)
+                     ("rows of M=2", (2, 32, 64, 19)),
+                     ("rows of M=2, 4 pairs", (8, 32, 64, 19)),
+                     ("rows of M=2, 2 pairs", (4, 32, 64, 19)),
+                     ("rows of M=4", (2, 16, 64, 19)))
 # row 0, columns 0-31 of the logits (in K1's first chunk of an image) lie
 # 120 above the rest, so that e^{m_c - M} of every other chunk, and of the
 # first chunk's other runs, underflows to 0 in fp32 where K1 combines them
@@ -543,14 +578,20 @@ BLOCK_SHAPES = {  # name -> (Cin, P, downsample, H) on the main path at 256 px
 # that is not a multiple of the 8x16 tile in either direction
 LAYER11 = (256, 64, False, 64)
 RAGGED = (64, 64, True, (36, 44))
+# phase 13's haloed tiles: a model rank's rows and one row of each
+# neighbour's (one at the global edge), at M = 2 and M = 4, checked at 1 and
+# 4 pairs (S8_PAIRS: the bf16 forwards that fuse)
+HALOED = {"layer1.0": (64, 64, True, ((33, 64), (17, 64), (18, 64))),
+          "layer2.x": (512, 128, False, ((17, 32), (9, 32), (10, 32)))}
 
 
 def check_bottleneck(dev, gen):
     """K3 against its plain version (same rounding points) at the two block
     shapes that fuse at 256 px, at 2, 8 and 64 images; at layer1.1; on a
-    ragged plane, through the entry the model serves and the timing runs
-    (weights packed once). Also holds ops/bottleneck.py's shared-memory
-    formula against the kernel's own."""
+    ragged plane; on phase 13's haloed tiles (HALOED) at 2 and 8 images,
+    through the entry the model serves and the timing runs (weights packed
+    once). Also holds ops/bottleneck.py's shared-memory formula against
+    the kernel's own."""
     from fast3dhpe_tpu_torch.ops._build import load_library
     from fast3dhpe_tpu_torch.ops.bottleneck import (bottleneck_plain,
                                                     fused_bottleneck_packed,
@@ -574,6 +615,9 @@ def check_bottleneck(dev, gen):
     cases = [(name, n, shape) for name, shape in BLOCK_SHAPES.items()
              for n in (2, 2 * PAIRS, 2 * TIMING_PAIRS)]
     cases += [("layer1.1", 2 * PAIRS, LAYER11), ("ragged 36x44", 2, RAGGED)]
+    cases += [(f"{name} haloed {h}x{w}", 2 * pairs, (cin, planes, ds, (h, w)))
+              for name, (cin, planes, ds, hws) in HALOED.items()
+              for h, w in hws for pairs in S8_PAIRS]
     err = 0.0
     for name, n, (cin, planes, ds, hw) in cases:
         x, args = bottleneck_case(gen, dev, n, cin, planes, ds, hw)
@@ -3764,6 +3808,585 @@ def run_slice7(cfg, dev, smi):
     return out
 
 
+# ------------------------------------------------------------- slice 8
+
+S8_PAIRS = (1, 4)                 # the checked fp32 and bf16 forwards
+S8_INT8_PAIRS = 2
+S8_INT8_M = 2                     # the int8 forward and eval step: M = 2
+S8_EVAL_PAIRS = 4                 # the eval step's batch
+S8_CALIB_PAIRS = 16               # the pack: S6_CALIB batches of 16 pairs
+S8_HALOS = 38                     # a CDRNet-101 forward's halo exchanges:
+#                                   the stem, the max-pool, 33 3x3 convs
+#                                   (one a block, fused or not), 3 deconvs
+S8_FP32_KP_PX, S8_FP32_HM = 1e-3, 1e-4   # px; of max|heatmap|
+# bf16: the split runs cuDNN and K3 on planes of other heights, whose
+# rounding moves a heatmap as a frame's row in its batch does: PR 6
+# measured 8.9e-3 of max|heatmap| and 0.048 px for that (ROADMAP C);
+# the bounds take a little over twice the heatmaps' and ten times the
+# keypoints'
+S8_BF16_HM, S8_BF16_KP_PX = 2e-2, 0.5
+S8_EVAL_RTOL, S8_EVAL_3D_RTOL = 1e-4, 1e-2
+S8_TIMED = 10                     # timed forwards at 1 pair, each way
+S8_HALO_TIMED = 3                 # forwards with every all_reduce timed
+S8_CHILD_TIMEOUT = 300            # s: a gloo rank's whole run
+
+
+def s8_model(spec, dev, kind):
+    """The phase's CDRNet of `kind` ("fp32", "bf16": fused_inference) on
+    `dev`, eval mode, from the saved weights."""
+    from fast3dhpe_tpu_torch.models.cdrnet import CDRNet
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    model = CDRNet(num_joints=spec["joints"], num_layers=spec["layers"],
+                   fused_inference=kind == "bf16", dtype=dtype)
+    model.load_state_dict(torch.load(spec["weights"], weights_only=True),
+                          strict=True)
+    return model.to(dev).eval()
+
+
+def s8_forward(model, imgs, projs):
+    """One counted forward: (pred_2d, pred_3d, heatmaps) on the CPU, the
+    kernels' launches and the collectives by kind."""
+    from fast3dhpe_tpu_torch.parallel.mesh import COUNTS
+    COUNTS.clear()
+    counters = reset_counts()
+    with torch.inference_mode():
+        kp, p3, hm = model(imgs, projs, return_heatmaps=True)
+    launches = read_counts(counters)
+    return {"kp": kp.cpu(), "p3": p3.cpu(), "hm": hm.float().cpu(),
+            "launches": launches, "counts": dict(COUNTS)}
+
+
+def s8_int8_forward(model, imgs, projs):
+    """The int8 forward with the encoder's last codes (and their scale)
+    and cf_out's recorded."""
+    from fast3dhpe_tpu_torch.ops import quant as Q
+    codes, scales, orig = [], [], Q.requant
+
+    def recorded(y, s):
+        out = orig(y, s)
+        codes.append(out)
+        scales.append(s)
+        return out
+
+    Q.requant = recorded
+    try:
+        out = s8_forward(model, imgs, projs)
+    finally:
+        Q.requant = orig
+    cf = len(codes) - 4               # cf_out, then the three deconvs
+    out.update(n_codes=len(codes), enc_last=codes[cf - 1].cpu(),
+               enc_scale=scales[cf - 1].cpu(), cf_out=codes[cf].cpu())
+    return out
+
+
+def s8_cf_rows(model8, enc_last, scale, projs, m):
+    """The unsplit int8 executor's CanonicalFusion and cf_out requant
+    (cdrnet_int8_apply's steps, no mesh) on each model rank's rows of the
+    encoder's last codes: the plane height a rank of M = m runs the trunk
+    at. CanonicalFusion is per pixel, so these are a split rank's cf_out
+    codes if its encoder codes are the unsplit rows."""
+    from fast3dhpe_tpu_torch.geometry.triangulation import pinv_projection
+    from fast3dhpe_tpu_torch.models import quantized as qz
+    ctx = qz._Int8Ctx(model8.rt)
+    projs = projs.float()
+    h = enc_last.shape[1] // m
+    rows = []
+    with torch.inference_mode():
+        for j in range(m):
+            z = ctx.dequant((enc_last[:, j * h:(j + 1) * h].contiguous(),
+                             scale))
+            fused = qz._cf_apply(model8.rt.cf, z.permute(0, 3, 1, 2), projs,
+                                 pinv_projection(projs))
+            rows.append(ctx.requantize_external(
+                "cf_out", fused.permute(0, 2, 3, 1))[0].cpu())
+    return rows
+
+
+def s8_eval(model, batch, dev, mesh=None):
+    """make_eval_step_cdr on the batch (this rank's rows of it on a
+    spatial mesh): its metrics, launches and collectives."""
+    from fast3dhpe_tpu_torch.models.losses import make_loss
+    from fast3dhpe_tpu_torch.parallel.mesh import COUNTS
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    from fast3dhpe_tpu_torch.train.steps import make_eval_step_cdr
+    step = make_eval_step_cdr(make_loss("JointsMSESmooth", True), mesh=mesh)
+    COUNTS.clear()
+    counters = reset_counts()
+    m = step(TrainState(model, None), batch, True)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "launches": read_counts(counters), "counts": dict(COUNTS)}
+
+
+def s8_wall_ms(fn, iters=S8_TIMED):
+    """Median wall ms of fn() between synchronisations, after two warm
+    calls."""
+    for _ in range(2):
+        fn()
+    sync()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def s8_child(rank, world, port, work):
+    """One gloo rank of phase 13 on the card beside the others: the mesh
+    of `world` model ranks (M = world, D = 1), the fp32, bf16 fused and
+    int8 forwards and the eval step on this rank's rows, then, once the
+    parent is idle, the bf16 and fp32 forwards timed, and the halo
+    all_reduces timed in a run of their own."""
+    import os
+    import torch.distributed as dist
+    from fast3dhpe_tpu_torch.models import quantized as qz
+    from fast3dhpe_tpu_torch.parallel import (destroy_distributed,
+                                              init_distributed, make_mesh,
+                                              replicate, shard_batch_spatial)
+    from fast3dhpe_tpu_torch.parallel.mesh import COUNTS
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(os.path.join(work, "spec.json")) as f:
+        spec = json.load(f)
+    os.environ.update(rank_env(rank, world, port))
+    require(init_distributed(backend="gloo", device=spec["device"]),
+            "init_distributed made no group")
+    out = {}
+    try:
+        mesh = make_mesh(model_parallel=world)
+        dev = mesh.device
+        inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+        models = {kind: replicate(mesh, s8_model(spec, dev, kind))
+                  for kind in spec["kinds"]}
+        for kind, model in models.items():
+            for pairs in spec["pairs"][kind]:
+                b = shard_batch_spatial(mesh, {"image": inp["imgs"][:pairs],
+                                               "proj": inp["projs"][:pairs]})
+                out[f"{kind} {pairs}"] = s8_forward(model, b["image"],
+                                                    b["proj"])
+        if spec["int8"]:
+            model8 = replicate(mesh, qz.cdrnet_int8(
+                qz.load_pack(spec["pack"]), device=dev))
+            b = shard_batch_spatial(mesh, {
+                "image": inp["imgs"][:S8_INT8_PAIRS],
+                "proj": inp["projs"][:S8_INT8_PAIRS]})
+            out["int8"] = s8_int8_forward(model8, b["image"], b["proj"])
+            out["eval"] = s8_eval(models["fp32"], shard_batch_spatial(
+                mesh, inp["eval"]), dev, mesh)
+        deadline = time.perf_counter() + S8_CHILD_TIMEOUT
+        while (not os.path.exists(os.path.join(work, "go"))
+               and time.perf_counter() < deadline):
+            time.sleep(0.05)
+        require(os.path.exists(os.path.join(work, "go")),
+                f"rank {rank}: the parent wrote no `go` in "
+                f"{S8_CHILD_TIMEOUT} s, so its forwards would share the card")
+        dist.barrier()
+        if spec["int8"]:
+            # the split int8 decoder on the unsplit forward's cf_out codes
+            # (which the parent wrote before `go`): this rank's rows
+            codes = torch.load(os.path.join(work, "cf_out.pt"))
+            h = codes.shape[1] // world
+            with torch.inference_mode():
+                hm = qz._decoder_walk(qz._Int8Ctx(model8.rt, mesh), (
+                    codes[:, mesh.model_rank * h:(mesh.model_rank + 1) * h]
+                    .to(dev),
+                    model8.rt.scale("cf_out")))
+            out["int8"]["decoder_on_unsplit_codes"] = hm.cpu()
+            del model8
+        b = shard_batch_spatial(mesh, {"image": inp["imgs"][:1],
+                                       "proj": inp["projs"][:1]})
+        times = {}
+        for kind, model in models.items():
+            with torch.inference_mode():
+                times[f"{kind} wall_ms"] = s8_wall_ms(
+                    lambda: model(b["image"], b["proj"]))
+        calls, orig = [], dist.all_reduce
+
+        def timed(tensor, *args, **kw):
+            sync()
+            t = time.perf_counter()
+            r = orig(tensor, *args, **kw)
+            sync()
+            calls.append((tensor.numel() * tensor.element_size(),
+                          (time.perf_counter() - t) * 1e3))
+            return r
+
+        dist.all_reduce = timed
+        try:
+            for kind, model in models.items():
+                per = []
+                for _ in range(S8_HALO_TIMED):
+                    calls.clear()
+                    COUNTS.clear()
+                    t = time.perf_counter()
+                    with torch.inference_mode():
+                        model(b["image"], b["proj"])
+                    sync()
+                    per.append({"wall_ms": (time.perf_counter() - t) * 1e3,
+                                "halo_ms": sum(ms for _, ms in calls[:-1]),
+                                "keypoints_ms": calls[-1][1],
+                                "calls": len(calls),
+                                "bytes": [n for n, _ in calls]})
+                require(all(p["calls"] == spec["halos"] + 1 for p in per),
+                        f"{kind}: timed forwards made "
+                        f"{[p['calls'] for p in per]} all_reduces")
+                times[f"{kind} timed"] = per
+        finally:
+            dist.all_reduce = orig
+        out["times"] = times
+    finally:
+        destroy_distributed()
+    torch.save(out, os.path.join(work, f"out_{world}_{rank}.pt"))
+
+
+def s8_references(spec, inp, dev):
+    """The unsplit forwards, int8 forward and eval step in this process,
+    their collectives (none: no mesh) and launches."""
+    from fast3dhpe_tpu_torch.models import quantized as qz
+    ref = {}
+    models = {kind: s8_model(spec, dev, kind) for kind in ("fp32", "bf16")}
+    for kind, model in models.items():
+        for pairs in S8_PAIRS:
+            ref[f"{kind} {pairs}"] = s8_forward(
+                model, inp["imgs"][:pairs].to(dev),
+                inp["projs"][:pairs].to(dev))
+    model8 = qz.cdrnet_int8(qz.load_pack(spec["pack"]), device=dev)
+    projs8 = inp["projs"][:S8_INT8_PAIRS].to(dev)
+    ref["int8"] = s8_int8_forward(model8, inp["imgs"][:S8_INT8_PAIRS].to(dev),
+                                  projs8)
+    ref["int8"]["cf_out_rows"] = s8_cf_rows(
+        model8, ref["int8"]["enc_last"].to(dev),
+        ref["int8"]["enc_scale"].to(dev),
+        projs8, S8_INT8_M)
+    ref["eval"] = s8_eval(models["fp32"], on_device(inp["eval"], dev), dev)
+    return ref, models
+
+
+def s8_finish(procs, timeout, what):
+    done = _finish(procs, timeout)
+    for r, (code, log) in enumerate(done):
+        for line in log.splitlines():
+            if line.startswith("#"):
+                print(f"# {what} rank {r}: {line[1:].strip()}")
+        require(code == 0, f"{what}: rank {r} exited {code}:\n{log[-3000:]}")
+
+
+def s8_dlt_noise(kp, projs, dev):
+    """The DLT's own change under pred_2d x (1 +- 1e-7), on the card, and
+    the scene's scale (the larger of the points' extent and
+    RIG_DISTANCE_MM): phase 11's measure of how far rounding in pred_2d
+    moves an untrained net's pred_3d (finish_export)."""
+    from fast3dhpe_tpu_torch.geometry.triangulation import dlt_triangulate
+    b, v, j, _ = kp.shape
+    with torch.inference_mode():
+        proj_j = projs.to(dev).float()[:, None].expand(b, j, v, 3, 4)
+        kp_t = kp.to(dev).transpose(1, 2)
+        dlt, up, down = (dlt_triangulate(proj_j, kp_t * f).cpu()
+                         for f in (1.0, 1.0 + 1e-7, 1.0 - 1e-7))
+    scale = max(float(dlt.abs().max()), RIG_DISTANCE_MM)
+    return max(float((d - dlt).abs().max()) for d in (up, down)) / scale, scale
+
+
+def s8_check(outs, ref, m, what, kinds, projs, dev):
+    """The model ranks against each other (bit-equal keypoints and 3D
+    points) and against the unsplit forward: fp32 keypoints within
+    S8_FP32_KP_PX, heatmap rows within S8_FP32_HM of max|heatmap| and
+    pred_3d within phase 11's rule (EXPORT_ATOL of the scene's scale, or
+    CPU_NOISE_X times the DLT's own change under pred_2d x (1 +- 1e-7) if
+    that is larger); bf16 within S8_BF16_*, its pred_3d reported only (the
+    DLT of an untrained net's keypoints turns bf16's S8_BF16_KP_PX-sized
+    moves into a large relative change); S8_HALOS halos and one keypoint
+    exchange a forward; K1 once a forward a rank, K3 once a fused block a
+    forward."""
+    errs = {}
+    for key in kinds:
+        got, want = [o[key] for o in outs], ref[key]
+        for j, g in enumerate(got[1:], start=1):
+            require(torch.equal(g["kp"], got[0]["kp"])
+                    and torch.equal(g["p3"], got[0]["p3"]),
+                    f"{what} {key}: model rank {j}'s pred_2d / pred_3d "
+                    f"differ from rank 0's")
+        h = want["hm"].shape[2] // m
+        scale = float(want["hm"].abs().max())
+        hm_err = max(float((g["hm"] - want["hm"][:, :, j * h:(j + 1) * h])
+                           .abs().max()) for j, g in enumerate(got))
+        hm_err /= scale
+        kp_err = float((got[0]["kp"] - want["kp"]).abs().max())
+        p3_rel = float(((got[0]["p3"] - want["p3"]).norm(dim=-1)
+                        / want["p3"].norm(dim=-1)).max())
+        noise, scale3 = s8_dlt_noise(want["kp"], projs[:want["kp"].shape[0]],
+                                     dev)
+        p3_err = float((got[0]["p3"] - want["p3"]).abs().max()) / scale3
+        fp32 = key.startswith("fp32")
+        hm_tol, kp_tol = ((S8_FP32_HM, S8_FP32_KP_PX) if fp32
+                          else (S8_BF16_HM, S8_BF16_KP_PX))
+        p3_tol = max(EXPORT_ATOL, CPU_NOISE_X * noise) if fp32 else None
+        print(f"# slice 8 {what} {key}: heatmaps {hm_err:.3g} of max "
+              f"(bound {hm_tol}), pred_2d {kp_err:.3g} px (bound {kp_tol}), "
+              f"pred_3d {p3_err:.3g} of the scene's scale (bound {p3_tol}; "
+              f"the DLT's own change under pred_2d x (1 +- 1e-7) "
+              f"{noise:.3g}), {p3_rel:.3g} relative a point; launches "
+              f"{[g['launches'] for g in got]}; exchanges "
+              f"{got[0]['counts']}")
+        require(hm_err <= hm_tol and kp_err <= kp_tol
+                and (p3_tol is None or p3_err <= p3_tol),
+                f"{what} {key}: heatmaps {hm_err} of max, pred_2d {kp_err} "
+                f"px, pred_3d {p3_err} of the scene's scale (bound {p3_tol})"
+                f" against the unsplit forward")
+        for j, g in enumerate(got):
+            require(g["counts"] == {"halo": S8_HALOS, "keypoints": 1},
+                    f"{what} {key} rank {j}: exchanges {g['counts']}, "
+                    f"predicted {S8_HALOS} halos and 1 keypoint combine")
+            require_counts(g["launches"], 1, 1, 0,
+                           want["launches"]["fused_bottleneck"],
+                           f"{what} {key} rank {j}")
+        errs[key] = {"hm": hm_err, "kp_px": kp_err, "p3_rel": p3_rel,
+                     "p3_of_scale": p3_err, "dlt_noise": noise}
+    return errs
+
+
+def s8_check_int8(outs, ref, m):
+    """Int8 split over M = 2 against the unsplit int8 forward on the same
+    pack: the encoder's last codes bit-equal row by row (exact int32
+    arithmetic, halo rows delivered bit for bit); each rank's cf_out codes
+    bit-equal to the unsplit executor's CanonicalFusion run on that rank's
+    rows of the encoder's codes (s8_cf_rows: the same plane height, no
+    mesh), and within one code of the unsplit forward's (the bf16 trunk
+    run at the whole height); the split decoder on the unsplit cf_out codes
+    bit-equal to the unsplit heatmaps (the transposed convolutions'
+    halos); pred_2d bit-equal across the model ranks; heatmaps and pred_2d
+    within phase 11's card-vs-CPU bounds (run_int8)."""
+    want = ref["int8"]
+    h = want["enc_last"].shape[1] // m
+    enc_equal = all(torch.equal(o["int8"]["enc_last"],
+                                want["enc_last"][:, j * h:(j + 1) * h])
+                    for j, o in enumerate(outs))
+    cf_rows_equal = all(torch.equal(o["int8"]["cf_out"],
+                                    want["cf_out_rows"][j])
+                        for j, o in enumerate(outs))
+    hc = want["cf_out"].shape[1] // m
+    diffs = [(o["int8"]["cf_out"].int()
+              - want["cf_out"][:, j * hc:(j + 1) * hc].int()).abs()
+             for j, o in enumerate(outs)]
+    flips = sum(int(d.gt(0).sum()) for d in diffs)
+    max_flip = max(int(d.max()) for d in diffs)
+    hh = want["hm"].shape[2] // m
+    dec_equal = all(torch.equal(
+        o["int8"]["decoder_on_unsplit_codes"].reshape(
+            want["hm"][:, :, :hh].shape),
+        want["hm"][:, :, j * hh:(j + 1) * hh]) for j, o in enumerate(outs))
+    hm_err = max(float((o["int8"]["hm"] - want["hm"][:, :, j * hh:(j + 1)
+                                                      * hh]).abs().max())
+                 for j, o in enumerate(outs)) / float(want["hm"].abs().max())
+    kp_err = float((outs[0]["int8"]["kp"] - want["kp"]).abs().max())
+    same = all(torch.equal(o["int8"]["kp"], outs[0]["int8"]["kp"])
+               for o in outs)
+    print(f"# slice 8 int8 at M={m}, {S8_INT8_PAIRS} pairs: encoder's last "
+          f"codes bit-equal {enc_equal}; cf_out bit-equal to the unsplit "
+          f"CanonicalFusion on the ranks' rows {cf_rows_equal}; against the "
+          f"unsplit forward's cf_out {flips} of {want['cf_out'].numel()} "
+          f"codes differ, by at most {max_flip}; the split decoder on the "
+          f"unsplit cf_out codes bit-equal {dec_equal}; heatmaps "
+          f"{hm_err:.3g} of max, pred_2d {kp_err:.3g} px; model ranks equal "
+          f"{same}; launches {[o['int8']['launches'] for o in outs]}; "
+          f"exchanges {outs[0]['int8']['counts']}")
+    require(enc_equal and cf_rows_equal and dec_equal and same,
+            "int8 split: the encoder's codes, cf_out against the unsplit "
+            "CanonicalFusion on the same rows, the decoder on the same "
+            "codes or the model ranks' pred_2d differ")
+    require(max_flip <= 1, f"int8 split: cf_out codes differ from the "
+                           f"unsplit forward's by up to {max_flip}")
+    require(hm_err < HM_MAX_TOL and kp_err < 2.0,
+            f"int8 split: heatmaps {hm_err}, pred_2d {kp_err} px")
+    for j, o in enumerate(outs):
+        require(o["int8"]["counts"] == {"halo": S8_HALOS, "keypoints": 1},
+                f"int8 rank {j}: exchanges {o['int8']['counts']}")
+        require_counts(o["int8"]["launches"], 1, 1, 0, 0, f"int8 rank {j}")
+    return {"encoder_codes_equal": enc_equal,
+            "cf_out_equal_on_rows": cf_rows_equal,
+            "decoder_on_same_codes_equal": dec_equal, "cf_out_flips": flips,
+            "cf_out_max_flip": max_flip,
+            "cf_out_codes": want["cf_out"].numel(), "hm": hm_err,
+            "kp_px": kp_err}
+
+
+def s8_check_eval(outs, ref):
+    """The split eval step's metrics against the unsplit step's: n exact,
+    the loss and MPJPE2D within S8_EVAL_RTOL, MPJPE3D within
+    S8_EVAL_3D_RTOL; the same on every rank."""
+    want = ref["eval"]["metrics"]
+    got = outs[0]["eval"]["metrics"]
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+           for k in want}
+    print(f"# slice 8 eval step: split {got}, unsplit {want}; exchanges "
+          f"{outs[0]['eval']['counts']}")
+    require(all(o["eval"]["metrics"] == got for o in outs),
+            "eval step: the ranks' metrics differ")
+    require(got["n"] == want["n"]
+            and all(rel[k] <= S8_EVAL_RTOL for k in ("loss", "mpjpe_2d",
+                                                      "e2_sum"))
+            and all(rel[k] <= S8_EVAL_3D_RTOL for k in ("mpjpe_3d",
+                                                         "e3_sum")),
+            f"eval step: split against unsplit, relative {rel}")
+    for j, o in enumerate(outs):
+        require(o["eval"]["counts"] == {"rows": 1, "halo": S8_HALOS,
+                                        "keypoints": 1, "metrics": 1},
+                f"eval rank {j}: exchanges {o['eval']['counts']}")
+    return rel
+
+
+def s8_times(outs, one, m):
+    """Each rank's wall ms at 1 pair beside the unsplit forward's, and the
+    halo all_reduces' ms of a forward (from the timed run)."""
+    t = {}
+    for kind in one:
+        per_rank = []
+        for o in outs:
+            runs = o["times"][f"{kind} timed"]
+            per_rank.append({
+                "wall_ms": o["times"][f"{kind} wall_ms"],
+                "timed_wall_ms": statistics.median(r["wall_ms"]
+                                                   for r in runs),
+                "halo_ms": statistics.median(r["halo_ms"] for r in runs),
+                "keypoints_ms": statistics.median(r["keypoints_ms"]
+                                                  for r in runs),
+                "halo_bytes": sum(runs[0]["bytes"][:-1])})
+        t[kind] = {"unsplit_wall_ms": one[kind], "ranks": per_rank}
+        print(f"# slice 8 M={m} {kind} at 1 pair: unsplit "
+              f"{one[kind]:.1f} ms; ranks' wall "
+              + ", ".join(f"{p['wall_ms']:.1f}" for p in per_rank)
+              + " ms; in the timed run wall "
+              + ", ".join(f"{p['timed_wall_ms']:.1f}" for p in per_rank)
+              + f" ms, of which the {S8_HALOS} halo all_reduces "
+              + ", ".join(f"{p['halo_ms']:.1f}" for p in per_rank)
+              + f" ms ({per_rank[0]['halo_bytes']} bytes a rank's buffer "
+              f"over a forward) and the keypoint combine "
+              + ", ".join(f"{p['keypoints_ms']:.2f}" for p in per_rank)
+              + " ms")
+    return t
+
+
+def s8_shapes_checked(size, joints):
+    """Every K1 input and K3 tile that phase 13 gives the kernels is one
+    that step 2 holds against its plain version: K1 at SOFTARGMAX_SHAPES,
+    K3 at HALOED for every pair count in S8_PAIRS."""
+    k1 = {shape for _, shape in SOFTARGMAX_SHAPES}
+    hm = size // 4
+    for m, pairs in ((S8_INT8_M, S8_PAIRS + (S8_INT8_PAIRS, S8_EVAL_PAIRS)),
+                     (4, (1,))):
+        for p in pairs:
+            shape = (2 * p, hm // m, hm, joints)
+            require(shape in k1, f"phase 13 gives K1 {shape}, which step 2 "
+                                 f"does not check")
+        for name, rows in (("layer1.0", size // 4), ("layer2.x", size // 8)):
+            # a rank's rows and one row of each neighbour's
+            tiles = {(rows // m + 1, rows)} | ({(rows // m + 2, rows)}
+                                               if m > 2 else set())
+            require(tiles <= set(HALOED[name][3]),
+                    f"phase 13 gives K3 {name} tiles {tiles} at M={m}, "
+                    f"which step 2 does not check")
+
+
+def run_slice8(inf, cfg, dev, smi):
+    """Phase 13: CDRNet-101 at 256 px split over the image height, by
+    gloo ranks sharing the card (a: M = 2; b: M = 4) against one unsplit
+    process."""
+    import os
+    import tempfile
+    from fast3dhpe_tpu_torch.models import quantized as qz
+    t0 = time.perf_counter()
+    size = cfg.MODEL.IMAGE_SIZE[1]
+    s8_shapes_checked(size, cfg.MODEL.NUM_JOINTS)
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        sd = {k: v.detach().float().cpu()
+              for k, v in inf.model.state_dict().items()}
+        weights = os.path.join(work, "weights.pt")
+        torch.save(sd, weights)
+        rng = np.random.RandomState(SEED + 13)
+        img_l, img_r, proj = stereo_request(rng, max(S8_PAIRS), size)
+        eval_batch = train_batch(rng, S8_EVAL_PAIRS, 1, size)
+        inp = {"imgs": normalized(img_l, img_r, "cpu"),
+               "projs": torch.as_tensor(proj), "eval": {
+                   k: torch.as_tensor(v) for k, v in eval_batch.items()}}
+        torch.save(inp, os.path.join(work, "inputs.pt"))
+        t = time.perf_counter()
+        calib = []
+        crng = np.random.RandomState(SEED + 11)
+        for _ in range(S6_CALIB):
+            cl, cr, cp = stereo_request(crng, S8_CALIB_PAIRS, size)
+            calib.append((normalized(cl, cr, dev),
+                          torch.as_tensor(cp, device=dev)))
+        pack = qz.quantize_cdrnet({k: v.to(dev) for k, v in sd.items()},
+                                  calib)
+        del calib
+        pack_path = os.path.join(work, "pack.npz")
+        qz.save_pack(pack_path, pack)
+        calib_s = time.perf_counter() - t
+        spec = {"device": str(dev) if dev.type == "cpu" else "cuda:0",
+                "halos": S8_HALOS, "joints": cfg.MODEL.NUM_JOINTS,
+                "layers": cfg.MODEL.NUM_LAYERS, "weights": weights,
+                "pack": pack_path}
+        runs, ref, models = {}, None, None
+        for world, kinds, pairs, int8 in (
+                (S8_INT8_M, ("fp32", "bf16"), S8_PAIRS, True),
+                (4, ("fp32", "bf16"), (1,), False)):
+            with open(os.path.join(work, "spec.json"), "w") as f:
+                json.dump(dict(spec, kinds=kinds, int8=int8, pairs={
+                    k: pairs for k in kinds}), f)
+            go = os.path.join(work, "go")
+            if os.path.exists(go):
+                os.remove(go)
+            tw = time.perf_counter()
+            port = free_port()
+            procs = [_spawn_self("--s8-child", r, world, port, work)
+                     for r in range(world)]
+            if ref is None:
+                # while the ranks start; they time only after `go`
+                ref, models = s8_references(spec, inp, dev)
+                require(all(r["counts"] == {} for r in ref.values()),
+                        "an unsplit forward or eval step made a "
+                        "collective")
+                torch.save(ref["int8"]["cf_out"],
+                           os.path.join(work, "cf_out.pt"))
+            open(go, "w").close()
+            s8_finish(procs, S8_CHILD_TIMEOUT, f"M={world}")
+            runs[world] = (kinds, pairs, int8, time.perf_counter() - tw, [
+                torch.load(os.path.join(work, f"out_{world}_{r}.pt"),
+                           weights_only=False) for r in range(world)])
+        # the unsplit forward at 1 pair, timed alone on the card
+        x1, p1 = inp["imgs"][:1].to(dev), inp["projs"][:1].to(dev)
+        with torch.inference_mode():
+            one = {kind: s8_wall_ms(lambda: model(x1, p1))
+                   for kind, model in models.items()}
+        del models
+        for world, (kinds, pairs, int8, secs, outs) in runs.items():
+            keys = [f"{k} {p}" for k in kinds for p in pairs]
+            extra = ["int8", "eval"] if int8 else []
+            res = {"seconds": secs,
+                   "vs_unsplit": s8_check(outs, ref, world, f"M={world}",
+                                          keys, inp["projs"], dev),
+                   "times": s8_times(outs, one, world),
+                   "launches": [
+                       {k: sum(o[key]["launches"][k] for key in keys + extra)
+                        for k in ("soft_argmax", "soft_argmax_bwd",
+                                  "fused_bottleneck")} for o in outs]}
+            if int8:
+                res["int8"] = s8_check_int8(outs, ref, world)
+                res["eval"] = s8_check_eval(outs, ref)
+            out[f"M={world}"] = res
+    torch.cuda.empty_cache()
+    out["unsplit_launches"] = {
+        k: sum(r["launches"][k] for r in ref.values())
+        for k in ("soft_argmax", "soft_argmax_bwd", "fused_bottleneck")}
+    out["calib_s"] = calib_s
+    out["seconds"] = time.perf_counter() - t0
+    print(f"# slice 8 ({smi}): {out['seconds']:.1f} s")
+    return out
+
+
+
 # ------------------------------------------------------------------ timing
 
 def _decoder_logits(gen, dev, n, dt):
@@ -4129,9 +4752,13 @@ def main():
                         own, out)
     if args[:1] == ["--nccl-probe"]:
         return nccl_probe_child(int(args[1]), int(args[2]))
-    if args not in ([], ["--kernels"], ["--slice6"], ["--slice7"]):
+    if args[:1] == ["--s8-child"]:
+        rank, world, port, work = args[1:]
+        return s8_child(int(rank), int(world), int(port), work)
+    if args not in ([], ["--kernels"], ["--slice6"], ["--slice7"],
+                    ["--slice8"]):
         sys.exit("usage: python3 chip_smoke.py [--kernels | --slice6 | "
-                 "--slice7]")
+                 "--slice7 | --slice8]")
     kernels_only = args == ["--kernels"]
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4202,6 +4829,12 @@ def main():
                                            for k, v in phases.items()))
         print(json.dumps({"slice7": s7}))
         return
+    if args == ["--slice8"]:
+        s8 = phase("slice 8", run_slice8, inf, cfg, dev, smi)
+        print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in phases.items()))
+        print(json.dumps({"slice8": s8}))
+        return
     k1 = phase("K1 timing", time_softargmax, dev, gen)
     k2 = phase("K2 timing", time_softargmax_bwd, dev, gen)
     k3 = phase("K3 timing", time_bottleneck, dev, gen)
@@ -4238,6 +4871,7 @@ def main():
         apps = phase("apps", run_apps, mads, dev, smi)
         torch.cuda.empty_cache()
         s6 = phase("slice 6", run_slice6, inf, cfg, start_sd, mads, dev, smi)
+    s8 = phase("slice 8", run_slice8, inf, cfg, dev, smi)
     del inf, cpu_inf
     torch.cuda.empty_cache()
     vs_cpu = phase("train card vs CPU", train_vs_cpu, cfg, start_sd, dev)
@@ -4263,6 +4897,10 @@ def main():
                         for k, n in s6["launches"].items()})
         by_path.update({f"slice 7, {k}": n[key]
                         for k, n in s7["launches"].items()})
+        by_path["slice 8, unsplit"] = s8["unsplit_launches"][key]
+        by_path.update({f"slice 8, {w} rank {r}": n[key]
+                        for w in ("M=2", "M=4")
+                        for r, n in enumerate(s8[w]["launches"])})
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -4297,6 +4935,7 @@ def main():
     print(json.dumps({"apps": apps}))
     print(json.dumps({"slice6": s6}))
     print(json.dumps({"slice7": s7}))
+    print(json.dumps({"slice8": s8}))
     print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phases.items()))
     print(f"# total {time.perf_counter() - t_start:.1f} s")

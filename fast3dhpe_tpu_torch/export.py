@@ -22,7 +22,9 @@ Differences from the JAX artifact, by design:
   artifact serves either; `load_serving` moves its weights and constants
   with torch.export.passes.move_to_device_pass.
 - The eager Jacobi SVD of the DLT unrolls into the graph.
-Exports run unfused (no K3), as the JAX package exports.
+Exports run unfused (no K3), as the JAX package exports. A model that
+carries a spatial mesh (parallel/mesh.py replicate) is not exported: its
+halo exchanges are collectives of a process group (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -69,6 +71,11 @@ def make_serving_fn_int8(pack, dlt_method: str = "jacobi") -> ServingModule:
 def _export(serve: ServingModule, batch_size: int, image_size, n_views: int,
             device) -> "torch.export.ExportedProgram":
     from .device import resolve_device
+    if any(getattr(m, "spatial", None) is not None for m in serve.modules()):
+        raise NotImplementedError(
+            "export of a model on a spatial mesh is ROADMAP A16: its halo "
+            "exchanges are collectives of the process group; export the "
+            "model before replicate(mesh, model)")
     dev = resolve_device(device)
     if n_views != 2:
         raise ValueError(f"CDRNet serves 2 views, got n_views={n_views}")

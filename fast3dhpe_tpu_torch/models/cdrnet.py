@@ -4,6 +4,11 @@ Port of fast3dhpe_tpu/models/cdrnet.py.
 The views are stacked into the batch for the shared encoder and decoder,
 the heatmaps decode with the soft-argmax kernel (ops/softargmax.py), and
 one batched Jacobi-SVD DLT triangulates every (sample, joint).
+
+On a spatial mesh (parallel/spatial.py) each model rank runs the encoder,
+the fusion and the decoder on its rows of the images, the soft-argmax
+combines the ranks' K1 statistics (split_soft_argmax), and every model
+rank triangulates the same keypoints.
 """
 
 from __future__ import annotations
@@ -12,7 +17,7 @@ import torch
 from torch import nn
 
 from ..geometry.triangulation import dlt_triangulate, pinv_projection
-from ..ops.softargmax import soft_argmax_fused
+from ..parallel.spatial import check_split, spatial_of, split_soft_argmax
 from .decoder import PoseDecoder
 from .layers import BatchNorm2d, Conv2d, bn_row_mask, run_seq
 from .resnet import ResNetEncoder
@@ -89,8 +94,12 @@ class CDRNet(nn.Module):
     mode (`.train()`) every BN takes batch statistics over the valid rows
     of `row_valid`, in fp32 whatever the compute dtype. remat and
     remat_policy rematerialise the encoder's blocks in the backward
-    (models/resnet.py).
+    (models/resnet.py). On a spatial mesh (`spatial`, set by
+    parallel/mesh.py replicate) the images are this model rank's rows, in
+    eval mode only.
     """
+
+    spatial = None
 
     def __init__(self, num_joints=19, num_layers=101, dlt_method="jacobi",
                  fused_inference=False, dtype=torch.float32, remat=False,
@@ -119,11 +128,17 @@ class CDRNet(nn.Module):
         global count of valid rows under a process group (bn_row_mask).
 
         Returns (pred_2d, pred_3d), plus the raw heatmaps (B, V, h, w, J)
-        in the compute dtype with return_heatmaps=True.
+        in the compute dtype with return_heatmaps=True. On a spatial mesh
+        imgs hold this model rank's rows of H, the heatmaps its rows of h,
+        and pred_2d and pred_3d are the whole image's, the same on every
+        model rank.
         """
         B, V, H, W, _ = imgs.shape
         if V != N_VIEWS:
             raise ValueError(f"expected {N_VIEWS} views, got {V}")
+        mesh = spatial_of(self)
+        if mesh is not None:
+            check_split(H * mesh.model_size, mesh.model_size)
         mask = bn_row_mask(row_valid, valid_rows)      # (B,)
         # the views are stacked b-major, so the mask repeats per view
         # (jnp.repeat(mask, V, axis=0)), not tiled
@@ -138,7 +153,7 @@ class CDRNet(nn.Module):
         # takes as it is; contiguous() is a no-op then, and keeps an
         # exported graph, whose tracer assumed NCHW strides, right
         hm = h.permute(0, 2, 3, 1).contiguous()
-        kp = soft_argmax_fused(hm) * (H / hm.shape[1])
+        kp = split_soft_argmax(hm, mesh) * (H / hm.shape[1])
         kp = kp.reshape(B, V, self.num_joints, 2)
         proj_j = projs[:, None].expand(B, self.num_joints, V, 3, 4)
         pred_3d = dlt_triangulate(proj_j, kp.transpose(1, 2),

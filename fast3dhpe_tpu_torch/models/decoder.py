@@ -1,6 +1,8 @@
 """Deconvolutional heatmap decoder. Port of fast3dhpe_tpu/models/decoder.py:
 3 x (ConvTranspose2d k4 s2 p1 + BN + ReLU), then a 1x1 conv with bias to
-the joints."""
+the joints. On a spatial mesh each transposed convolution takes its halo
+rows itself (models/layers.py ConvTranspose2d); the BNs and the 1x1 head
+are per pixel."""
 
 from __future__ import annotations
 

@@ -11,6 +11,12 @@ Activations are NCHW tensors in channels_last memory, so cuDNN runs NHWC.
 
 Train mode follows the module's `.training` flag; the BN row mask (padded
 loader rows) is passed explicitly to every BatchNorm2d.
+
+On a spatial mesh (parallel/mesh.py replicate sets `spatial`), the
+convolutions, the transposed convolution and the max-pool take their
+halo rows from the neighbouring model ranks (parallel/spatial.py), run
+with H padding 0 and keep their W padding; eval-mode BN is per channel and
+stays local.
 """
 
 from __future__ import annotations
@@ -22,14 +28,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import all_reduce
+from ..parallel.spatial import deconv_rows, spatial_of, window_rows
 
 
 class Conv2d(nn.Conv2d):
-    """Conv2d with symmetric integer padding, computing in x.dtype."""
+    """Conv2d with symmetric integer padding, computing in x.dtype. On a
+    spatial mesh it reads its halo rows (conv_halo) from the neighbouring
+    model ranks, zeros at the global edge, as its own padding would be."""
+
+    spatial = None
 
     def forward(self, x):
-        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride,
-                     self.padding)
+        x, pad = window_rows(x, 2, self.kernel_size[0], self.stride[0],
+                             self.padding[0], spatial_of(self), 0.0)
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, pad)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype).reshape(1, -1, 1, 1)
         return y
@@ -199,20 +211,30 @@ def run_seq(seq: nn.Sequential, x, mask=None):
 class ConvTranspose2d(nn.ConvTranspose2d):
     """ConvTranspose2d(k=4, s=2, p=1, no bias), computing in x.dtype
     (layers.py:85-117; the flax kernel (kh, kw, O, I) is this weight
-    (I, O, kh, kw) transposed)."""
+    (I, O, kh, kw) transposed). On a spatial mesh it reads one row of
+    each neighbouring model rank (zeros at the global edge) and crops the
+    three output rows on each side that belong to them (deconv_halo)."""
+
+    spatial = None
 
     def __init__(self, in_channels, out_channels):
         super().__init__(in_channels, out_channels, 4, stride=2, padding=1,
                          bias=False)
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), None,
-                                  self.stride, self.padding)
+        w = self.weight.to(x.dtype)
+        return deconv_rows(
+            lambda x, pad: F.conv_transpose2d(x, w, None, self.stride, pad),
+            x, 2, self.kernel_size[0], self.stride[0], self.padding[0],
+            spatial_of(self))
 
 
-def max_pool(x):
-    """MaxPool2d(3, 2, 1), padding with -inf."""
-    return F.max_pool2d(x, 3, 2, 1)
+def max_pool(x, mesh=None):
+    """MaxPool2d(3, 2, 1), padding with -inf; on a spatial mesh with the
+    row above the rank's block from its upper neighbour (-inf at the
+    global top)."""
+    x, pad = window_rows(x, 2, 3, 2, 1, mesh, float("-inf"))
+    return F.max_pool2d(x, 3, 2, pad)
 
 
 @torch.no_grad()

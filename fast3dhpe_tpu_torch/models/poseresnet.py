@@ -1,13 +1,16 @@
 """PoseResNet: the single-view 2D heatmap network (Simple Baselines).
 Port of fast3dhpe_tpu/models/poseresnet.py: ResNet encoder, then the
 deconv decoder; (B, H, W, 3) images -> (B, H/4, W/4, J) heatmaps, NHWC as
-in the JAX package."""
+in the JAX package. On a spatial mesh (parallel/spatial.py) each model rank
+runs its rows of the images and returns its rows of the heatmaps
+(parallel/spatial.py gather_height assembles them)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..parallel.spatial import check_split, spatial_of
 from .decoder import PoseDecoder
 from .layers import bn_row_mask
 from .resnet import ResNetEncoder
@@ -17,7 +20,10 @@ class PoseResNet(nn.Module):
     """Parameters are fp32; `dtype` is the compute dtype. In train mode
     every BN takes batch statistics over the valid rows of `row_valid`.
     remat and remat_policy rematerialise the encoder's blocks in the
-    backward (models/resnet.py)."""
+    backward (models/resnet.py). On a spatial mesh (`spatial`, set by
+    parallel/mesh.py replicate), eval mode only."""
+
+    spatial = None
 
     def __init__(self, num_joints=19, num_layers=101, dtype=torch.float32,
                  remat=False, remat_policy=None):
@@ -35,7 +41,11 @@ class PoseResNet(nn.Module):
     def forward(self, x, row_valid=None, valid_rows=None):
         """x (B, H, W, 3) normalised -> heatmaps (B, h, w, J), a view of
         the decoder's channels_last output. row_valid and valid_rows as
-        CDRNet's."""
+        CDRNet's. On a spatial mesh x holds this model rank's rows and the
+        heatmaps are its rows."""
+        mesh = spatial_of(self)
+        if mesh is not None:
+            check_split(x.shape[1] * mesh.model_size, mesh.model_size)
         mask = bn_row_mask(row_valid, valid_rows)
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)

@@ -23,6 +23,13 @@ that the JAX `load_pack` reads and `load_pack` reads the JAX package's.
 `Int8Pack` converts a pack once into what the int8 executor multiplies
 (ops/quant.py gemm_weight) and holds it as buffers of a module, so
 `.to(device)` moves it and torch.export bakes it in.
+
+On a spatial mesh (parallel/spatial.py) the int8 executor takes the halo
+rows of every convolution, transposed convolution and max-pool in the
+int8 domain (pad values the zero point 0, and -128 for the pool), and the
+soft-argmax combines the ranks' statistics (split_soft_argmax): the int32
+arithmetic is exact, so each rank's codes are the unsplit codes of its
+rows.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ from torch import nn
 from ..convert import jax_variables_to_state_dict
 from ..geometry.triangulation import dlt_triangulate, pinv_projection
 from ..ops import quant as Q
-from ..ops.softargmax import soft_argmax_fused
+from ..parallel.spatial import (check_split, deconv_rows, split_soft_argmax,
+                                window_rows)
 from .cdrnet import CanonicalFusion
 from .resnet import EXPANSION, RESNET_SPEC
 
@@ -147,10 +155,12 @@ class _CalibCtx:
 
 class _Int8Ctx:
     """Quantized executor: activations travel as (int8 NHWC, scale) pairs;
-    residual sums and the head's output are fp32."""
+    residual sums and the head's output are fp32. `mesh`: a spatial mesh,
+    whose halo rows the convolutions, deconvolutions and the pool take."""
 
-    def __init__(self, rt: "Int8Pack"):
+    def __init__(self, rt: "Int8Pack", mesh=None):
         self.rt = rt
+        self.mesh = mesh
 
     def quant_input(self, x):
         s = self.rt.scale("input")
@@ -162,6 +172,7 @@ class _Int8Ctx:
     def conv(self, name, xs, stride, pad, relu, requant_out):
         x8, s_in = xs
         l = self.rt.layer(name)
+        x8, pad = window_rows(x8, 1, l.k, stride, pad, self.mesh, 0)
         y = self._epilogue(l, Q.conv_i8(x8, l.w, l.cout, l.k, stride, pad),
                            s_in)
         if relu:
@@ -174,8 +185,10 @@ class _Int8Ctx:
     def deconv(self, name, xs):
         x8, s_in = xs
         l = self.rt.layer(name)
-        y = self._epilogue(l, Q.conv_transpose_i8(x8, l.w, l.cout, l.k),
-                           s_in)
+        acc = deconv_rows(
+            lambda x, pad: Q.conv_transpose_i8(x, l.w, l.cout, l.k, 2, pad),
+            x8, 1, l.k, 2, 1, self.mesh)
+        y = self._epilogue(l, acc, s_in)
         s = self.rt.scale(name)
         return Q.requant(torch.relu(y), s), s
 
@@ -189,7 +202,8 @@ class _Int8Ctx:
 
     def maxpool(self, xs):
         x8, s = xs
-        return Q.max_pool_i8(x8), s
+        x8, pad = window_rows(x8, 1, 3, 2, 1, self.mesh, -128)
+        return Q.max_pool_i8(x8, padding=pad), s
 
     def requantize_external(self, name, x):
         s = self.rt.scale(name)
@@ -451,12 +465,16 @@ def poseresnet_int8_apply(rt: Int8Pack, imgs):
 
 
 def cdrnet_int8_apply(rt: Int8Pack, imgs, projs, dlt_method: str = "jacobi",
-                      return_heatmaps: bool = False):
+                      return_heatmaps: bool = False, mesh=None):
     """Quantized CDRNet forward, CDRNet's contract: imgs (B, V, H, W, 3)
     normalised, projs (B, V, 3, 4) -> pred_2d (B, V, J, 2), pred_3d
-    (B, J, 3)[, heatmaps (B, V, h, w, J) fp32]."""
+    (B, J, 3)[, heatmaps (B, V, h, w, J) fp32]. On a spatial mesh imgs
+    and the heatmaps are this model rank's rows; pred_2d and pred_3d are
+    the whole image's, the same on every model rank."""
     B, V, H, W, _ = imgs.shape
-    ctx = _Int8Ctx(rt)
+    if mesh is not None:
+        check_split(H * mesh.model_size, mesh.model_size)
+    ctx = _Int8Ctx(rt, mesh)
     projs = projs.float()
     x = ctx.quant_input(imgs.reshape(B * V, H, W, 3))
     z = _encoder_walk(ctx, x, rt.depth)
@@ -465,7 +483,7 @@ def cdrnet_int8_apply(rt: Int8Pack, imgs, projs, dlt_method: str = "jacobi",
     f = ctx.requantize_external("cf_out", fused.permute(0, 2, 3, 1))
     h = _decoder_walk(ctx, f).contiguous()         # (B*V, hh, hw, J) fp32
     hh, J = h.shape[1], h.shape[-1]
-    kp = soft_argmax_fused(h) * (H / hh)
+    kp = split_soft_argmax(h, mesh) * (H / hh)
     kp = kp.reshape(B, V, J, 2)
     proj_j = projs[:, None].expand(B, J, V, 3, 4)
     pred_3d = dlt_triangulate(proj_j, kp.transpose(1, 2), method=dlt_method)
@@ -476,7 +494,11 @@ def cdrnet_int8_apply(rt: Int8Pack, imgs, projs, dlt_method: str = "jacobi",
 
 class Int8CDRNet(nn.Module):
     """CDRNet's forward on an int8 pack: (imgs, projs) -> (pred_2d,
-    pred_3d), the port's counterpart of jit_cdrnet_int8's closure."""
+    pred_3d), the port's counterpart of jit_cdrnet_int8's closure. On a
+    spatial mesh (`spatial`, set by parallel/mesh.py replicate) the images
+    are this model rank's rows."""
+
+    spatial = None
 
     def __init__(self, pack, dlt_method: str = "jacobi"):
         super().__init__()
@@ -485,7 +507,7 @@ class Int8CDRNet(nn.Module):
 
     def forward(self, imgs, projs, return_heatmaps: bool = False):
         return cdrnet_int8_apply(self.rt, imgs, projs, self.dlt_method,
-                                 return_heatmaps)
+                                 return_heatmaps, self.spatial)
 
 
 def cdrnet_int8(pack, dlt_method: str = "jacobi", device="cuda"):

@@ -12,6 +12,15 @@ outputs and recomputes only the BN and ReLU chains (selective
 checkpointing, as save_only_these_names("conv_out")). A recomputed
 train-mode BN leaves its running statistics alone, so they update once a
 step.
+
+On a spatial mesh (parallel/spatial.py) the stem, the max-pool and every
+3x3 convolution take their halo rows through the layers' own spatial
+forms. A Bottleneck that the gate fuses at the GLOBAL height (local rows
+times the model ranks, so that the port fuses exactly the blocks that the
+JAX gate fuses at the global size) runs the fused kernel on its rows with
+one row of each neighbour's block input around them, and drops the output
+rows on that halo: the kernel's own zero padding of conv1's output is
+right at the global edge, where no row is added.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops.bottleneck import (PackedBottleneck, fold_bn,
                               fused_bottleneck_packed, pack_weights)
+from ..parallel.spatial import crop_rows, halo_rows, spatial_of
 from .layers import BatchNorm2d, Conv2d, max_pool, run_seq
 
 # depth -> (block type, blocks per stage)
@@ -106,6 +116,8 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride) -> 1x1 (x4) residual block."""
 
+    spatial = None
+
     def __init__(self, inplanes, planes, stride=1, downsample=False,
                  fused_inference=False):
         super().__init__()
@@ -182,9 +194,21 @@ class Bottleneck(nn.Module):
     def _fused(self, x):
         return fused_bottleneck_packed(x, self.packed_weights(x.device))
 
+    def _fused_tile(self, x, mesh):
+        """The fused kernel on this model rank's rows with one row of each
+        neighbour's block input (none at the global edge), the output rows
+        on the halo dropped."""
+        top = int(mesh.model_rank > 0)
+        bottom = int(mesh.model_rank < mesh.model_size - 1)
+        y = self._fused(halo_rows(x, 2, 1, 1, mesh, None))
+        return crop_rows(y, 2, top, bottom)
+
     def forward(self, x, mask=None):
-        if self.fusable(x.shape[2], x.shape[3], x.dtype):
-            return self._fused(x)
+        mesh = spatial_of(self)
+        m = 1 if mesh is None else mesh.model_size
+        if self.fusable(x.shape[2] * m, x.shape[3], x.dtype):
+            return (self._fused(x) if mesh is None
+                    else self._fused_tile(x, mesh))
         out = torch.relu(self.bn1(self.conv1(x), mask))
         out = torch.relu(self.bn2(self.conv2(out), mask))
         out = self.bn3(self.conv3(out), mask)
@@ -202,6 +226,8 @@ class ResNetEncoder(nn.Module):
 
     remat / remat_policy: rematerialise each block in the backward (see
     the module's docstring); an unknown policy raises ValueError."""
+
+    spatial = None
 
     def __init__(self, num_layers=101, fused_inference=False, remat=False,
                  remat_policy: Optional[str] = None):
@@ -249,7 +275,8 @@ class ResNetEncoder(nn.Module):
 
     def forward(self, x, mask=None):
         """mask: the (B,) BN row mask (layers.bn_row_mask) of x's rows."""
-        x = max_pool(torch.relu(self.bn1(self.conv1(x), mask)))
+        x = max_pool(torch.relu(self.bn1(self.conv1(x), mask)),
+                     spatial_of(self))
         remat = self.remat and torch.is_grad_enabled()
         for _, blk in self.blocks():
             if remat:

@@ -114,10 +114,16 @@ def gemm_weight_transposed(w_khkwoi):
     return _pad_matrix(w.reshape(w.shape[0], -1))
 
 
-def _im2col(x8, k: int, stride: int, pad: int):
+def _hw(pad):
+    """A padding as (H, W): an int pads both alike."""
+    return (pad, pad) if isinstance(pad, int) else tuple(pad)
+
+
+def _im2col(x8, k: int, stride: int, pad):
     """(N, H, W, C) -> ((N * Ho * Wo, C * k * k) patches, (N, Ho, Wo))."""
-    if pad:
-        x8 = F.pad(x8, (0, 0, pad, pad, pad, pad))
+    ph, pw = _hw(pad)
+    if ph or pw:
+        x8 = F.pad(x8, (0, 0, pw, pw, ph, ph))
     n = x8.shape[0]
     if k == 1:
         p = x8[:, ::stride, ::stride]
@@ -126,9 +132,10 @@ def _im2col(x8, k: int, stride: int, pad: int):
     return p.reshape(n * p.shape[1] * p.shape[2], -1), p.shape[:3]
 
 
-def conv_i8(x8, w_gemm, cout: int, k: int, stride: int = 1, pad: int = 0):
+def conv_i8(x8, w_gemm, cout: int, k: int, stride: int = 1, pad=0):
     """int8 x int8 -> int32 NHWC convolution with torch-style symmetric
-    zero padding (quant.py:78-84), exact.
+    zero padding (quant.py:78-84), exact. pad: an int, or (H, W) (a
+    spatial split pads H by its halo instead).
 
     x8: (N, H, W, Cin) int8; w_gemm: the (N', K') matrix of gemm_weight
     for a k x k kernel with `cout` output channels. Returns (N, Ho, Wo,
@@ -144,21 +151,24 @@ def conv_i8(x8, w_gemm, cout: int, k: int, stride: int = 1, pad: int = 0):
 
 
 def conv_transpose_i8(x8, w_gemm, cout: int, k: int = 4, stride: int = 2,
-                      pad: int = 1):
+                      pad=1):
     """int8 ConvTranspose2d(k, stride, pad) with torch semantics
     (quant.py:87-98), exact: zero insertion, padding k - 1 - pad, and the
-    flipped kernel's matrix (gemm_weight_transposed)."""
+    flipped kernel's matrix (gemm_weight_transposed). pad: an int or
+    (H, W)."""
     n, h, w, c = x8.shape
     z = x8.new_zeros((n, (h - 1) * stride + 1, (w - 1) * stride + 1, c))
     z[:, ::stride, ::stride] = x8
-    return conv_i8(z, w_gemm, cout, k, 1, k - 1 - pad)
+    ph, pw = _hw(pad)
+    return conv_i8(z, w_gemm, cout, k, 1, (k - 1 - ph, k - 1 - pw))
 
 
-def max_pool_i8(x8, window: int = 3, stride: int = 2, padding: int = 1):
+def max_pool_i8(x8, window: int = 3, stride: int = 2, padding=1):
     """MaxPool2d on NHWC int8 (quant.py:101-107): padded with -128, which
     never beats a real cell, then the max of each window over unfold
-    views, in int8 on either device."""
-    xp = F.pad(x8, (0, 0, padding, padding, padding, padding), value=-128)
+    views, in int8 on either device. padding: an int or (H, W)."""
+    ph, pw = _hw(padding)
+    xp = F.pad(x8, (0, 0, pw, pw, ph, ph), value=-128)
     return xp.unfold(1, window, stride).unfold(2, window, stride).amax(
         dim=(-2, -1))
 

@@ -304,6 +304,18 @@ def soft_argmax_fwd_fused(heatmaps) -> Tuple[torch.Tensor,
     return _k1_op(heatmaps)
 
 
+def soft_argmax_stats(heatmaps) -> torch.Tensor:
+    """K1's statistics of (N, H, W, J) logits: (N, J, 4) fp32 (m, 1/S, cx,
+    cy), m the max over H*W, S the sum of exp(logit - m), (cx, cy) the
+    soft-argmax, through fast3dhpe::soft_argmax on either device: on a CPU
+    tensor the plain version (`_plain_stats`), on a CUDA tensor one K1
+    launch (counted in `soft_argmax_fused.launches`), or it raises.
+    Statistics of row blocks combine exactly into those of the whole
+    heatmap (parallel/spatial.py split_soft_argmax)."""
+    _check(heatmaps)
+    return _k1_op(heatmaps)[1]
+
+
 def soft_argmax_bwd_fused(heatmaps, g, stats=None):
     """K2: the gradient of the soft-argmax for the cotangent g (N, J, 2),
     as (N, H, W, J) in the logits' dtype and strides.

@@ -1,6 +1,7 @@
-"""Data parallelism over a process group, one GPU a process. Port of
-fast3dhpe_tpu/parallel (parallel/mesh.py says what each JAX name is
-here)."""
+"""Data parallelism over a process group, one GPU a process, and spatial
+partitioning over its "model" axis. Port of fast3dhpe_tpu/parallel
+(parallel/mesh.py says what each JAX name is here; parallel/spatial.py
+makes explicit what XLA partitions under a "model" axis)."""
 
 from .distributed import (  # noqa: F401
     destroy_distributed,
@@ -17,4 +18,10 @@ from .mesh import (  # noqa: F401
     shard_batch,
     shard_batch_spatial,
     spatial_sharding,
+)
+from .spatial import (  # noqa: F401
+    check_split,
+    gather_height,
+    halo_rows,
+    split_soft_argmax,
 )

@@ -31,15 +31,23 @@ JAX names and what they are here:
   shard_stacked: not applicable. It feeds the JAX scan segments, which the
     port does not run (ROADMAP A8); under a process group the loops take
     the per-batch path.
-  spatial_sharding, shard_batch_spatial, make_mesh(model_parallel > 1):
-    spatial partitioning, ROADMAP A15; they raise.
+  make_mesh(model_parallel=M), spatial_sharding, shard_batch_spatial:
+    spatial partitioning, the image height split over a "model" axis of M
+    ranks (below, and parallel/spatial.py for the exchanges). The D*M
+    ranks form D data groups of M model ranks: rank r has data index
+    r // M and model index r % M, JAX's devices.reshape(n // M, M). The
+    model group (the M ranks of a data index) runs the halo exchanges and
+    the keypoint combine; the data group (the D ranks of a model index)
+    the row counts and the metrics. Eval forwards only: training, the
+    loops, the loaders and the device cache at M > 1 are ROADMAP A16 and
+    raise.
 """
 
 from __future__ import annotations
 
 from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -49,31 +57,37 @@ from . import distributed
 
 #: collectives issued since a caller last cleared it, by kind ("bn
 #: forward", "bn backward", "rows", "gradients", "metrics", "broadcast",
-#: "barrier"), as the kernel wrappers count their launches
+#: "barrier"; on a spatial mesh "halo", "keypoints", "gather"), as the
+#: kernel wrappers count their launches
 COUNTS: Counter = Counter()
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """A data-parallel group: one process, one device a rank."""
+    """A (data, model) grid of processes, one device a rank. group, rank
+    and size are the data group's (WORLD at model_size 1); model_group,
+    model_rank and model_size the model group's (None, 0 and 1 without a
+    spatial split)."""
     group: object
     rank: int
     size: int
     device: torch.device
+    model_group: object = None
+    model_rank: int = 0
+    model_size: int = 1
 
 
 def make_mesh(n_devices: Optional[int] = None,
               model_parallel: int = 1) -> Mesh:
-    """The mesh of the process group that init_distributed joined.
+    """The mesh of the process group that init_distributed joined: D data
+    groups of M = model_parallel model ranks.
 
     n_devices other than the world size raises: the JAX package puts N
     devices in one process, PyTorch runs one process a device, so an
-    N-device mesh is N processes (torchrun --nproc_per_node N).
+    N-device mesh is N processes (torchrun --nproc_per_node N). So does a
+    world size that M does not divide. At M > 1 every rank calls
+    dist.new_group for every group, in the same order.
     """
-    if model_parallel != 1:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel}: spatial partitioning is "
-            f"ROADMAP A15, not yet ported")
     if not dist.is_initialized():
         raise RuntimeError("no process group: start the ranks with torchrun "
                            "and call init_distributed() first")
@@ -88,13 +102,37 @@ def make_mesh(n_devices: Optional[int] = None,
             f"n_devices={n_devices}, but the process group has {size} "
             f"ranks: PyTorch runs one process a device, so a mesh of N "
             f"devices is N processes (torchrun --nproc_per_node N)")
-    return Mesh(dist.group.WORLD, dist.get_rank(), size, device)
+    if model_parallel < 1 or size % model_parallel:
+        raise ValueError(f"{size} ranks (the world size) not divisible by "
+                         f"model_parallel={model_parallel}")
+    rank = dist.get_rank()
+    if model_parallel == 1:
+        return Mesh(dist.group.WORLD, rank, size, device)
+    m, d = model_parallel, size // model_parallel
+    model_group = data_group = None
+    for i in range(d):
+        g = dist.new_group([i * m + j for j in range(m)])
+        if i == rank // m:
+            model_group = g
+    for j in range(m):
+        g = dist.new_group([i * m + j for i in range(d)])
+        if j == rank % m:
+            data_group = g
+    return Mesh(data_group, rank // m, d, device, model_group, rank % m, m)
 
 
 def mesh_device(mesh: Optional[Mesh], device) -> torch.device:
     """The device a loop or loader runs on: the mesh's under a mesh (which
-    init_distributed chose; `device` is then not read), else `device`."""
+    init_distributed chose; `device` is then not read), else `device`.
+    The loops, the loaders and the device cache call it; on a spatial mesh
+    they raise (ROADMAP A16)."""
     if mesh is not None:
+        if mesh.model_size > 1:
+            raise NotImplementedError(
+                f"the loops, the loaders and the device frame cache on a "
+                f"spatial mesh (model_parallel={mesh.model_size}) are "
+                f"ROADMAP A16: a spatial mesh serves eval forwards "
+                f"(shard_batch_spatial, the eval steps)")
         return mesh.device
     from ..device import resolve_device
     return resolve_device(device)
@@ -144,17 +182,22 @@ def barrier(mesh: Optional[Mesh]) -> None:
 
 
 def replicate(mesh: Mesh, model: nn.Module) -> nn.Module:
-    """Rank 0's parameters and buffers on every rank, and the process group
-    on every BatchNorm2d of the port (as SyncBatchNorm.convert_sync_batchnorm
-    sets it), so that train-mode BN takes global batch statistics. The
-    model must already lie on mesh.device. Returns the model."""
+    """Rank 0's parameters and buffers on every rank; the data group on
+    every BatchNorm2d of the port (as SyncBatchNorm.convert_sync_batchnorm
+    sets it), so that train-mode BN takes global batch statistics; and on
+    a spatial mesh the mesh as `spatial` on every module whose class has
+    that field (the convolutions, the max-pool's encoder, the fused
+    bottleneck, the networks' soft-argmax), so that each takes its halo.
+    The model must already lie on mesh.device. Returns the model."""
     from ..models.layers import BatchNorm2d
     with torch.no_grad():
-        broadcast_(mesh.group, list(model.parameters())
+        broadcast_(dist.group.WORLD, list(model.parameters())
                    + list(model.buffers()))
     for m in model.modules():
         if isinstance(m, BatchNorm2d):
             m.process_group = mesh.group
+        if mesh.model_size > 1 and hasattr(type(m), "spatial"):
+            m.spatial = mesh
     return model
 
 
@@ -177,11 +220,32 @@ def row_counts(mesh: Optional[Mesh], row_valid, n_rows: int, device):
     return valid, total
 
 
-def spatial_sharding(mesh, ndim: int):
-    raise NotImplementedError("spatial_sharding: spatial partitioning is "
-                              "ROADMAP A15, not yet ported")
+def spatial_sharding(mesh: Mesh, ndim: int, height: int) -> Tuple:
+    """The index that cuts this model rank's rows from an image batch of
+    global height `height`: (B, V, H, W, 3) stereo -> [:, :, rows],
+    (B, H, W, 3) mono -> [:, rows], the counterpart of JAX's
+    P("data", None, "model") and P("data", "model") (the data axis is the
+    rows a data group holds, as in shard_batch). Raises ValueError for
+    another ndim or an H that breaks the split rule
+    (parallel/spatial.py check_split)."""
+    from .spatial import check_split
+    if ndim not in (4, 5):
+        raise ValueError(f"expected a 4-D/5-D image batch, got ndim={ndim}")
+    check_split(height, mesh.model_size)
+    h = height // mesh.model_size
+    rows = slice(mesh.model_rank * h, (mesh.model_rank + 1) * h)
+    return (slice(None),) * (ndim - 3) + (rows,)
 
 
-def shard_batch_spatial(mesh, batch):
-    raise NotImplementedError("shard_batch_spatial: spatial partitioning "
-                              "is ROADMAP A15, not yet ported")
+def shard_batch_spatial(mesh: Mesh, batch) -> Dict[str, torch.Tensor]:
+    """shard_batch with the height of every leaf named "image" split over
+    the model axis: the data group's local rows of each leaf (every model
+    rank of a data group passes the same rows) on this rank's device, the
+    images cut to this model rank's rows (spatial_sharding)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        if k == "image":
+            t = t[spatial_sharding(mesh, t.dim(), t.shape[t.dim() - 3])]
+        out[k] = t.contiguous().to(mesh.device)
+    return out

@@ -1,0 +1,243 @@
+"""Spatial partitioning: the image height split over the mesh's "model"
+axis. Port of what XLA gives fast3dhpe_tpu/parallel/mesh.py
+`shard_batch_spatial` for free.
+
+The JAX package runs one program over the global image and lets XLA
+partition every convolution by rows and insert the halo exchanges. PyTorch
+has no partitioner, so the port makes each step explicit. Model rank j of
+M holds image rows [j*H/M, (j+1)*H/M) (`check_split`: H divisible by 32*M,
+the encoder's total stride, so every stage splits into equal, even-aligned
+row blocks). Then:
+
+  - a convolution, max-pool or transposed convolution fetches the rows its
+    window reaches beyond the rank's block from the neighbours
+    (`halo_rows`), fills them at the global edge with its own pad value
+    (0 for a convolution, -inf for the max-pool), runs with H padding 0
+    and crops what a transposed convolution makes on the halo. The rows
+    each op needs are `conv_halo` and `deconv_halo`, derived below, and
+    the layers take them through `window_rows` and `deconv_rows`;
+  - eval-mode BN, the 1x1 convolutions and CanonicalFusion's FTL are per
+    pixel, so they stay local;
+  - the soft-argmax spans the whole heatmap: K1 runs on the rank's rows
+    and the ranks' statistics combine exactly by log-sum-exp
+    (`split_soft_argmax`), so every model rank decodes the same keypoints
+    and the geometry after it runs replicated;
+  - a heatmap-returning forward returns the rank's rows, and
+    `gather_height` assembles the whole heatmap.
+
+Every exchange is one `all_reduce` over the model group (parallel/mesh.py)
+of a zeroed buffer with one slot a rank, in which each rank writes what its
+neighbours need: the only collective that gloo also runs on CUDA tensors,
+which two ranks sharing one card must take. The slot holds the rows' bytes
+as int32 words, so the sum of a word and zeros cannot round: the rows
+arrive bit for bit, -0.0 and NaN included, whatever their dtype. A
+point-to-point form (NCCL `batch_isend_irecv`) is later work (ROADMAP B).
+
+Training on a spatial mesh (train-mode BN over data x model, the adjoint
+of the halo exchange, K2 over a split heatmap) and uneven splits are
+ROADMAP A16: they raise.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..ops.softargmax import soft_argmax_fused, soft_argmax_stats
+from .mesh import all_reduce
+
+#: the encoder's total stride: stem 2, max-pool 2, layers 2-4 2 each
+SPLIT_STRIDE = 32
+
+A16 = "ROADMAP A16"
+
+
+def check_split(height: int, model_size: int) -> None:
+    """The split rule: the global image height divisible by 32 * M, so that
+    every stage of the encoder splits into equal row blocks that start on
+    an even row. Raises ValueError naming the rule."""
+    if model_size > 1 and height % (SPLIT_STRIDE * model_size):
+        raise ValueError(
+            f"spatial split: the image height {height} must be divisible by "
+            f"{SPLIT_STRIDE} x model_parallel = {SPLIT_STRIDE * model_size} "
+            f"(the encoder's total stride times the model ranks), so that "
+            f"every stage splits into equal, even-aligned row blocks; "
+            f"uneven splits are {A16}")
+
+
+def spatial_of(module) -> Optional[object]:
+    """The spatial mesh that `replicate` installed on a module, or None.
+    A module in training mode on a spatial mesh raises: that needs
+    train-mode BN over data x model, the adjoint of the halo exchange and
+    K2 over a split heatmap."""
+    mesh = getattr(module, "spatial", None)
+    if mesh is not None and module.training:
+        raise NotImplementedError(
+            f"training on a spatial mesh (model_parallel="
+            f"{mesh.model_size}) is {A16}: it needs train-mode BN over "
+            f"data x model, the adjoint of the halo exchange and K2 over a "
+            f"split heatmap; call .eval() to serve")
+    return mesh
+
+
+def conv_halo(k: int, s: int, p: int) -> Tuple[int, int]:
+    """(top, bottom): the rows a k x k convolution or pool of stride s and
+    padding p reads beyond a block of rows [a, b) with a and b multiples
+    of s, to make its outputs [a/s, b/s). Output o reads input rows
+    s*o - p .. s*o - p + k - 1: the first, o = a/s, reaches p rows above
+    a; the last, o = b/s - 1, reaches k - p - s rows below b - 1. With
+    H padding 0 the padded block of n + top + bottom rows gives n/s
+    outputs. Stem (7, 2, 3): (3, 2); 3x3 stride 1: (1, 1); 3x3 stride 2
+    and the max-pool: (1, 0); 1x1: (0, 0)."""
+    return p, max(0, k - p - s)
+
+
+def deconv_halo(k: int, s: int, p: int) -> Tuple[int, int, int, int]:
+    """(top, bottom, crop_top, crop_bottom) of a transposed convolution of
+    kernel k, stride s, padding p on a block of input rows [a, b), whose
+    outputs are [s*a, s*b). Output o = s*i - p + kh reads input rows i
+    with kh in [0, k): o = s*a reaches (k - 1 - p) // s rows above a, o =
+    s*b - 1 reaches 1 + (p - 1) // s rows at and below b. Run with H
+    padding 0 on the padded block, its output row o' is global row
+    o' + s*(a - top) - p: crop s*top + p rows on top and the rest below.
+    The decoder's (4, 2, 1): (1, 1, 3, 3)."""
+    top, bottom = (k - 1 - p) // s, 1 + (p - 1) // s
+    crop_top = s * top + p
+    crop_bottom = s * bottom - s + k - p
+    return top, bottom, crop_top, crop_bottom
+
+
+def _exchange(parts: Sequence[torch.Tensor], mesh, kind: str
+              ) -> List[List[torch.Tensor]]:
+    """Every model rank's `parts` (one dtype; the same shapes on every
+    rank), bit for bit: one all_reduce over the model group of M zeroed
+    slots of int32 words, this rank's slot holding the parts' bytes.
+    Returns, for each model rank j, views of its parts."""
+    dt = parts[0].dtype
+    nbytes = [p.numel() * p.element_size() for p in parts]
+    words = max(1, -(-sum(nbytes) // 4))
+    buf = torch.zeros((mesh.model_size, words), dtype=torch.int32,
+                      device=parts[0].device)
+    slot = buf[mesh.model_rank].view(torch.uint8)
+    o = 0
+    for p, n in zip(parts, nbytes):
+        if n:
+            slot[o:o + n].copy_(p.contiguous().view(-1).view(torch.uint8))
+        o += n
+    buf = all_reduce(mesh.model_group, [buf], kind)[0]
+    out = []
+    for j in range(mesh.model_size):
+        row, o, views = buf[j].view(torch.uint8), 0, []
+        for p, n in zip(parts, nbytes):
+            views.append(row[o:o + n].view(dt).view(p.shape))
+            o += n
+        out.append(views)
+    return out
+
+
+def _channels_last(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The port's float activations are NCHW in channels_last memory (the
+    height is dim 2); the int8 path's are NHWC (dim 1), contiguous."""
+    if t.dim() == 4 and dim == 2:
+        return t.contiguous(memory_format=torch.channels_last)
+    return t.contiguous()
+
+
+def halo_rows(x: torch.Tensor, dim: int, top: int, bottom: int, mesh,
+              pad_value) -> torch.Tensor:
+    """x with `top` rows of the model rank above and `bottom` rows of the
+    rank below around it along `dim` (the height: 2 for NCHW, 1 for the
+    int8 path's NHWC), in one all_reduce over the model group.
+
+    At the global edge the missing rows are `pad_value` (the op's own
+    padding: 0 for a convolution, -inf or -128 for the max-pool), or are
+    left out when pad_value is None. Each rank's slot holds its first
+    `bottom` rows (the upper neighbour's bottom halo) and its last `top`
+    rows (the lower neighbour's top halo). Counts into COUNTS["halo"]."""
+    n = x.shape[dim]
+    if n < max(top, bottom):
+        raise ValueError(f"halo_rows: the rank's {n} rows cannot supply a "
+                         f"halo of {max(top, bottom)}")
+    if not (top or bottom):
+        return x
+    first, last = x.narrow(dim, 0, bottom), x.narrow(dim, n - top, top)
+    slots = _exchange([first, last], mesh, "halo")
+    j, m = mesh.model_rank, mesh.model_size
+    pieces = []
+    if top:
+        if j > 0:
+            pieces.append(slots[j - 1][1])
+        elif pad_value is not None:
+            pieces.append(torch.full_like(last, pad_value))
+    pieces.append(x)
+    if bottom:
+        if j < m - 1:
+            pieces.append(slots[j + 1][0])
+        elif pad_value is not None:
+            pieces.append(torch.full_like(first, pad_value))
+    return _channels_last(torch.cat(pieces, dim), dim)
+
+
+def crop_rows(y: torch.Tensor, dim: int, top: int, bottom: int
+              ) -> torch.Tensor:
+    """y without `top` rows above and `bottom` rows below along `dim`, in
+    the activations' memory layout."""
+    return _channels_last(y.narrow(dim, top, y.shape[dim] - top - bottom),
+                          dim)
+
+
+def window_rows(x: torch.Tensor, dim: int, k: int, s: int, p: int, mesh,
+                pad_value) -> Tuple[torch.Tensor, object]:
+    """(input, padding) for a k x k convolution or pool of stride s and
+    padding p along `dim`: x and p as they are without a spatial mesh; on
+    one, x with its halo rows (conv_halo; `pad_value` at the global edge)
+    and the padding (0, p), H padding 0 and the W padding kept."""
+    if mesh is None:
+        return x, p
+    top, bottom = conv_halo(k, s, p)
+    return halo_rows(x, dim, top, bottom, mesh, pad_value), (0, p)
+
+
+def deconv_rows(fn, x: torch.Tensor, dim: int, k: int, s: int, p: int,
+                mesh) -> torch.Tensor:
+    """fn(input, padding), a transposed convolution of kernel k, stride s
+    and padding p along `dim`: fn(x, p) without a spatial mesh; on one, fn
+    on x with its halo rows (deconv_halo; zeros at the global edge) and
+    the padding (0, p), cropped to the rank's output rows."""
+    if mesh is None:
+        return fn(x, p)
+    top, bottom, c_top, c_bottom = deconv_halo(k, s, p)
+    y = fn(halo_rows(x, dim, top, bottom, mesh, 0), (0, p))
+    return crop_rows(y, dim, c_top, c_bottom)
+
+
+def gather_height(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The whole tensor from the model ranks' row blocks along `dim`, bit
+    for bit, in one all_reduce over the model group (COUNTS["gather"])."""
+    slots = _exchange([x], mesh, "gather")
+    return _channels_last(torch.cat([s[0] for s in slots], dim), dim)
+
+
+def split_soft_argmax(hm_local: torch.Tensor, mesh) -> torch.Tensor:
+    """The soft-argmax of a heatmap split by rows over the model ranks:
+    (N, h, W, J) local logits -> (N, J, 2) fp32 (x, y) of the whole
+    heatmap, in global heatmap pixels, the same on every model rank.
+    Without a spatial mesh (mesh None) it is soft_argmax_fused.
+
+    K1's statistics (m, 1/S, cx, cy) of the rank's rows (one launch on the
+    card, the plain version on the CPU; ops/softargmax.py
+    soft_argmax_stats), cy shifted by the rank's first row, gathered in one
+    all_reduce (COUNTS["keypoints"]), then combined in a fixed order on
+    every rank: M* = max m_j, w_j = S_j exp(m_j - M*),
+    c = sum w_j c_j / sum w_j, which is the softmax over all rows."""
+    if mesh is None:
+        return soft_argmax_fused(hm_local)
+    stats = soft_argmax_stats(hm_local)
+    row0 = float(mesh.model_rank * hm_local.shape[1])
+    stats = torch.cat([stats[..., :3], stats[..., 3:] + row0], dim=-1)
+    allst = torch.stack([s[0] for s in _exchange([stats], mesh,
+                                                 "keypoints")])
+    m, inv_s, c = allst[..., 0], allst[..., 1], allst[..., 2:]
+    w = torch.exp(m - m.amax(dim=0)) / inv_s
+    return (w[..., None] * c).sum(dim=0) / w.sum(dim=0)[..., None]

@@ -24,6 +24,14 @@ average the ranks' gradients of their local losses (parallel/mesh.py says
 why that is not the JAX step). Without a mesh the arithmetic is the
 single-process one, operation for operation.
 
+Spatial partitioning (a mesh with model_size M > 1, parallel/spatial.py):
+the eval steps take this model rank's rows of the images
+(shard_batch_spatial). Every model rank of a data group computes the same
+keypoints, so the CDR eval step's losses and metrics reduce over the data
+group (`mesh.group`) only, never counted M times; the 2D eval step first
+gathers its heatmaps over the model group, then computes its loss and PCK
+as without a split. Training on a spatial mesh raises (ROADMAP A16).
+
 An epoch function runs S batches from a device frame cache
 (data/device_cache.py): each batch is preprocessed on the device
 (data/device_pipeline.py), then stepped. It is a Python loop where the
@@ -42,6 +50,7 @@ from ..data.device_pipeline import (preprocess_mono_batch_cached,
                                     preprocess_stereo_batch_cached)
 from ..models.metrics import pck_counts, pck_from_counts, per_sample_mpjpe
 from ..parallel.mesh import all_reduce, row_counts
+from ..parallel.spatial import gather_height
 from .state import TrainState, clip_grads_by_norm, global_grad_norm
 
 
@@ -168,7 +177,9 @@ def make_eval_step_cdr(loss_fn, loss_3d_weight: float = 4.0,
     """CDR eval step in eval mode: eval_step(state, batch, use_3d) ->
     batch-mean loss / mpjpe_2d / mpjpe_3d, and the masked per-sample sums
     loss_sum / e2_sum / e3_sum / n that accumulate into per-frame epoch
-    metrics; those of the global batch under a mesh."""
+    metrics; those of the global batch under a mesh (on a spatial mesh
+    the images are this model rank's rows, and the sums reduce over the
+    data group)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, use_3d: bool):
@@ -238,7 +249,8 @@ def make_train_step_2d(loss_fn, mesh=None) -> Callable:
 def make_eval_step_2d(loss_fn, mesh=None) -> Callable:
     """PoseResNet eval step (steps.py:80-100): batch-mean loss and acc, and
     the accumulatable loss_sum / hits / cnt / n; those of the global batch
-    under a mesh."""
+    under a mesh. On a spatial mesh the images are this model rank's rows
+    and the heatmaps are gathered over the model group first."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
@@ -249,6 +261,8 @@ def make_eval_step_2d(loss_fn, mesh=None) -> Callable:
         mask = batch.get("row_valid")
         rows = row_counts(mesh, mask, batch["image"].shape[0], dev)
         out = model(batch["image"])
+        if mesh is not None and mesh.model_size > 1:
+            out = gather_height(out, mesh, 1)
         loss = loss_fn(out, batch["target"], batch["target_weight"],
                        sample_mask=mask, rows=rows)
         hits, cnt, _ = pck_counts(out, batch["target"], row_mask=mask)

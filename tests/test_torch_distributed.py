@@ -773,22 +773,25 @@ def test_device_frame_cache_on_the_mesh_device():
 
 
 def test_mesh_refusals(monkeypatch):
-    """Without a process group make_mesh raises; model_parallel > 1,
-    spatial_sharding and shard_batch_spatial name A15; n_devices other
-    than the world size says why."""
-    with pytest.raises(NotImplementedError, match="A15"):
-        pmesh.make_mesh(model_parallel=2)
-    with pytest.raises(NotImplementedError, match="A15"):
-        pmesh.shard_batch_spatial(None, {})
-    with pytest.raises(NotImplementedError, match="A15"):
-        pmesh.spatial_sharding(None, 5)
+    """Without a process group make_mesh raises; n_devices other than the
+    world size says why; a world size that model_parallel does not divide
+    names both."""
     with pytest.raises(RuntimeError, match="init_distributed"):
         pmesh.make_mesh()
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        pmesh.make_mesh(model_parallel=2)
     monkeypatch.setattr(pmesh.dist, "is_initialized", lambda: True)
     monkeypatch.setattr(pmesh.dist, "get_world_size", lambda group=None: 2)
     monkeypatch.setattr(distributed, "_RANK_DEVICE", torch.device("cpu"))
     with pytest.raises(ValueError, match="one process a device"):
         pmesh.make_mesh(n_devices=4)
+    with pytest.raises(ValueError, match="2 ranks .* not divisible by "
+                                         "model_parallel=4"):
+        pmesh.make_mesh(model_parallel=4)
+    monkeypatch.setattr(pmesh.dist, "get_world_size", lambda group=None: 3)
+    with pytest.raises(ValueError, match="3 ranks .* not divisible by "
+                                         "model_parallel=2"):
+        pmesh.make_mesh(model_parallel=2)
 
 
 def test_init_distributed_is_explicit(monkeypatch, tmp_path):
