@@ -5,6 +5,7 @@
     python3 chip_smoke.py --slice6    # steps 1-3, 5, 8a and 11
     python3 chip_smoke.py --slice7    # steps 1-3 and 12
     python3 chip_smoke.py --slice8    # steps 1-3 and 13
+    python3 chip_smoke.py --slice9    # steps 1-3 and 14
 
 1. Prints the card's name and power limit, builds the kernels
    (csrc/softargmax.cu and csrc/fused_bottleneck.cu, one nvcc each, in
@@ -17,8 +18,10 @@
    refuse strided or misaligned logits; K3 also at batch 1 pair, at
    layer1.1 and on a plane that is not a multiple of its tile. K1 and K2
    also at a 1-pair heatmap's rows under M = 2 and M = 4 ((2, 32, 64, 19),
-   (2, 16, 64, 19)), K3 on every haloed tile phase 13 gives it (layer1.0
-   at 33, 17 and 18 rows, layer2.x at 17, 9 and 10).
+   (2, 16, 64, 19)) and at the whole 192 px heatmap ((2, 48, 48, 19),
+   (8, 48, 48, 19)), K3 on every haloed tile phase 13 gives it (layer1.0
+   at 33, 17 and 18 rows x 64, layer2.x at 17, 9 and 10 x 32; layer1.0
+   and layer1.1 at 13 and 14 rows x 48 and the whole 48 x 48 plane).
 3. Serving path: three requests of four uint8 stereo pairs through
    `CDRNetInferencer.predict_batch` at the width of configs/mads_3d.yaml
    (CDRNet-101, 256 px, 19 joints), bf16 with fused_inference=True, from
@@ -192,7 +195,8 @@
       with save_pack; make_eval_step_cdr on 4 pairs (one padded). Model
       ranks' pred_2d and pred_3d bit-equal; fp32 keypoints within
       S8_FP32_KP_PX, heatmap rows within S8_FP32_HM of max|heatmap| and
-      pred_3d within phase 11's export rule (s8_check); bf16 within
+      pred_3d within EXPORT_ATOL of the DLT of the rank's own pred_2d
+      (s8_check; against the unsplit pred_3d reported); bf16 within
       S8_BF16_*; int8's encoder codes bit-equal, cf_out's codes bit-equal
       to the unsplit CanonicalFusion on each rank's rows and within one
       code of the unsplit forward's, the split decoder on the unsplit
@@ -206,7 +210,28 @@
    Each rank's forward at 1 pair timed (wall ms), and in a run of its
    own every all_reduce timed between synchronisations (the halos' ms a
    forward), beside the unsplit forward's wall ms.
-14. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
+   c. In b's ranks, CDRNet-101 at 192 px over M = 4 (48 rows a rank),
+      whose split gathers before layer4.0 (parallel/spatial.py
+      gather_point): fp32, bf16 fused and int8 (a's pack) at 1 pair
+      against the unsplit forwards at 192 px, fp32 and bf16 within a's
+      bounds on the whole heatmaps, int8's codes before the gather
+      bit-equal row by row; each forward 32 halos, one gather and no
+      keypoint combine, K1 once and (bf16) K3 three times (layer1.0-1.2,
+      on 13- and 14-row tiles); wall ms at 1 pair each way.
+14. Slice 9, the loops on a (data, model) mesh: this script starts itself
+    twice (`--s9-child`, gloo on cuda:0, cuDNN deterministic, TF32 off)
+    to run loop_cdr.run for CDRNet-101 at 256 px on a 1 x 2 mesh
+    (make_mesh(model_parallel=2): one data shard, two model ranks that
+    train the whole images) on phase 12's tree, whole in the device frame
+    cache, 32 pairs a step, 3 epochs (WARMUP 1) with checkpoints into one
+    shared weights root; then loop_cdr.run in this process at M = 1 on
+    the same tree. The model ranks' histories, final weights and best.pth
+    (against rank 1's best snapshot) bit-equal; the ranks within phase
+    12's bounds of the one process; 2 K1 + 1 K2 an epoch a rank; no halo,
+    gather or keypoint exchange; best.pth, latest.pth and latest.opt.pt
+    written once; the epochs' seconds and peak memory a rank beside the
+    one process's.
+15. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
 
 It needs one CUDA device. Without one, or when any phase fails, it exits
 non-zero and prints no result.
@@ -362,7 +387,12 @@ SOFTARGMAX_SHAPES = (("2 images", (2, 64, 64, 19)),
                      ("rows of M=2", (2, 32, 64, 19)),
                      ("rows of M=2, 4 pairs", (8, 32, 64, 19)),
                      ("rows of M=2, 2 pairs", (4, 32, 64, 19)),
-                     ("rows of M=4", (2, 16, 64, 19)))
+                     ("rows of M=4", (2, 16, 64, 19)),
+                     # phase 13 c: at 192 px over M = 4 the forward gathers
+                     # before layer4.0, so K1 takes the whole 48 x 48
+                     # heatmap of 1 pair (and of 4 pairs, checked beside)
+                     ("192 px, 1 pair", (2, 48, 48, 19)),
+                     ("192 px, 4 pairs", (8, 48, 48, 19)))
 # row 0, columns 0-31 of the logits (in K1's first chunk of an image) lie
 # 120 above the rest, so that e^{m_c - M} of every other chunk, and of the
 # first chunk's other runs, underflows to 0 in fp32 where K1 combines them
@@ -580,8 +610,12 @@ LAYER11 = (256, 64, False, 64)
 RAGGED = (64, 64, True, (36, 44))
 # phase 13's haloed tiles: a model rank's rows and one row of each
 # neighbour's (one at the global edge), at M = 2 and M = 4, checked at 1 and
-# 4 pairs (S8_PAIRS: the bf16 forwards that fuse)
-HALOED = {"layer1.0": (64, 64, True, ((33, 64), (17, 64), (18, 64))),
+# 4 pairs (S8_PAIRS: the bf16 forwards that fuse); at 192 px over M = 4
+# layer1.0-1.2 fuse on 12-row blocks (13 and 14 rows with the halo), and
+# the unsplit reference on the whole 48 x 48 plane
+HALOED = {"layer1.0": (64, 64, True, ((33, 64), (17, 64), (18, 64),
+                                      (13, 48), (14, 48), (48, 48))),
+          "layer1.1": (256, 64, False, ((13, 48), (14, 48), (48, 48))),
           "layer2.x": (512, 128, False, ((17, 32), (9, 32), (10, 32)))}
 
 
@@ -3640,6 +3674,31 @@ def _finish(procs, timeout):
     return out
 
 
+def s7_tree(work):
+    """Phase 12's MADS tree in `work`: S7_FRAMES frames of each of
+    S7_MOVEMENTS a split, 768x1024 JPEGs."""
+    import os
+    from fast3dhpe_tpu_torch.data import synthetic
+    mads = os.path.join(work, "s7_mads")
+    synthetic.make_synthetic_mads(mads, n_frames=S7_FRAMES,
+                                  movements=S7_MOVEMENTS, img_w=RAW_W,
+                                  img_h=RAW_H)
+    return mads
+
+
+def s7_cfg(work, mads, pairs, name, epochs=S7_EPOCHS, cache_bytes=0):
+    """configs/mads_3d.yaml on the tree at `pairs` a batch, augmentation
+    off, WARMUP 1, written to <work>/<name>.yaml."""
+    import os
+    return app_config(
+        "configs/mads_3d.yaml", os.path.join(work, f"{name}.yaml"), mads,
+        MODEL={"PRETRAINED": "", "NAME": name},
+        DATASET={"FLIP": False, "ROT_FACTOR": 0, "SCALE_FACTOR": 0,
+                 "OCCLUSION": "None", "DEVICE_CACHE_BYTES": cache_bytes},
+        TRAIN={"BATCH_SIZE": pairs, "EPOCH": epochs, "WARMUP": 1},
+        TEST={"BATCH_SIZE": pairs})
+
+
 def run_dp_gloo(dev, work):
     """b. Two gloo ranks sharing cuda:0, each `loop_cdr.run(cfg,
     mesh=make_mesh())` at 16 pairs, against one process at 32, on a MADS
@@ -3647,26 +3706,12 @@ def run_dp_gloo(dev, work):
     NCCL two-ranks probe beside them."""
     import os
     from fast3dhpe_tpu_torch.config import load_config
-    from fast3dhpe_tpu_torch.data import synthetic
     from fast3dhpe_tpu_torch.train import loop_cdr
     t0 = time.perf_counter()
-    mads = os.path.join(work, "s7_mads")
-    synthetic.make_synthetic_mads(mads, n_frames=S7_FRAMES,
-                                  movements=S7_MOVEMENTS, img_w=RAW_W,
-                                  img_h=RAW_H)
-
-    def cfg_at(pairs, name):
-        return app_config(
-            "configs/mads_3d.yaml", os.path.join(work, f"{name}.yaml"), mads,
-            MODEL={"PRETRAINED": "", "NAME": name},
-            DATASET={"FLIP": False, "ROT_FACTOR": 0, "SCALE_FACTOR": 0,
-                     "OCCLUSION": "None", "DEVICE_CACHE_BYTES": 0},
-            TRAIN={"BATCH_SIZE": pairs, "EPOCH": S7_EPOCHS, "WARMUP": 1},
-            TEST={"BATCH_SIZE": pairs})
-
+    mads = s7_tree(work)
     n_pairs = len(S7_MOVEMENTS) * S7_FRAMES
-    rank_cfg, one_cfg = cfg_at(n_pairs // 2, "dist"), cfg_at(n_pairs,
-                                                               "single")
+    rank_cfg, one_cfg = (s7_cfg(work, mads, n_pairs // 2, "dist"),
+                         s7_cfg(work, mads, n_pairs, "single"))
     tree_s = time.perf_counter() - t0
     probe_port, port = free_port(), free_port()
     probe = [_spawn_self("--nccl-probe", r, probe_port,
@@ -3826,6 +3871,13 @@ S8_FP32_KP_PX, S8_FP32_HM = 1e-3, 1e-4   # px; of max|heatmap|
 # keypoints'
 S8_BF16_HM, S8_BF16_KP_PX = 2e-2, 0.5
 S8_EVAL_RTOL, S8_EVAL_3D_RTOL = 1e-4, 1e-2
+# c: 192 px over M = 4: 48 rows a rank, which the encoder splits through
+# layer3 (12, 6, 3 rows) and gathers before layer4.0, whose stride-2 window
+# finds 3 rows a rank (parallel/spatial.py gather_point)
+S8_GATHER_SIZE, S8_GATHER_M, S8_GATHER_PAIRS = 192, 4, 1
+S8_GATHER_AT = "layer4.0"
+S8_GATHER_HALOS = 32              # the stem, the max-pool, layers 1-3's 30
+S8_GATHER_K3 = 3                  # layer1.0-1.2 fuse at 48 x 48
 S8_TIMED = 10                     # timed forwards at 1 pair, each way
 S8_HALO_TIMED = 3                 # forwards with every all_reduce timed
 S8_CHILD_TIMEOUT = 300            # s: a gloo rank's whole run
@@ -3856,9 +3908,20 @@ def s8_forward(model, imgs, projs):
             "launches": launches, "counts": dict(COUNTS)}
 
 
-def s8_int8_forward(model, imgs, projs):
+def s8_repeated(model, imgs, projs):
+    """s8_forward, whether a second forward on the same inputs gives the
+    same pred_2d and heatmaps bit for bit, and its pred_3d."""
+    out = s8_forward(model, imgs, projs)
+    again = s8_forward(model, imgs, projs)
+    out["repeat_equal"] = (torch.equal(again["kp"], out["kp"])
+                           and torch.equal(again["hm"], out["hm"]))
+    out["p3_again"] = again["p3"]
+    return out
+
+
+def s8_int8_forward(model, imgs, projs, keep_codes=False):
     """The int8 forward with the encoder's last codes (and their scale)
-    and cf_out's recorded."""
+    and cf_out's recorded, and with keep_codes every requant's codes."""
     from fast3dhpe_tpu_torch.ops import quant as Q
     codes, scales, orig = [], [], Q.requant
 
@@ -3876,6 +3939,8 @@ def s8_int8_forward(model, imgs, projs):
     cf = len(codes) - 4               # cf_out, then the three deconvs
     out.update(n_codes=len(codes), enc_last=codes[cf - 1].cpu(),
                enc_scale=scales[cf - 1].cpu(), cf_out=codes[cf].cpu())
+    if keep_codes:
+        out["codes"] = [c.cpu() for c in codes]
     return out
 
 
@@ -3935,8 +4000,9 @@ def s8_wall_ms(fn, iters=S8_TIMED):
 def s8_child(rank, world, port, work):
     """One gloo rank of phase 13 on the card beside the others: the mesh
     of `world` model ranks (M = world, D = 1), the fp32, bf16 fused and
-    int8 forwards and the eval step on this rank's rows, then, once the
-    parent is idle, the bf16 and fp32 forwards timed, and the halo
+    int8 forwards and the eval step on this rank's rows (with spec
+    "gather", c's fp32, bf16 and int8 forwards at 192 px too), then, once
+    the parent is idle, the bf16 and fp32 forwards timed, and the halo
     all_reduces timed in a run of their own."""
     import os
     import torch.distributed as dist
@@ -3974,6 +4040,18 @@ def s8_child(rank, world, port, work):
             out["int8"] = s8_int8_forward(model8, b["image"], b["proj"])
             out["eval"] = s8_eval(models["fp32"], shard_batch_spatial(
                 mesh, inp["eval"]), dev, mesh)
+        gsize = spec["gather"]        # c's image size, 0 for none
+        if gsize:
+            b192 = shard_batch_spatial(mesh, {"image": inp["imgs192"],
+                                              "proj": inp["projs192"]})
+            for kind, model in models.items():
+                out[f"{kind} {gsize}"] = s8_repeated(model, b192["image"],
+                                                     b192["proj"])
+            model8 = replicate(mesh, qz.cdrnet_int8(
+                qz.load_pack(spec["pack"]), device=dev))
+            out[f"int8 {gsize}"] = s8_int8_forward(
+                model8, b192["image"], b192["proj"], keep_codes=True)
+            del model8
         deadline = time.perf_counter() + S8_CHILD_TIMEOUT
         while (not os.path.exists(os.path.join(work, "go"))
                and time.perf_counter() < deadline):
@@ -4001,6 +4079,9 @@ def s8_child(rank, world, port, work):
             with torch.inference_mode():
                 times[f"{kind} wall_ms"] = s8_wall_ms(
                     lambda: model(b["image"], b["proj"]))
+                if gsize:
+                    times[f"{kind} {gsize} wall_ms"] = s8_wall_ms(
+                        lambda: model(b192["image"], b192["proj"]))
         calls, orig = [], dist.all_reduce
 
         def timed(tensor, *args, **kw):
@@ -4060,6 +4141,11 @@ def s8_references(spec, inp, dev):
         ref["int8"]["enc_scale"].to(dev),
         projs8, S8_INT8_M)
     ref["eval"] = s8_eval(models["fp32"], on_device(inp["eval"], dev), dev)
+    x192, p192 = inp["imgs192"].to(dev), inp["projs192"].to(dev)
+    for kind, model in models.items():
+        ref[f"{kind} {S8_GATHER_SIZE}"] = s8_repeated(model, x192, p192)
+    ref[f"int8 {S8_GATHER_SIZE}"] = s8_int8_forward(model8, x192, p192,
+                                                    keep_codes=True)
     return ref, models
 
 
@@ -4072,45 +4158,65 @@ def s8_finish(procs, timeout, what):
         require(code == 0, f"{what}: rank {r} exited {code}:\n{log[-3000:]}")
 
 
+def s8_dlt(kp, projs, dev):
+    """The DLT of (B, V, J, 2) keypoints on the card, on the CPU."""
+    from fast3dhpe_tpu_torch.geometry.triangulation import dlt_triangulate
+    b, v, j, _ = kp.shape
+    with torch.inference_mode():
+        proj_j = projs.to(dev).float()[:, None].expand(b, j, v, 3, 4)
+        return dlt_triangulate(proj_j, kp.to(dev).transpose(1, 2)).cpu()
+
+
 def s8_dlt_noise(kp, projs, dev):
     """The DLT's own change under pred_2d x (1 +- 1e-7), on the card, and
     the scene's scale (the larger of the points' extent and
     RIG_DISTANCE_MM): phase 11's measure of how far rounding in pred_2d
     moves an untrained net's pred_3d (finish_export)."""
-    from fast3dhpe_tpu_torch.geometry.triangulation import dlt_triangulate
-    b, v, j, _ = kp.shape
-    with torch.inference_mode():
-        proj_j = projs.to(dev).float()[:, None].expand(b, j, v, 3, 4)
-        kp_t = kp.to(dev).transpose(1, 2)
-        dlt, up, down = (dlt_triangulate(proj_j, kp_t * f).cpu()
-                         for f in (1.0, 1.0 + 1e-7, 1.0 - 1e-7))
+    dlt, up, down = (s8_dlt(kp * f, projs, dev)
+                     for f in (1.0, 1.0 + 1e-7, 1.0 - 1e-7))
     scale = max(float(dlt.abs().max()), RIG_DISTANCE_MM)
     return max(float((d - dlt).abs().max()) for d in (up, down)) / scale, scale
 
 
-def s8_check(outs, ref, m, what, kinds, projs, dev):
+def s8_check(outs, ref, m, what, kinds, projs, dev, exchanges=None):
     """The model ranks against each other (bit-equal keypoints and 3D
-    points) and against the unsplit forward: fp32 keypoints within
-    S8_FP32_KP_PX, heatmap rows within S8_FP32_HM of max|heatmap| and
-    pred_3d within phase 11's rule (EXPORT_ATOL of the scene's scale, or
-    CPU_NOISE_X times the DLT's own change under pred_2d x (1 +- 1e-7) if
-    that is larger); bf16 within S8_BF16_*, its pred_3d reported only (the
-    DLT of an untrained net's keypoints turns bf16's S8_BF16_KP_PX-sized
-    moves into a large relative change); S8_HALOS halos and one keypoint
-    exchange a forward; K1 once a forward a rank, K3 once a fused block a
-    forward."""
+    points where split; where the forward gathers, each rank runs the rest
+    itself, and their keypoints within the bound below) and against the
+    unsplit forward: fp32 keypoints within S8_FP32_KP_PX, heatmap rows
+    within S8_FP32_HM of max|heatmap|; bf16 within S8_BF16_*; each rank's
+    pred_3d within EXPORT_ATOL of the scene's scale from the DLT of its own
+    pred_2d on the card, and against the unsplit pred_3d reported only
+    (the DLT of an untrained net's keypoints amplifies their rounding by
+    an amount that changes from call to call); `exchanges` a forward
+    (default S8_HALOS halos and one keypoint combine; where the forward
+    gathers, its heatmaps are whole, each held against the whole unsplit
+    one); K1 once a forward a rank, K3 once a block the unsplit forward
+    fuses."""
+    exchanges = exchanges or {"halo": S8_HALOS, "keypoints": 1}
+    gathered = "gather" in exchanges
     errs = {}
     for key in kinds:
         got, want = [o[key] for o in outs], ref[key]
-        for j, g in enumerate(got[1:], start=1):
-            require(torch.equal(g["kp"], got[0]["kp"])
-                    and torch.equal(g["p3"], got[0]["p3"]),
-                    f"{what} {key}: model rank {j}'s pred_2d / pred_3d "
-                    f"differ from rank 0's")
+        fp32 = key.startswith("fp32")
+        hm_tol, kp_tol = ((S8_FP32_HM, S8_FP32_KP_PX) if fp32
+                          else (S8_BF16_HM, S8_BF16_KP_PX))
+        ranks_equal = all(torch.equal(g["kp"], got[0]["kp"])
+                          and torch.equal(g["p3"], got[0]["p3"])
+                          for g in got[1:])
+        ranks_gap = max(float((g["kp"] - got[0]["kp"]).abs().max())
+                        for g in got)
+        # split, the ranks combine one set of statistics; gathered, each
+        # rank runs the rest of the network on its own, and cuDNN's
+        # kernels need not round alike in two processes
+        require(ranks_equal or (gathered and ranks_gap <= kp_tol),
+                f"{what} {key}: model ranks' pred_2d / pred_3d differ from "
+                f"rank 0's by up to {ranks_gap} px")
         h = want["hm"].shape[2] // m
         scale = float(want["hm"].abs().max())
-        hm_err = max(float((g["hm"] - want["hm"][:, :, j * h:(j + 1) * h])
-                           .abs().max()) for j, g in enumerate(got))
+        hm_err = max(float((g["hm"] - (
+            want["hm"] if "gather" in exchanges
+            else want["hm"][:, :, j * h:(j + 1) * h])).abs().max())
+            for j, g in enumerate(got))
         hm_err /= scale
         kp_err = float((got[0]["kp"] - want["kp"]).abs().max())
         p3_rel = float(((got[0]["p3"] - want["p3"]).norm(dim=-1)
@@ -4118,31 +4224,51 @@ def s8_check(outs, ref, m, what, kinds, projs, dev):
         noise, scale3 = s8_dlt_noise(want["kp"], projs[:want["kp"].shape[0]],
                                      dev)
         p3_err = float((got[0]["p3"] - want["p3"]).abs().max()) / scale3
-        fp32 = key.startswith("fp32")
-        hm_tol, kp_tol = ((S8_FP32_HM, S8_FP32_KP_PX) if fp32
-                          else (S8_BF16_HM, S8_BF16_KP_PX))
-        p3_tol = max(EXPORT_ATOL, CPU_NOISE_X * noise) if fp32 else None
+        # pred_3d is the DLT of pred_2d: held to the DLT of the rank's own
+        # pred_2d, with pred_2d held against the unsplit forward's above.
+        # Against the unsplit pred_3d it is reported only: on the card an
+        # fp32 forward does not repeat its rounding (a second unsplit call
+        # moves pred_3d too, s8_repeated), and the DLT of an untrained
+        # net's keypoints amplifies a 4.6e-5 px move of pred_2d to 1e-3 of
+        # the scene's scale in one call and far less in another
+        again = (float((want["p3_again"] - want["p3"]).abs().max()) / scale3
+                 if gathered else None)
+        self_err = max(float((g["p3"] - s8_dlt(
+            g["kp"], projs[:want["kp"].shape[0]], dev)).abs().max())
+            for g in got) / scale3
         print(f"# slice 8 {what} {key}: heatmaps {hm_err:.3g} of max "
               f"(bound {hm_tol}), pred_2d {kp_err:.3g} px (bound {kp_tol}), "
-              f"pred_3d {p3_err:.3g} of the scene's scale (bound {p3_tol}; "
-              f"the DLT's own change under pred_2d x (1 +- 1e-7) "
-              f"{noise:.3g}), {p3_rel:.3g} relative a point; launches "
-              f"{[g['launches'] for g in got]}; exchanges "
+              f"pred_3d against the DLT of the rank's own pred_2d "
+              f"{self_err:.3g} of the scene's scale (bound {EXPORT_ATOL}); "
+              f"against the unsplit forward's {p3_err:.3g} of the scene's "
+              f"scale (the DLT's own change under pred_2d x (1 +- 1e-7) "
+              f"{noise:.3g}), {p3_rel:.3g} relative a point; model ranks "
+              f"bit-equal {ranks_equal} (pred_2d up to {ranks_gap:.3g} px "
+              f"apart)"
+              + (f"; a second forward bit-equal to the first, by rank "
+                 f"{[g['repeat_equal'] for g in got]}, unsplit "
+                 f"{want['repeat_equal']} (its pred_3d moved {again:.3g} "
+                 f"of the scene's scale)" if gathered else "")
+              + f"; launches {[g['launches'] for g in got]}; exchanges "
               f"{got[0]['counts']}")
         require(hm_err <= hm_tol and kp_err <= kp_tol
-                and (p3_tol is None or p3_err <= p3_tol),
+                and self_err <= EXPORT_ATOL,
                 f"{what} {key}: heatmaps {hm_err} of max, pred_2d {kp_err} "
-                f"px, pred_3d {p3_err} of the scene's scale (bound {p3_tol})"
-                f" against the unsplit forward")
+                f"px against the unsplit forward, pred_3d {self_err} of the "
+                f"scene's scale from the DLT of its own pred_2d")
         for j, g in enumerate(got):
-            require(g["counts"] == {"halo": S8_HALOS, "keypoints": 1},
+            require(g["counts"] == exchanges,
                     f"{what} {key} rank {j}: exchanges {g['counts']}, "
-                    f"predicted {S8_HALOS} halos and 1 keypoint combine")
+                    f"predicted {exchanges}")
             require_counts(g["launches"], 1, 1, 0,
                            want["launches"]["fused_bottleneck"],
                            f"{what} {key} rank {j}")
         errs[key] = {"hm": hm_err, "kp_px": kp_err, "p3_rel": p3_rel,
-                     "p3_of_scale": p3_err, "dlt_noise": noise}
+                     "p3_of_scale": p3_err, "dlt_noise": noise,
+                     "ranks_bit_equal": ranks_equal,
+                     "ranks_kp_gap_px": ranks_gap,
+                     "unsplit_repeat_p3_of_scale": again,
+                     "p3_vs_own_dlt": self_err}
     return errs
 
 
@@ -4211,6 +4337,53 @@ def s8_check_int8(outs, ref, m):
             "kp_px": kp_err}
 
 
+def s8_check_int8_gathered(outs, ref, m, n_split):
+    """c's int8 forward at 192 px over M = m against the unsplit int8
+    forward on the same pack: the n_split codes before the gather (the
+    input, the stem and 3 a block of layers 1-3) bit-equal row by row;
+    after it (layer4, cf_out, the decoder) each rank's whole codes
+    against the unsplit ones, reported; pred_2d bit-equal across the
+    model ranks and, with the heatmaps, within phase 11's card-vs-CPU
+    bounds; S8_GATHER_HALOS halos and one gather, K1 once, no K3."""
+    key = f"int8 {S8_GATHER_SIZE}"
+    want = ref[key]
+    split_equal, after_equal = True, True
+    for j, o in enumerate(outs):
+        got = o[key]["codes"]
+        require(len(got) == len(want["codes"]),
+                f"{key} rank {j}: {len(got)} requants, unsplit "
+                f"{len(want['codes'])}")
+        for i, (a, b) in enumerate(zip(got, want["codes"])):
+            if i < n_split:
+                h = b.shape[1] // m
+                split_equal &= (a.shape[1] == h
+                                and torch.equal(a, b[:, j * h:(j + 1) * h]))
+            else:
+                after_equal &= torch.equal(a, b)
+    hm_err = max(float((o[key]["hm"] - want["hm"]).abs().max())
+                 for o in outs) / float(want["hm"].abs().max())
+    kp_err = float((outs[0][key]["kp"] - want["kp"]).abs().max())
+    same = all(torch.equal(o[key]["kp"], outs[0][key]["kp"]) for o in outs)
+    print(f"# slice 8 c {key} at M={m}: the {n_split} codes before the "
+          f"gather bit-equal row by row {split_equal}; the codes after it "
+          f"(whole) bit-equal {after_equal}; heatmaps {hm_err:.3g} of max, "
+          f"pred_2d {kp_err:.3g} px; model ranks equal {same}; launches "
+          f"{[o[key]['launches'] for o in outs]}; exchanges "
+          f"{outs[0][key]['counts']}")
+    require(split_equal and same, f"{key}: the codes before the gather or "
+                                  f"the model ranks' pred_2d differ")
+    require(hm_err < HM_MAX_TOL and kp_err < 2.0,
+            f"{key}: heatmaps {hm_err}, pred_2d {kp_err} px")
+    for j, o in enumerate(outs):
+        require(o[key]["counts"] == {"halo": S8_GATHER_HALOS, "gather": 1},
+                f"{key} rank {j}: exchanges {o[key]['counts']}")
+        require_counts(o[key]["launches"], 1, 1, 0, 0, f"{key} rank {j}")
+    return {"codes_before_gather": n_split,
+            "codes_before_gather_equal": split_equal,
+            "codes_after_gather_equal": after_equal, "hm": hm_err,
+            "kp_px": kp_err}
+
+
 def s8_check_eval(outs, ref):
     """The split eval step's metrics against the unsplit step's: n exact,
     the loss and MPJPE2D within S8_EVAL_RTOL, MPJPE3D within
@@ -4270,8 +4443,20 @@ def s8_times(outs, one, m):
 def s8_shapes_checked(size, joints):
     """Every K1 input and K3 tile that phase 13 gives the kernels is one
     that step 2 holds against its plain version: K1 at SOFTARGMAX_SHAPES,
-    K3 at HALOED for every pair count in S8_PAIRS."""
+    K3 at HALOED for every pair count in S8_PAIRS; at 192 px over M = 4
+    (c) the whole heatmap to K1 after the gather, and layer1.0-1.2's
+    haloed tiles and whole plane to K3."""
     k1 = {shape for _, shape in SOFTARGMAX_SHAPES}
+    hm = S8_GATHER_SIZE // 4
+    shape = (2 * S8_GATHER_PAIRS, hm, hm, joints)
+    require(shape in k1, f"phase 13 c gives K1 {shape}, which step 2 does "
+                         f"not check")
+    rows = hm // S8_GATHER_M
+    tiles = {(rows + 1, hm), (rows + 2, hm), (hm, hm)}
+    for name in ("layer1.0", "layer1.1"):
+        require(tiles <= set(HALOED[name][3]),
+                f"phase 13 c gives K3 {name} tiles {tiles}, which step 2 "
+                f"does not check")
     hm = size // 4
     for m, pairs in ((S8_INT8_M, S8_PAIRS + (S8_INT8_PAIRS, S8_EVAL_PAIRS)),
                      (4, (1,))):
@@ -4291,13 +4476,27 @@ def s8_shapes_checked(size, joints):
 def run_slice8(inf, cfg, dev, smi):
     """Phase 13: CDRNet-101 at 256 px split over the image height, by
     gloo ranks sharing the card (a: M = 2; b: M = 4) against one unsplit
-    process."""
+    process; c: at 192 px over M = 4, which gathers before layer4.0."""
     import os
     import tempfile
     from fast3dhpe_tpu_torch.models import quantized as qz
+    from fast3dhpe_tpu_torch.models.resnet import RESNET_SPEC, encoder_ops
+    from fast3dhpe_tpu_torch.parallel.spatial import gather_point
     t0 = time.perf_counter()
     size = cfg.MODEL.IMAGE_SIZE[1]
     s8_shapes_checked(size, cfg.MODEL.NUM_JOINTS)
+    ops = encoder_ops(cfg.MODEL.NUM_LAYERS)
+    g = gather_point(S8_GATHER_SIZE, S8_GATHER_M, ops)
+    require(all(gather_point(size, m, ops) is None for m in (2, 4))
+            and g is not None and ops[g][0] == S8_GATHER_AT,
+            f"gather points: {size} px at M = 2, 4 "
+            f"{[gather_point(size, m, ops) for m in (2, 4)]}, "
+            f"{S8_GATHER_SIZE} px at M = {S8_GATHER_M} before "
+            f"{None if g is None else ops[g][0]}")
+    # the input's and the stem's codes, then three a bottleneck (two a
+    # basic block) before it
+    n_split = 2 + (3 if RESNET_SPEC[cfg.MODEL.NUM_LAYERS][0] == "bottleneck"
+                   else 2) * (g - 2)
     out = {}
     with tempfile.TemporaryDirectory() as work:
         sd = {k: v.detach().float().cpu()
@@ -4307,9 +4506,13 @@ def run_slice8(inf, cfg, dev, smi):
         rng = np.random.RandomState(SEED + 13)
         img_l, img_r, proj = stereo_request(rng, max(S8_PAIRS), size)
         eval_batch = train_batch(rng, S8_EVAL_PAIRS, 1, size)
+        l192, r192, p192 = stereo_request(rng, S8_GATHER_PAIRS,
+                                          S8_GATHER_SIZE)
         inp = {"imgs": normalized(img_l, img_r, "cpu"),
                "projs": torch.as_tensor(proj), "eval": {
-                   k: torch.as_tensor(v) for k, v in eval_batch.items()}}
+                   k: torch.as_tensor(v) for k, v in eval_batch.items()},
+               "imgs192": normalized(l192, r192, "cpu"),
+               "projs192": torch.as_tensor(p192)}
         torch.save(inp, os.path.join(work, "inputs.pt"))
         t = time.perf_counter()
         calib = []
@@ -4334,7 +4537,8 @@ def run_slice8(inf, cfg, dev, smi):
                 (4, ("fp32", "bf16"), (1,), False)):
             with open(os.path.join(work, "spec.json"), "w") as f:
                 json.dump(dict(spec, kinds=kinds, int8=int8, pairs={
-                    k: pairs for k in kinds}), f)
+                    k: pairs for k in kinds},
+                    gather=S8_GATHER_SIZE if world == S8_GATHER_M else 0), f)
             go = os.path.join(work, "go")
             if os.path.exists(go):
                 os.remove(go)
@@ -4357,13 +4561,23 @@ def run_slice8(inf, cfg, dev, smi):
                            weights_only=False) for r in range(world)])
         # the unsplit forward at 1 pair, timed alone on the card
         x1, p1 = inp["imgs"][:1].to(dev), inp["projs"][:1].to(dev)
+        x192 = inp["imgs192"].to(dev)
+        p192 = inp["projs192"].to(dev)
         with torch.inference_mode():
             one = {kind: s8_wall_ms(lambda: model(x1, p1))
                    for kind, model in models.items()}
+            one192 = {kind: s8_wall_ms(lambda: model(x192, p192))
+                      for kind, model in models.items()}
         del models
         for world, (kinds, pairs, int8, secs, outs) in runs.items():
             keys = [f"{k} {p}" for k in kinds for p in pairs]
             extra = ["int8", "eval"] if int8 else []
+            if world == S8_GATHER_M:
+                extra += [f"{k} {S8_GATHER_SIZE}"
+                          for k in kinds + ("int8",)]
+                out["gathered"] = s8_check_gathered(
+                    outs, ref, world, kinds, inp["projs192"], dev, n_split,
+                    one192)
             res = {"seconds": secs,
                    "vs_unsplit": s8_check(outs, ref, world, f"M={world}",
                                           keys, inp["projs"], dev),
@@ -4385,6 +4599,242 @@ def run_slice8(inf, cfg, dev, smi):
     print(f"# slice 8 ({smi}): {out['seconds']:.1f} s")
     return out
 
+
+
+def s8_check_gathered(outs, ref, m, kinds, projs, dev, n_split, one):
+    """c: the fp32 and bf16 forwards at 192 px over M = m against the
+    unsplit ones, with phase 13's bounds on the whole heatmaps the
+    gathered forward returns, S8_GATHER_HALOS halos, one gather and no
+    keypoint combine, K1 once and K3 S8_GATHER_K3 times (bf16) a rank's
+    forward; the int8 forward (s8_check_int8_gathered); each rank's wall
+    ms at 1 pair beside the unsplit forward's."""
+    keys = [f"{k} {S8_GATHER_SIZE}" for k in kinds]
+    require(ref[f"bf16 {S8_GATHER_SIZE}"]["launches"]["fused_bottleneck"]
+            == S8_GATHER_K3,
+            f"the unsplit bf16 forward at {S8_GATHER_SIZE} px launched K3 "
+            f"{ref[f'bf16 {S8_GATHER_SIZE}']['launches']}, predicted "
+            f"{S8_GATHER_K3} (layer1.0-1.2)")
+    res = {"vs_unsplit": s8_check(
+        outs, ref, m, f"c, {S8_GATHER_SIZE} px, M={m}", keys, projs, dev,
+        exchanges={"halo": S8_GATHER_HALOS, "gather": 1}),
+        "int8": s8_check_int8_gathered(outs, ref, m, n_split),
+        "times": {kind: {
+            "unsplit_wall_ms": one[kind],
+            "ranks_wall_ms": [o["times"][f"{kind} {S8_GATHER_SIZE} wall_ms"]
+                              for o in outs]} for kind in kinds}}
+    for kind, t in res["times"].items():
+        print(f"# slice 8 c {kind} at {S8_GATHER_SIZE} px, 1 pair, M={m}: "
+              f"unsplit {t['unsplit_wall_ms']:.1f} ms; ranks' wall "
+              + ", ".join(f"{ms:.1f}" for ms in t["ranks_wall_ms"]) + " ms")
+    return res
+
+
+# ------------------------------------------------------------- slice 9
+
+S9_M = 2                          # the mesh: D = 1 x M = 2 gloo ranks
+S9_EPOCHS = 3                     # WARMUP 1: a 2D epoch, two with the 3D
+#                                   loss, best.pth after the third
+S9_CACHE_BYTES = 1 << 30          # the tree whole on the card: one data
+#                                   shard, so the cache is on
+S9_CHILD_TIMEOUT = 600            # s: a gloo rank's whole run
+
+
+def s9_child(rank, world, port, cfg_path, root, out, device):
+    """One gloo rank of phase 14 on cuda:0 beside the other:
+    loop_cdr.run on a (1, world) mesh (make_mesh(model_parallel=world)),
+    cuDNN deterministic and TF32 off, into the shared weights root
+    without overwrite. Saves its history, its last best snapshot and
+    final weights (on the CPU), launches, collectives, epoch seconds and
+    peak memory."""
+    import os
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.parallel import (destroy_distributed,
+                                              init_distributed, make_mesh)
+    from fast3dhpe_tpu_torch.parallel.mesh import COUNTS
+    from fast3dhpe_tpu_torch.train import loop_cdr
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ.update(rank_env(rank, world, port))
+    require(init_distributed(backend="gloo", device=device),
+            "init_distributed made no group")
+    cuda = device.startswith("cuda")
+    models, best = [], []
+    init, snapshot = loop_cdr._init_model, loop_cdr._best_snapshot
+
+    def init_model(config, seed):
+        models.append(init(config, seed))
+        return models[-1]
+
+    def best_snapshot(state):
+        best.append(snapshot(state))
+        return best[-1]
+
+    loop_cdr._init_model, loop_cdr._best_snapshot = init_model, best_snapshot
+    try:
+        mesh = make_mesh(model_parallel=world)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        COUNTS.clear()
+        counters = reset_counts()
+        with EpochTimes() as et:
+            hist = loop_cdr.run(load_config(cfg_path), mesh=mesh, seed=SEED,
+                                weights_root=root)
+        launches = read_counts(counters)
+        counts = dict(COUNTS)
+    finally:
+        destroy_distributed()
+    torch.save({"history": hist, "launches": launches, "counts": counts,
+                "epoch_s": et.seconds,
+                "peak_bytes": torch.cuda.max_memory_allocated() if cuda
+                else 0,
+                "mesh": (mesh.rank, mesh.size, mesh.model_rank,
+                         mesh.model_size),
+                "spatial": models[0].spatial,
+                "best": {k: v.cpu() for k, v in best[-1].items()},
+                "final": {k: v.detach().cpu()
+                          for k, v in models[0].state_dict().items()}}, out)
+
+
+def _max_gap(a, b):
+    """The largest |a - b| over the tensors of two state dicts."""
+    return max(float((a[k].float() - b[k].float()).abs().max())
+               for k in a if a[k].numel())
+
+
+def run_slice9(dev, smi):
+    """Phase 14: loop_cdr.run for CDRNet-101 at 256 px on a 1 x 2 mesh
+    (D = 1 data shard, M = 2 model ranks: two gloo ranks sharing cuda:0,
+    each training the whole images) against loop_cdr.run in this process
+    at M = 1, on phase 12's tree, whole in the device frame cache."""
+    import os
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.train import loop_cdr
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        mads = s7_tree(work)
+        n_pairs = len(S7_MOVEMENTS) * S7_FRAMES
+        rank_cfg, one_cfg = (
+            s7_cfg(work, mads, n_pairs, name, S9_EPOCHS, S9_CACHE_BYTES)
+            for name in ("mesh", "single"))
+        tree_s = time.perf_counter() - t0
+        shared = os.path.join(work, "w_shared")
+        outs = [os.path.join(work, f"s9_rank{r}.pt") for r in range(S9_M)]
+        port = free_port()
+        t = time.perf_counter()
+        device = "cuda:0" if dev.type == "cuda" else "cpu"
+        done = _finish([_spawn_self("--s9-child", r, S9_M, port, rank_cfg,
+                                    shared, outs[r], device)
+                        for r in range(S9_M)], S9_CHILD_TIMEOUT)
+        ranks_s = time.perf_counter() - t
+        for r, (rc, log) in enumerate(done):
+            require(rc == 0, f"phase 14 rank {r} exited {rc}:\n{log[-3000:]}")
+        got = [torch.load(o, weights_only=False) for o in outs]
+        best_file = torch.load(os.path.join(shared, "mesh", "best.pth"),
+                               weights_only=True)
+        files = sorted(os.listdir(os.path.join(shared, "mesh")))
+        # one process at M = 1, after the ranks, on the card alone
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counts()
+        t = time.perf_counter()
+        try:
+            with EpochTimes() as et:
+                ref = loop_cdr.run(load_config(one_cfg), overwrite=True,
+                                   seed=SEED, scan_epochs=False,
+                                   weights_root=os.path.join(work, "w_one"),
+                                   device=dev.type)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        one_s = time.perf_counter() - t
+        one_launches = read_counts(counters)
+        one_peak = torch.cuda.max_memory_allocated()
+    h0, h1 = got[0]["history"], got[1]["history"]
+    keys = [k for k in h0 if not k.endswith("_per_sec")]
+    hist_gap = max(float(np.max(np.abs(np.asarray(h0[k]) - np.asarray(h1[k]))
+                                / np.maximum(np.abs(np.asarray(h1[k])),
+                                             1e-30))) for k in keys)
+    hist_equal = all(h0[k] == h1[k] for k in keys)
+    best_equal = all(torch.equal(got[1]["best"][k], best_file[k])
+                     and torch.equal(got[0]["best"][k], best_file[k])
+                     for k in best_file)
+    final_equal = all(torch.equal(got[0]["final"][k], got[1]["final"][k])
+                      for k in got[0]["final"])
+    gaps = {"history_rel": hist_gap,
+            "best": _max_gap(got[1]["best"], best_file),
+            "final": _max_gap(got[0]["final"], got[1]["final"])}
+    same_as_one = all(h0[k] == ref[k] for k in keys)
+    print(f"# slice 9, 1 x {S9_M} mesh ({smi}): the model ranks' histories "
+          f"bit-equal {hist_equal}, best.pth and rank 1's best snapshot "
+          f"bit-equal {best_equal}, final weights bit-equal {final_equal} "
+          f"(gaps {gaps}); the history bit-equal to one process at M = 1 "
+          f"{same_as_one}; rank 0 {h0}; 1 process {ref}")
+    require(hist_equal and best_equal and final_equal,
+            f"phase 14: the model ranks differ (histories {hist_equal}, "
+            f"best {best_equal}, final {final_equal}; gaps {gaps})")
+    require(h0["train_loss"][0] > 1e-5 and h0["grad_norm"][0] > 1e-5,
+            f"vacuous training: {h0}")
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                            / np.abs(np.asarray(b))))
+
+    errs = {"train_loss warmup": rel(h0["train_loss"][:1],
+                                     ref["train_loss"][:1]),
+            "train_loss after": rel(h0["train_loss"][1:],
+                                    ref["train_loss"][1:]),
+            "val_mpjpe_2d": rel(h0["val_mpjpe_2d"], ref["val_mpjpe_2d"]),
+            "val_loss warmup": rel(h0["val_loss"][:1], ref["val_loss"][:1])}
+    decades = {k: float(np.max(np.abs(np.log10(np.asarray(h0[k], float))
+                                      - np.log10(np.asarray(ref[k], float)))))
+               for k in ("val_mpjpe_3d", "val_loss")}
+    print(f"# slice 9 against 1 process: relative {errs}, decades {decades}")
+    for k, bound in (("train_loss warmup", S7_WARMUP_RTOL),
+                     ("train_loss after", S7_POST_RTOL),
+                     ("val_mpjpe_2d", S7_2D_RTOL),
+                     ("val_loss warmup", S7_2D_RTOL)):
+        require(errs[k] <= bound, f"1 x {S9_M} mesh vs 1 process: {k} "
+                                  f"{errs[k]:.3g} (bound {bound})")
+    for k, d in decades.items():
+        require(np.isfinite(h0[k]).all() and min(h0[k]) > 0 and d < 1.0,
+                f"1 x {S9_M} mesh vs 1 process: {k} {h0[k]} / {ref[k]}")
+    for r, g in enumerate(got):
+        require(g["mesh"] == (0, 1, r, S9_M) and g["spatial"] is None,
+                f"phase 14 rank {r}: mesh {g['mesh']}, spatial "
+                f"{g['spatial']}")
+        # an epoch: one train step (K1 + K2) and one eval batch (K1)
+        require_counts(g["launches"], S9_EPOCHS, 2, 1, 0,
+                       f"phase 14 rank {r}")
+        require(not {"halo", "gather", "keypoints"} & set(g["counts"])
+                and g["counts"]["barrier"] == 1,
+                f"phase 14 rank {r}: collectives {g['counts']}")
+    require_counts(one_launches, S9_EPOCHS, 2, 1, 0, "phase 14, 1 process")
+    require(files == ["best.pth", "latest.opt.pt", "latest.pth"],
+            f"phase 14 checkpoints: {files}")
+    out = {"tree_s": tree_s, "ranks_s": ranks_s, "one_process_s": one_s,
+           "history_bit_equal": hist_equal, "best_bit_equal": best_equal,
+           "final_bit_equal": final_equal, "gaps": gaps,
+           "history_equal_to_one_process": same_as_one,
+           "vs_one_process": errs, "decades": decades,
+           "epoch_s_by_rank": [g["epoch_s"] for g in got],
+           "one_process_epoch_s": et.seconds,
+           "peak_gib_by_rank": [g["peak_bytes"] / 2 ** 30 for g in got],
+           "one_process_peak_gib": one_peak / 2 ** 30,
+           "collectives_by_rank": [g["counts"] for g in got],
+           "launches_by_rank": [g["launches"] for g in got],
+           "one_process_launches": one_launches}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"# slice 9 ({smi}): epochs "
+          + "; ".join(f"rank {r} " + ", ".join(f"{x:.2f}" for x in e)
+                      for r, e in enumerate(out["epoch_s_by_rank"]))
+          + " s, 1 process " + ", ".join(f"{x:.2f}" for x in et.seconds)
+          + " s; peak " + ", ".join(f"{x:.2f}" for x in
+                                    out["peak_gib_by_rank"])
+          + f" GiB a rank, 1 process {out['one_process_peak_gib']:.2f} GiB;"
+          f" ranks' wall {ranks_s:.1f} s, 1 process {one_s:.1f} s; phase "
+          f"{out['seconds']:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------------ timing
@@ -4755,10 +5205,14 @@ def main():
     if args[:1] == ["--s8-child"]:
         rank, world, port, work = args[1:]
         return s8_child(int(rank), int(world), int(port), work)
+    if args[:1] == ["--s9-child"]:
+        rank, world, port, cfg_path, root, out, device = args[1:]
+        return s9_child(int(rank), int(world), int(port), cfg_path, root,
+                        out, device)
     if args not in ([], ["--kernels"], ["--slice6"], ["--slice7"],
-                    ["--slice8"]):
+                    ["--slice8"], ["--slice9"]):
         sys.exit("usage: python3 chip_smoke.py [--kernels | --slice6 | "
-                 "--slice7 | --slice8]")
+                 "--slice7 | --slice8 | --slice9]")
     kernels_only = args == ["--kernels"]
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4835,6 +5289,14 @@ def main():
                                            for k, v in phases.items()))
         print(json.dumps({"slice8": s8}))
         return
+    if args == ["--slice9"]:
+        del inf, cpu_inf
+        torch.cuda.empty_cache()
+        s9 = phase("slice 9", run_slice9, dev, smi)
+        print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in phases.items()))
+        print(json.dumps({"slice9": s9}))
+        return
     k1 = phase("K1 timing", time_softargmax, dev, gen)
     k2 = phase("K2 timing", time_softargmax_bwd, dev, gen)
     k3 = phase("K3 timing", time_bottleneck, dev, gen)
@@ -4877,6 +5339,8 @@ def main():
     vs_cpu = phase("train card vs CPU", train_vs_cpu, cfg, start_sd, dev)
     torch.cuda.empty_cache()
     s7 = phase("slice 7", run_slice7, cfg, dev, smi)
+    torch.cuda.empty_cache()
+    s9 = phase("slice 9", run_slice9, dev, smi)
 
     def launch_counts(key):
         by_path = {"serving": serve_launches[key],
@@ -4901,6 +5365,9 @@ def main():
         by_path.update({f"slice 8, {w} rank {r}": n[key]
                         for w in ("M=2", "M=4")
                         for r, n in enumerate(s8[w]["launches"])})
+        by_path.update({f"slice 9, 1 x {S9_M} rank {r}": n[key]
+                        for r, n in enumerate(s9["launches_by_rank"])})
+        by_path["slice 9, 1 process"] = s9["one_process_launches"][key]
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -4936,6 +5403,7 @@ def main():
     print(json.dumps({"slice6": s6}))
     print(json.dumps({"slice7": s7}))
     print(json.dumps({"slice8": s8}))
+    print(json.dumps({"slice9": s9}))
     print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phases.items()))
     print(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -7,9 +7,9 @@ gathered there by row index, and per step only the indices and the
 per-sample affines cross to the device. The cache holds raw (pre-warp)
 frames, so a cached batch is bit-identical to an uncached one.
 
-Under a data-parallel mesh (parallel/mesh.py) the cache lives on the
-rank's device: the JAX build replicates the frames over its mesh, and a
-PyTorch rank holds its own copy, on its own card.
+Under a mesh (parallel/mesh.py, any (data, model) shape) the cache lives
+on the rank's device: the JAX build replicates the frames over its mesh,
+and a PyTorch rank holds its own copy, on its own card.
 """
 
 from __future__ import annotations

@@ -24,15 +24,17 @@ A final partial batch is padded by repeating the last record and carries a
 (B,) 0/1 "row_valid" mask.
 
 Under a process group (parallel/distributed.py), as under the JAX
-package's multi-process runs, each rank keeps the records [rank::world]
-and makes BATCH_SIZE local rows a batch; every rank runs the same number
-of lockstep batches (from the largest shard), and rows past a rank's
-shard, or all of them where its shard is empty, are filler with
-row_valid 0. The device frame cache is then off: the ranks' shards hold
-different frames. The sharding follows the process group, as the JAX
-loaders' follows jax.process_count(); `mesh=` (parallel/mesh.py), the JAX
-API's argument, puts the batches on the mesh's device in place of `device`
-and keeps the device cache whole.
+package's multi-process runs, each data shard keeps the records
+[index::count] and makes BATCH_SIZE local rows a batch; every rank runs
+the same number of lockstep batches (from the largest shard), and rows
+past a rank's shard, or all of them where its shard is empty, are filler
+with row_valid 0. The shard is the data index under `mesh=`
+(parallel/mesh.py, the JAX API's argument: mesh.rank of mesh.size), so
+that the M model ranks of a data group load the same rows, and the
+process group's rank of its world without a mesh, as the JAX loaders'
+follows jax.process_count(). The device frame cache is off when there are
+several data shards, whose frames differ; `mesh=` puts the batches on the
+mesh's device in place of `device` and keeps the device cache whole.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -226,26 +228,35 @@ def _train_scale_rot(rng: np.random.RandomState, sf: float, rf: float):
     return s, r
 
 
-def _shard_for_host(records):
-    """(local records, global count, filler record). Under several
-    processes the local records are this rank's shard. The filler backs
+def _data_shard(mesh) -> Tuple[int, int]:
+    """(index, count) of this rank's data shard: the mesh's data index
+    and data groups under a mesh, else the process group's rank and
+    world size."""
+    if mesh is not None:
+        return mesh.rank, mesh.size
+    return distributed.process_index(), distributed.process_count()
+
+
+def _shard_for_host(records, mesh=None):
+    """(local records, global count, filler record). Under several data
+    shards (_data_shard) the local records are this rank's. The filler backs
     lockstep batches past the shard, also where the shard is empty (more
     ranks than records): such a rank must keep stepping, or the others
     wait in the collectives for ever. It is kept outside the records, so it
     is never counted valid; its rows carry row_valid 0."""
-    pc = distributed.process_count()
+    pi, pc = _data_shard(mesh)
     if pc > 1:
-        local = distributed.shard_records_for_host(
-            records, distributed.process_index(), pc)
+        local = distributed.shard_records_for_host(records, pi, pc)
         filler = local[0] if local else (records[0] if records else None)
         return local, len(records), filler
     return records, len(records), records[0] if records else None
 
 
-def _num_lockstep_batches(global_n: int, batch_size: int) -> int:
+def _num_lockstep_batches(global_n: int, batch_size: int,
+                          mesh=None) -> int:
     """The batches an epoch that every rank runs: those of the largest
     shard."""
-    max_shard = math.ceil(global_n / max(distributed.process_count(), 1))
+    max_shard = math.ceil(global_n / max(_data_shard(mesh)[1], 1))
     return math.ceil(max_shard / batch_size)
 
 
@@ -322,7 +333,7 @@ class _LoaderBase:
         self.image_set = image_set
         self.train = image_set == cfg.DATASET.TRAIN_SET
         self.records, self._global_num, self._filler = _shard_for_host(
-            records)
+            records, mesh)
         self.batch_size = (cfg.TRAIN.BATCH_SIZE if self.train
                            else cfg.TEST.BATCH_SIZE)
         self.image_size = tuple(cfg.MODEL.IMAGE_SIZE)
@@ -350,7 +361,8 @@ class _LoaderBase:
         self._pool.shutdown(wait=False)
 
     def __len__(self):
-        return _num_lockstep_batches(self._global_num, self.batch_size)
+        return _num_lockstep_batches(self._global_num, self.batch_size,
+                                     self.mesh)
 
     @property
     def num_samples(self):
@@ -367,16 +379,17 @@ class _LoaderBase:
     def _build_cache(self, paths, pair_stride):
         """DeviceFrameCache of `paths` on the loader's device, partial when
         over budget and there is no mesh; None (recorded) when there is no
-        budget, the frames have mixed sizes, or several processes hold
-        shards (logged)."""
+        budget, the frames have mixed sizes, or several data shards hold
+        other records (logged)."""
         if self._device_cache is not None or self._device_cache_failed:
             return self._device_cache
         cache = None
-        if self._device_cache_budget and distributed.process_count() > 1:
+        shards = _data_shard(self.mesh)[1]
+        if self._device_cache_budget and shards > 1:
             setup_logger().info(
-                "%s: device frame cache off under %d processes: each rank "
+                "%s: device frame cache off under %d data shards: each "
                 "holds other frames, so the batches are made from the host",
-                self.image_set, distributed.process_count())
+                self.image_set, shards)
         elif self._device_cache_budget:
             # a partial cache's lanes are a single-process schedule, as in
             # the JAX package (loader.py:400-405)

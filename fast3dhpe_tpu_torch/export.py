@@ -23,8 +23,10 @@ Differences from the JAX artifact, by design:
   with torch.export.passes.move_to_device_pass.
 - The eager Jacobi SVD of the DLT unrolls into the graph.
 Exports run unfused (no K3), as the JAX package exports. A model that
-carries a spatial mesh (parallel/mesh.py replicate) is not exported: its
-halo exchanges are collectives of a process group (ROADMAP A16).
+carries a spatial mesh (parallel/mesh.py replicate) is not exported, which
+is not applicable rather than missing: JAX's export takes platforms and no
+mesh, and a split model's halo exchanges are collectives of a live process
+group, which an artifact cannot hold.
 """
 
 from __future__ import annotations
@@ -73,9 +75,11 @@ def _export(serve: ServingModule, batch_size: int, image_size, n_views: int,
     from .device import resolve_device
     if any(getattr(m, "spatial", None) is not None for m in serve.modules()):
         raise NotImplementedError(
-            "export of a model on a spatial mesh is ROADMAP A16: its halo "
-            "exchanges are collectives of the process group; export the "
-            "model before replicate(mesh, model)")
+            "export of a model on a spatial mesh is not applicable: the "
+            "JAX package exports with no mesh, and the split model's halo "
+            "exchanges are collectives of the process group, which an "
+            "artifact cannot hold; export the model before "
+            "replicate(mesh, model)")
     dev = resolve_device(device)
     if n_views != 2:
         raise ValueError(f"CDRNet serves 2 views, got n_views={n_views}")

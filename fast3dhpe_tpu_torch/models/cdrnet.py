@@ -5,10 +5,14 @@ The views are stacked into the batch for the shared encoder and decoder,
 the heatmaps decode with the soft-argmax kernel (ops/softargmax.py), and
 one batched Jacobi-SVD DLT triangulates every (sample, joint).
 
-On a spatial mesh (parallel/spatial.py) each model rank runs the encoder,
-the fusion and the decoder on its rows of the images, the soft-argmax
-combines the ranks' K1 statistics (split_soft_argmax), and every model
-rank triangulates the same keypoints.
+On a spatial mesh (parallel/spatial.py) each model rank runs the encoder
+on its rows of the images. Where the split holds through the encoder, the
+fusion and the decoder run on the rank's rows too and the soft-argmax
+combines the ranks' K1 statistics (split_soft_argmax), so every model
+rank triangulates the same keypoints bit for bit; where the encoder
+gathered, they run whole on every model rank and the soft-argmax is one
+K1 launch, so each rank's keypoints are its own run of the unsplit
+shapes (on the card as far apart as two runs of the unsplit forward).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 from torch import nn
 
 from ..geometry.triangulation import dlt_triangulate, pinv_projection
-from ..parallel.spatial import check_split, spatial_of, split_soft_argmax
+from ..parallel.spatial import spatial_of, split_after, split_soft_argmax
 from .decoder import PoseDecoder
 from .layers import BatchNorm2d, Conv2d, bn_row_mask, run_seq
 from .resnet import ResNetEncoder
@@ -129,16 +133,15 @@ class CDRNet(nn.Module):
 
         Returns (pred_2d, pred_3d), plus the raw heatmaps (B, V, h, w, J)
         in the compute dtype with return_heatmaps=True. On a spatial mesh
-        imgs hold this model rank's rows of H, the heatmaps its rows of h,
-        and pred_2d and pred_3d are the whole image's, the same on every
-        model rank.
+        imgs hold this model rank's rows of H, and the heatmaps are its
+        rows of h where the split holds through the encoder
+        (parallel/spatial.py heatmap_split), else whole; pred_2d and
+        pred_3d are the whole image's on every model rank.
         """
         B, V, H, W, _ = imgs.shape
         if V != N_VIEWS:
             raise ValueError(f"expected {N_VIEWS} views, got {V}")
         mesh = spatial_of(self)
-        if mesh is not None:
-            check_split(H * mesh.model_size, mesh.model_size)
         mask = bn_row_mask(row_valid, valid_rows)      # (B,)
         # the views are stacked b-major, so the mask repeats per view
         # (jnp.repeat(mask, V, axis=0)), not tiled
@@ -146,14 +149,17 @@ class CDRNet(nn.Module):
         projs = projs.float()
         x = imgs.reshape(B * V, H, W, 3).to(self.dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
-        z = self.encoder(x, mask_bv)
+        z = self.encoder(x, mask_bv, mesh)
+        split = split_after(mesh, H, self.encoder.ops)
         fused = self.CF(z, projs, pinv_projection(projs), mask)
-        h = self.decoder(fused, mask_bv)               # (B*V, J, hh, hw)
+        h = self.decoder(fused, mask_bv, split)        # (B*V, J, hh, hw)
         # (B*V, hh, hw, J): a view of the channels_last output, which K1
         # takes as it is; contiguous() is a no-op then, and keeps an
         # exported graph, whose tracer assumed NCHW strides, right
         hm = h.permute(0, 2, 3, 1).contiguous()
-        kp = split_soft_argmax(hm, mesh) * (H / hm.shape[1])
+        if mesh is not None and split is None:
+            H *= mesh.model_size           # gathered: the whole image's
+        kp = split_soft_argmax(hm, split) * (H / hm.shape[1])
         kp = kp.reshape(B, V, self.num_joints, 2)
         proj_j = projs[:, None].expand(B, self.num_joints, V, 3, 4)
         pred_3d = dlt_triangulate(proj_j, kp.transpose(1, 2),

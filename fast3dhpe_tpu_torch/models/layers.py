@@ -12,11 +12,11 @@ Activations are NCHW tensors in channels_last memory, so cuDNN runs NHWC.
 Train mode follows the module's `.training` flag; the BN row mask (padded
 loader rows) is passed explicitly to every BatchNorm2d.
 
-On a spatial mesh (parallel/mesh.py replicate sets `spatial`), the
-convolutions, the transposed convolution and the max-pool take their
-halo rows from the neighbouring model ranks (parallel/spatial.py), run
-with H padding 0 and keep their W padding; eval-mode BN is per channel and
-stays local.
+Given a spatial mesh (`mesh=`, which the networks hand down while the
+split holds; parallel/spatial.py), the convolutions, the transposed
+convolution and the max-pool take their halo rows from the neighbouring
+model ranks, run with H padding 0 and keep their W padding; eval-mode BN
+is per channel and stays local. Without one (None) they run whole.
 """
 
 from __future__ import annotations
@@ -28,19 +28,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import all_reduce
-from ..parallel.spatial import deconv_rows, spatial_of, window_rows
+from ..parallel.spatial import deconv_rows, window_rows
 
 
 class Conv2d(nn.Conv2d):
-    """Conv2d with symmetric integer padding, computing in x.dtype. On a
-    spatial mesh it reads its halo rows (conv_halo) from the neighbouring
-    model ranks, zeros at the global edge, as its own padding would be."""
+    """Conv2d with symmetric integer padding, computing in x.dtype. Given
+    a spatial mesh it reads its halo rows (conv_halo) from the
+    neighbouring model ranks, zeros at the global edge, as its own padding
+    would be."""
 
-    spatial = None
-
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         x, pad = window_rows(x, 2, self.kernel_size[0], self.stride[0],
-                             self.padding[0], spatial_of(self), 0.0)
+                             self.padding[0], mesh, 0.0)
         y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, pad)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype).reshape(1, -1, 1, 1)
@@ -200,37 +199,40 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-def run_seq(seq: nn.Sequential, x, mask=None):
+def run_seq(seq: nn.Sequential, x, mask=None, mesh=None):
     """Apply an nn.Sequential, handing the BN row mask to its BatchNorm2d
-    children (Sequential itself passes one argument)."""
+    children and the spatial mesh (or None) to its convolutions
+    (Sequential itself passes one argument)."""
     for m in seq:
-        x = m(x, mask) if isinstance(m, BatchNorm2d) else m(x)
+        if isinstance(m, BatchNorm2d):
+            x = m(x, mask)
+        elif isinstance(m, (Conv2d, ConvTranspose2d)):
+            x = m(x, mesh)
+        else:
+            x = m(x)
     return x
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """ConvTranspose2d(k=4, s=2, p=1, no bias), computing in x.dtype
     (layers.py:85-117; the flax kernel (kh, kw, O, I) is this weight
-    (I, O, kh, kw) transposed). On a spatial mesh it reads one row of
+    (I, O, kh, kw) transposed). Given a spatial mesh it reads one row of
     each neighbouring model rank (zeros at the global edge) and crops the
     three output rows on each side that belong to them (deconv_halo)."""
-
-    spatial = None
 
     def __init__(self, in_channels, out_channels):
         super().__init__(in_channels, out_channels, 4, stride=2, padding=1,
                          bias=False)
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         w = self.weight.to(x.dtype)
         return deconv_rows(
             lambda x, pad: F.conv_transpose2d(x, w, None, self.stride, pad),
-            x, 2, self.kernel_size[0], self.stride[0], self.padding[0],
-            spatial_of(self))
+            x, 2, self.kernel_size[0], self.stride[0], self.padding[0], mesh)
 
 
 def max_pool(x, mesh=None):
-    """MaxPool2d(3, 2, 1), padding with -inf; on a spatial mesh with the
+    """MaxPool2d(3, 2, 1), padding with -inf; given a spatial mesh with the
     row above the rank's block from its upper neighbour (-inf at the
     global top)."""
     x, pad = window_rows(x, 2, 3, 2, 1, mesh, float("-inf"))

@@ -2,15 +2,16 @@
 Port of fast3dhpe_tpu/models/poseresnet.py: ResNet encoder, then the
 deconv decoder; (B, H, W, 3) images -> (B, H/4, W/4, J) heatmaps, NHWC as
 in the JAX package. On a spatial mesh (parallel/spatial.py) each model rank
-runs its rows of the images and returns its rows of the heatmaps
-(parallel/spatial.py gather_height assembles them)."""
+runs its rows of the images and returns its rows of the heatmaps where the
+split holds through the encoder (gather_height assembles them), else the
+whole heatmaps (parallel/spatial.py heatmap_split says which)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..parallel.spatial import check_split, spatial_of
+from ..parallel.spatial import spatial_of, split_after
 from .decoder import PoseDecoder
 from .layers import bn_row_mask
 from .resnet import ResNetEncoder
@@ -42,12 +43,11 @@ class PoseResNet(nn.Module):
         """x (B, H, W, 3) normalised -> heatmaps (B, h, w, J), a view of
         the decoder's channels_last output. row_valid and valid_rows as
         CDRNet's. On a spatial mesh x holds this model rank's rows and the
-        heatmaps are its rows."""
+        heatmaps are its rows, or whole where the encoder gathered."""
         mesh = spatial_of(self)
-        if mesh is not None:
-            check_split(x.shape[1] * mesh.model_size, mesh.model_size)
         mask = bn_row_mask(row_valid, valid_rows)
+        split = split_after(mesh, x.shape[1], self.encoder.ops)
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        h = self.decoder(self.encoder(x, mask), mask)
+        h = self.decoder(self.encoder(x, mask, mesh), mask, split)
         return h.permute(0, 2, 3, 1)

@@ -29,7 +29,8 @@ rows of every convolution, transposed convolution and max-pool in the
 int8 domain (pad values the zero point 0, and -128 for the pool), and the
 soft-argmax combines the ranks' statistics (split_soft_argmax): the int32
 arithmetic is exact, so each rank's codes are the unsplit codes of its
-rows.
+rows. The walk gathers the int8 codes where the float encoder gathers
+(gather_point over resnet.encoder_ops) and runs the rest whole.
 """
 
 from __future__ import annotations
@@ -44,10 +45,10 @@ from torch import nn
 from ..convert import jax_variables_to_state_dict
 from ..geometry.triangulation import dlt_triangulate, pinv_projection
 from ..ops import quant as Q
-from ..parallel.spatial import (check_split, deconv_rows, split_soft_argmax,
-                                window_rows)
+from ..parallel.spatial import (deconv_rows, gather_height, gather_point,
+                                split_soft_argmax, window_rows)
 from .cdrnet import CanonicalFusion
-from .resnet import EXPANSION, RESNET_SPEC
+from .resnet import EXPANSION, RESNET_SPEC, encoder_ops
 
 # ---------------------------------------------------------------------------
 # BN-folded fp layers from a reference-format state dict
@@ -111,6 +112,8 @@ class _CalibCtx:
     """BN-folded fp32 executor (NCHW activations, channels_last memory)
     that records |t| at every point where the int8 executor holds int8."""
 
+    mesh = None                 # calibration runs unsplit
+
     def __init__(self, layers, percentile=None):
         self.layers = layers
         self.percentile = percentile
@@ -156,7 +159,8 @@ class _CalibCtx:
 class _Int8Ctx:
     """Quantized executor: activations travel as (int8 NHWC, scale) pairs;
     residual sums and the head's output are fp32. `mesh`: a spatial mesh,
-    whose halo rows the convolutions, deconvolutions and the pool take."""
+    whose halo rows the convolutions, deconvolutions and the pool take
+    until the walk gathers (`gather`), after which it is None."""
 
     def __init__(self, rt: "Int8Pack", mesh=None):
         self.rt = rt
@@ -209,6 +213,13 @@ class _Int8Ctx:
         s = self.rt.scale(name)
         return Q.requant(x.float(), s), s
 
+    def gather(self, xs):
+        """The whole codes from the model ranks' rows; the executor runs
+        unsplit from here on."""
+        x8, s = xs
+        x8, self.mesh = gather_height(x8, self.mesh, 1), None
+        return x8, s
+
 
 # ---------------------------------------------------------------------------
 # The shared structural walk (quantized.py:234-287)
@@ -239,9 +250,11 @@ def _bottleneck_block(ctx, pre, x, stride, downsample):
 
 
 def _encoder_walk(ctx, x, depth):
-    """images (already through ctx.quant_input) -> encoder features."""
-    x = ctx.conv("encoder.conv1", x, 2, 3, relu=True, requant_out=True)
-    x = ctx.maxpool(x)
+    """images (already through ctx.quant_input) -> encoder features. On a
+    spatial mesh the codes are gathered before the op where the split
+    stops holding (gather_point, as the float encoder)."""
+    steps = [lambda x: ctx.conv("encoder.conv1", x, 2, 3, relu=True,
+                                requant_out=True), ctx.maxpool]
     block, sizes = RESNET_SPEC[depth]
     fn = _bottleneck_block if block == "bottleneck" else _basic_block
     expansion = EXPANSION[block]
@@ -253,8 +266,17 @@ def _encoder_walk(ctx, x, depth):
             s = stride if i == 0 else 1
             downsample = (i == 0 and
                           (s != 1 or inplanes != planes * expansion))
-            x = fn(ctx, f"encoder.layer{stage}_{i}", x, s, downsample)
+            steps.append(lambda x, pre=f"encoder.layer{stage}_{i}", s=s,
+                         ds=downsample: fn(ctx, pre, x, s, ds))
             inplanes = planes * expansion
+    m = ctx.mesh
+    g = (None if m is None else
+         gather_point(x[0].shape[1] * m.model_size, m.model_size,
+                      encoder_ops(depth)))
+    for i, step in enumerate(steps):
+        if i == g:
+            x = ctx.gather(x)
+        x = step(x)
     return x
 
 
@@ -469,11 +491,10 @@ def cdrnet_int8_apply(rt: Int8Pack, imgs, projs, dlt_method: str = "jacobi",
     """Quantized CDRNet forward, CDRNet's contract: imgs (B, V, H, W, 3)
     normalised, projs (B, V, 3, 4) -> pred_2d (B, V, J, 2), pred_3d
     (B, J, 3)[, heatmaps (B, V, h, w, J) fp32]. On a spatial mesh imgs
-    and the heatmaps are this model rank's rows; pred_2d and pred_3d are
+    are this model rank's rows, and the heatmaps too where the split holds
+    through the encoder, else whole (as CDRNet's); pred_2d and pred_3d are
     the whole image's, the same on every model rank."""
     B, V, H, W, _ = imgs.shape
-    if mesh is not None:
-        check_split(H * mesh.model_size, mesh.model_size)
     ctx = _Int8Ctx(rt, mesh)
     projs = projs.float()
     x = ctx.quant_input(imgs.reshape(B * V, H, W, 3))
@@ -483,7 +504,9 @@ def cdrnet_int8_apply(rt: Int8Pack, imgs, projs, dlt_method: str = "jacobi",
     f = ctx.requantize_external("cf_out", fused.permute(0, 2, 3, 1))
     h = _decoder_walk(ctx, f).contiguous()         # (B*V, hh, hw, J) fp32
     hh, J = h.shape[1], h.shape[-1]
-    kp = split_soft_argmax(h, mesh) * (H / hh)
+    if mesh is not None and ctx.mesh is None:
+        H *= mesh.model_size               # gathered: the whole image's
+    kp = split_soft_argmax(h, ctx.mesh) * (H / hh)
     kp = kp.reshape(B, V, J, 2)
     proj_j = projs[:, None].expand(B, J, V, 3, 4)
     pred_3d = dlt_triangulate(proj_j, kp.transpose(1, 2), method=dlt_method)

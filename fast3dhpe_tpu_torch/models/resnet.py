@@ -13,14 +13,17 @@ checkpointing, as save_only_these_names("conv_out")). A recomputed
 train-mode BN leaves its running statistics alone, so they update once a
 step.
 
-On a spatial mesh (parallel/spatial.py) the stem, the max-pool and every
-3x3 convolution take their halo rows through the layers' own spatial
-forms. A Bottleneck that the gate fuses at the GLOBAL height (local rows
-times the model ranks, so that the port fuses exactly the blocks that the
-JAX gate fuses at the global size) runs the fused kernel on its rows with
-one row of each neighbour's block input around them, and drops the output
-rows on that halo: the kernel's own zero padding of conv1's output is
-right at the global edge, where no row is added.
+On a spatial mesh (`mesh=`, parallel/spatial.py) the encoder hands the
+mesh to the stem, the max-pool and every block while the split holds
+(gather_point over `encoder_ops`), and they take their halo rows through
+the layers' own spatial forms. At the first op where it does not hold,
+the encoder gathers the activation (gather_height) and runs the rest
+whole, with no mesh. A Bottleneck that the gate fuses at the GLOBAL height
+(local rows times the model ranks, so that the port fuses exactly the
+blocks that the JAX gate fuses at the global size) runs the fused kernel on
+its rows with one row of each neighbour's block input around them, and
+drops the output rows on that halo: the kernel's own zero padding of
+conv1's output is right at the global edge, where no row is added.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops.bottleneck import (PackedBottleneck, fold_bn,
                               fused_bottleneck_packed, pack_weights)
-from ..parallel.spatial import crop_rows, halo_rows, spatial_of
+from ..parallel.spatial import (crop_rows, gather_height, gather_point,
+                                halo_rows)
 from .layers import BatchNorm2d, Conv2d, max_pool, run_seq
 
 # depth -> (block type, blocks per stage)
@@ -50,6 +54,21 @@ EXPANSION = {"basic": 1, "bottleneck": 4}
 
 
 REMAT_POLICIES = (None, "convs")
+
+
+def encoder_ops(num_layers: int) -> List[Tuple[str, int, int, int]]:
+    """The encoder's row windows in order, (name, k, s, p), as
+    parallel/spatial.py gather_point reads them: the stem, the max-pool,
+    then each block's 3x3 convolution at the block's stride. A strided
+    block's 1x1 downsample has the same stride and no halo, and a
+    BasicBlock's second 3x3 runs on the n / s >= 1 rows its halo of 1
+    needs, so one window a block decides where the split holds."""
+    ops = [("conv1", 7, 2, 3), ("maxpool", 3, 2, 1)]
+    for stage, blocks in enumerate(RESNET_SPEC[num_layers][1], start=1):
+        for i in range(blocks):
+            ops.append((f"layer{stage}.{i}", 3,
+                        2 if stage > 1 and i == 0 else 1, 1))
+    return ops
 
 
 def _save_convs(ctx, op, *args, **kwargs):
@@ -105,18 +124,16 @@ class BasicBlock(nn.Module):
         self.downsample = (_downsample(inplanes, planes, stride)
                            if downsample else None)
 
-    def forward(self, x, mask=None):
-        out = torch.relu(self.bn1(self.conv1(x), mask))
-        out = self.bn2(self.conv2(out), mask)
+    def forward(self, x, mask=None, mesh=None):
+        out = torch.relu(self.bn1(self.conv1(x, mesh), mask))
+        out = self.bn2(self.conv2(out, mesh), mask)
         residual = (x if self.downsample is None
-                    else run_seq(self.downsample, x, mask))
+                    else run_seq(self.downsample, x, mask, mesh))
         return torch.relu(out + residual)
 
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride) -> 1x1 (x4) residual block."""
-
-    spatial = None
 
     def __init__(self, inplanes, planes, stride=1, downsample=False,
                  fused_inference=False):
@@ -203,17 +220,18 @@ class Bottleneck(nn.Module):
         y = self._fused(halo_rows(x, 2, 1, 1, mesh, None))
         return crop_rows(y, 2, top, bottom)
 
-    def forward(self, x, mask=None):
-        mesh = spatial_of(self)
+    def forward(self, x, mask=None, mesh=None):
+        """mesh: the spatial mesh while the split holds (x is then this
+        model rank's rows), else None."""
         m = 1 if mesh is None else mesh.model_size
         if self.fusable(x.shape[2] * m, x.shape[3], x.dtype):
             return (self._fused(x) if mesh is None
                     else self._fused_tile(x, mesh))
-        out = torch.relu(self.bn1(self.conv1(x), mask))
-        out = torch.relu(self.bn2(self.conv2(out), mask))
-        out = self.bn3(self.conv3(out), mask)
+        out = torch.relu(self.bn1(self.conv1(x, mesh), mask))
+        out = torch.relu(self.bn2(self.conv2(out, mesh), mask))
+        out = self.bn3(self.conv3(out, mesh), mask)
         residual = (x if self.downsample is None
-                    else run_seq(self.downsample, x, mask))
+                    else run_seq(self.downsample, x, mask, mesh))
         return torch.relu(out + residual)
 
 
@@ -226,8 +244,6 @@ class ResNetEncoder(nn.Module):
 
     remat / remat_policy: rematerialise each block in the backward (see
     the module's docstring); an unknown policy raises ValueError."""
-
-    spatial = None
 
     def __init__(self, num_layers=101, fused_inference=False, remat=False,
                  remat_policy: Optional[str] = None):
@@ -256,6 +272,7 @@ class ResNetEncoder(nn.Module):
                 inplanes = planes * expansion
             setattr(self, f"layer{stage}", nn.Sequential(*layer))
         self.out_channels = inplanes
+        self.ops = encoder_ops(num_layers)
 
     def blocks(self):
         for stage in range(1, 5):
@@ -273,16 +290,27 @@ class ResNetEncoder(nn.Module):
             H, W = (_conv_out(d, 3, blk.stride, 1) for d in (H, W))
         return names
 
-    def forward(self, x, mask=None):
-        """mask: the (B,) BN row mask (layers.bn_row_mask) of x's rows."""
-        x = max_pool(torch.relu(self.bn1(self.conv1(x), mask)),
-                     spatial_of(self))
+    def forward(self, x, mask=None, mesh=None):
+        """mask: the (B,) BN row mask (layers.bn_row_mask) of x's rows.
+        mesh: a spatial mesh, x then holding this model rank's rows; the
+        output is its rows while the split holds through every op
+        (parallel/spatial.py split_after), else whole."""
+        g = (None if mesh is None else
+             gather_point(x.shape[2] * mesh.model_size, mesh.model_size,
+                          self.ops))
         remat = self.remat and torch.is_grad_enabled()
+        steps = [lambda x, mesh: torch.relu(self.bn1(self.conv1(x, mesh),
+                                                     mask)),
+                 max_pool]
         for _, blk in self.blocks():
             if remat:
-                x = checkpoint(blk, x, mask, use_reentrant=False,
-                               context_fn=_remat_contexts(
-                                   blk, self.remat_policy))
+                steps.append(lambda x, mesh, blk=blk: checkpoint(
+                    blk, x, mask, mesh, use_reentrant=False,
+                    context_fn=_remat_contexts(blk, self.remat_policy)))
             else:
-                x = blk(x, mask)
+                steps.append(lambda x, mesh, blk=blk: blk(x, mask, mesh))
+        for i, step in enumerate(steps):
+            if i == g:
+                x, mesh = gather_height(x, mesh, 2), None
+            x = step(x, mesh)
         return x

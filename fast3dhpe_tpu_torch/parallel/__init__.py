@@ -22,6 +22,8 @@ from .mesh import (  # noqa: F401
 from .spatial import (  # noqa: F401
     check_split,
     gather_height,
+    gather_point,
     halo_rows,
+    heatmap_split,
     split_soft_argmax,
 )

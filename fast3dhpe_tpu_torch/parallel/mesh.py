@@ -36,11 +36,16 @@ JAX names and what they are here:
     ranks (below, and parallel/spatial.py for the exchanges). The D*M
     ranks form D data groups of M model ranks: rank r has data index
     r // M and model index r % M, JAX's devices.reshape(n // M, M). The
-    model group (the M ranks of a data index) runs the halo exchanges and
-    the keypoint combine; the data group (the D ranks of a model index)
-    the row counts and the metrics. Eval forwards only: training, the
-    loops, the loaders and the device cache at M > 1 are ROADMAP A16 and
-    raise.
+    model group (the M ranks of a data index) runs the halo exchanges, the
+    gather and the keypoint combine; the data group (the D ranks of a
+    model index) the row counts, the metrics and, in training, the BN
+    statistics and the gradient. A split model serves eval forwards
+    (replicate installs the mesh on the networks); training on split
+    images is not applicable (parallel/spatial.py). The loops, the loaders
+    and the device cache take any (D, M) mesh with the JAX loops' meaning:
+    whole images, the records sharded by the data index, the model
+    replicated over the model axis (replicate(..., spatial=False)), so the
+    M model ranks of a data group run the same steps on the same rows.
 """
 
 from __future__ import annotations
@@ -124,15 +129,8 @@ def make_mesh(n_devices: Optional[int] = None,
 def mesh_device(mesh: Optional[Mesh], device) -> torch.device:
     """The device a loop or loader runs on: the mesh's under a mesh (which
     init_distributed chose; `device` is then not read), else `device`.
-    The loops, the loaders and the device cache call it; on a spatial mesh
-    they raise (ROADMAP A16)."""
+    The loops, the loaders and the device cache call it."""
     if mesh is not None:
-        if mesh.model_size > 1:
-            raise NotImplementedError(
-                f"the loops, the loaders and the device frame cache on a "
-                f"spatial mesh (model_parallel={mesh.model_size}) are "
-                f"ROADMAP A16: a spatial mesh serves eval forwards "
-                f"(shard_batch_spatial, the eval steps)")
         return mesh.device
     from ..device import resolve_device
     return resolve_device(device)
@@ -175,20 +173,26 @@ def broadcast_(group, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
 
 
 def barrier(mesh: Optional[Mesh]) -> None:
-    """Wait for every rank (nothing without a mesh)."""
+    """Wait for every rank of the world, all data and model ranks
+    (nothing without a mesh): the loops order global rank 0's writes of
+    the model directory against every rank's reads with it, and the data
+    group alone would leave the other model ranks out."""
     if mesh is not None:
         COUNTS["barrier"] += 1
-        dist.barrier(group=mesh.group)
+        dist.barrier()
 
 
-def replicate(mesh: Mesh, model: nn.Module) -> nn.Module:
+def replicate(mesh: Mesh, model: nn.Module, spatial: bool = True
+              ) -> nn.Module:
     """Rank 0's parameters and buffers on every rank; the data group on
     every BatchNorm2d of the port (as SyncBatchNorm.convert_sync_batchnorm
     sets it), so that train-mode BN takes global batch statistics; and on
-    a spatial mesh the mesh as `spatial` on every module whose class has
-    that field (the convolutions, the max-pool's encoder, the fused
-    bottleneck, the networks' soft-argmax), so that each takes its halo.
-    The model must already lie on mesh.device. Returns the model."""
+    a spatial mesh, with `spatial`, the mesh as `spatial` on every network
+    whose class has that field (CDRNet, PoseResNet, Int8CDRNet), whose
+    forward then takes this model rank's rows and hands the mesh to its
+    layers while the split holds. The training loops pass spatial=False:
+    they train whole images on every model rank, as the JAX loops do. The
+    model must already lie on mesh.device. Returns the model."""
     from ..models.layers import BatchNorm2d
     with torch.no_grad():
         broadcast_(dist.group.WORLD, list(model.parameters())
@@ -196,7 +200,7 @@ def replicate(mesh: Mesh, model: nn.Module) -> nn.Module:
     for m in model.modules():
         if isinstance(m, BatchNorm2d):
             m.process_group = mesh.group
-        if mesh.model_size > 1 and hasattr(type(m), "spatial"):
+        if spatial and mesh.model_size > 1 and hasattr(type(m), "spatial"):
             m.spatial = mesh
     return model
 
@@ -226,8 +230,8 @@ def spatial_sharding(mesh: Mesh, ndim: int, height: int) -> Tuple:
     (B, H, W, 3) mono -> [:, rows], the counterpart of JAX's
     P("data", None, "model") and P("data", "model") (the data axis is the
     rows a data group holds, as in shard_batch). Raises ValueError for
-    another ndim or an H that breaks the split rule
-    (parallel/spatial.py check_split)."""
+    another ndim or an H not divisible by M (parallel/spatial.py
+    check_split)."""
     from .spatial import check_split
     if ndim not in (4, 5):
         raise ValueError(f"expected a 4-D/5-D image batch, got ndim={ndim}")

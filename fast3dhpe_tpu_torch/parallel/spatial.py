@@ -5,9 +5,13 @@ axis. Port of what XLA gives fast3dhpe_tpu/parallel/mesh.py
 The JAX package runs one program over the global image and lets XLA
 partition every convolution by rows and insert the halo exchanges. PyTorch
 has no partitioner, so the port makes each step explicit. Model rank j of
-M holds image rows [j*H/M, (j+1)*H/M) (`check_split`: H divisible by 32*M,
-the encoder's total stride, so every stage splits into equal, even-aligned
-row blocks). Then:
+M holds image rows [j*H/M, (j+1)*H/M) (`check_split`: H divisible by M,
+as in JAX). The network's forward hands the mesh to each layer while the
+split holds (`gather_point`: every rank's block at an op's input is a
+whole multiple of the op's stride and holds the op's halo rows); at the
+first op where it does not, it gathers the activation once
+(`gather_height`) and runs the rest whole on every model rank, with no
+mesh. While split:
 
   - a convolution, max-pool or transposed convolution fetches the rows its
     window reaches beyond the rank's block from the neighbours
@@ -23,7 +27,8 @@ row blocks). Then:
     (`split_soft_argmax`), so every model rank decodes the same keypoints
     and the geometry after it runs replicated;
   - a heatmap-returning forward returns the rank's rows, and
-    `gather_height` assembles the whole heatmap.
+    `gather_height` assembles the whole heatmap (`heatmap_split` says
+    which of the two a forward returns).
 
 Every exchange is one `all_reduce` over the model group (parallel/mesh.py)
 of a zeroed buffer with one slot a rank, in which each rank writes what its
@@ -34,8 +39,10 @@ arrive bit for bit, -0.0 and NaN included, whatever their dtype. A
 point-to-point form (NCCL `batch_isend_irecv`) is later work (ROADMAP B).
 
 Training on a spatial mesh (train-mode BN over data x model, the adjoint
-of the halo exchange, K2 over a split heatmap) and uneven splits are
-ROADMAP A16: they raise.
+of the halo exchange, K2 over a split heatmap) is not applicable and
+raises: the JAX package trains no model on split images, and its docs call
+the layout a serving layout. Its training loops on a (data, model) mesh
+train whole images, replicated over the model axis (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -47,37 +54,78 @@ import torch
 from ..ops.softargmax import soft_argmax_fused, soft_argmax_stats
 from .mesh import all_reduce
 
-#: the encoder's total stride: stem 2, max-pool 2, layers 2-4 2 each
-SPLIT_STRIDE = 32
-
-A16 = "ROADMAP A16"
+NOT_APPLICABLE = (
+    "not applicable: no caller of the JAX package trains on split images "
+    "(shard_batch_spatial serves eval forwards; docs/SCALING.md calls it "
+    "a serving layout), and its training loops on a (data, model) mesh "
+    "train whole images, as the port's do")
 
 
 def check_split(height: int, model_size: int) -> None:
-    """The split rule: the global image height divisible by 32 * M, so that
-    every stage of the encoder splits into equal row blocks that start on
-    an even row. Raises ValueError naming the rule."""
-    if model_size > 1 and height % (SPLIT_STRIDE * model_size):
+    """The split rule, JAX's: the global image height divisible by M.
+    Raises ValueError naming the rule."""
+    if model_size > 1 and height % model_size:
         raise ValueError(
             f"spatial split: the image height {height} must be divisible by "
-            f"{SPLIT_STRIDE} x model_parallel = {SPLIT_STRIDE * model_size} "
-            f"(the encoder's total stride times the model ranks), so that "
-            f"every stage splits into equal, even-aligned row blocks; "
-            f"uneven splits are {A16}")
+            f"model_parallel = {model_size}, so that every model rank holds "
+            f"the same number of rows")
+
+
+def gather_point(height: int, model_size: int,
+                 ops: Sequence[Tuple[str, int, int, int]]) -> Optional[int]:
+    """Where a forward split over M = model_size ranks gathers: the index
+    into `ops` ((name, k, s, p) windows in order, models/resnet.py
+    encoder_ops) of the first op at which a rank's block of n rows breaks
+    the split, n % s != 0 (the block would not start where conv_halo
+    assumes) or n < the op's halo (halo_rows reads the neighbours' rows
+    only); None when the split holds through every op, or M = 1. The
+    activation is gathered (gather_height) before that op, which and
+    every op after it run whole. The height must pass check_split."""
+    check_split(height, model_size)
+    if model_size == 1:
+        return None
+    n = height // model_size
+    for i, (_, k, s, p) in enumerate(ops):
+        if n % s or n < max(conv_halo(k, s, p)):
+            return i
+        n //= s
+    return None
+
+
+def split_after(mesh, rows: int, ops) -> Optional[object]:
+    """The mesh that what follows `ops` runs on, for a forward of `rows`
+    image rows a rank: `mesh` while the split holds through every op
+    (gather_point None), None once the forward has gathered, or without a
+    mesh. The decoder's transposed convolutions need one row a rank, which
+    every split block holds."""
+    if mesh is None or gather_point(rows * mesh.model_size, mesh.model_size,
+                                    ops) is not None:
+        return None
+    return mesh
+
+
+def heatmap_split(model, rows: int) -> bool:
+    """Whether `model`'s forward on `rows` image rows a rank returns this
+    model rank's rows of the heatmap (the split held through the encoder)
+    rather than the whole heatmap (no spatial mesh, or the forward
+    gathered): the one question the eval steps ask before they gather."""
+    mesh = getattr(model, "spatial", None)
+    return split_after(mesh, rows, model.encoder.ops) is not None
 
 
 def spatial_of(module) -> Optional[object]:
-    """The spatial mesh that `replicate` installed on a module, or None.
-    A module in training mode on a spatial mesh raises: that needs
-    train-mode BN over data x model, the adjoint of the halo exchange and
-    K2 over a split heatmap."""
+    """The spatial mesh that `replicate` installed on a network, or None.
+    A network in training mode on a spatial mesh raises
+    NotImplementedError: training on split images would need train-mode
+    BN over data x model, the adjoint of the halo exchange and K2 over a
+    split heatmap, and is not applicable."""
     mesh = getattr(module, "spatial", None)
     if mesh is not None and module.training:
         raise NotImplementedError(
             f"training on a spatial mesh (model_parallel="
-            f"{mesh.model_size}) is {A16}: it needs train-mode BN over "
-            f"data x model, the adjoint of the halo exchange and K2 over a "
-            f"split heatmap; call .eval() to serve")
+            f"{mesh.model_size}) is {NOT_APPLICABLE}; call .eval() to "
+            f"serve, or replicate(mesh, model, spatial=False) to train "
+            f"whole images")
     return mesh
 
 

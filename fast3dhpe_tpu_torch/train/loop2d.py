@@ -20,12 +20,15 @@ best state is a clone of the model's state dict at the improving epoch,
 and the checkpoint writers copy what they are given before they return.
 
 Data parallelism (`mesh=`, parallel/mesh.py; the training CLIs under
-torchrun): each rank loads its shard of the records, the model is
+torchrun): each rank loads its data shard of the records, the model is
 `replicate`d once it is built or restored, and every step is the global
 batch's (train/steps.py), so the history and the best decisions are the
-same on every rank. Epochs then run batch by batch: the stacked epoch
-functions are single-process, as the JAX package's scan segments are
-fed from one host. Only rank 0 deletes or creates the model directory and
+same on every rank. A (D, M) mesh with M > 1 means what the JAX loop makes
+of it: D data shards of whole images, each replicated over its M model
+ranks, which load the same records and run the same steps (their
+histories and weights agree bit for bit). Epochs then run batch by
+batch: the stacked epoch functions are single-process, as the JAX
+package's scan segments are fed from one host. Only rank 0 deletes or creates the model directory and
 writes checkpoints (checkpoint.NullCheckpointWriter elsewhere); the
 directory is assumed shared by every host.
 """
@@ -262,7 +265,9 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
         if best is not None:
             best_acc = best
     if mesh is not None:
-        replicate(mesh, model)
+        # whole images on every model rank of a (D, M) mesh, as the JAX
+        # loop trains them
+        replicate(mesh, model, spatial=False)
 
     loss_fn = make_loss(config.LOSS.TYPE, config.LOSS.USE_TARGET_WEIGHT,
                         layout="NHWC")

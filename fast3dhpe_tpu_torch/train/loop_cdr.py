@@ -113,7 +113,9 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
         if best is not None and best > 0:
             best_err = best
     if mesh is not None:
-        replicate(mesh, model)
+        # whole images on every model rank of a (D, M) mesh, as the JAX
+        # loop trains them
+        replicate(mesh, model, spatial=False)
 
     loss_fn = make_loss(config.LOSS.TYPE, config.LOSS.USE_TARGET_WEIGHT)
     kw = dict(loss_3d_weight=config.TRAIN.LOSS_3D_WEIGHT, scale_3d=SCALE_3D,

@@ -24,13 +24,16 @@ average the ranks' gradients of their local losses (parallel/mesh.py says
 why that is not the JAX step). Without a mesh the arithmetic is the
 single-process one, operation for operation.
 
-Spatial partitioning (a mesh with model_size M > 1, parallel/spatial.py):
-the eval steps take this model rank's rows of the images
-(shard_batch_spatial). Every model rank of a data group computes the same
-keypoints, so the CDR eval step's losses and metrics reduce over the data
-group (`mesh.group`) only, never counted M times; the 2D eval step first
-gathers its heatmaps over the model group, then computes its loss and PCK
-as without a split. Training on a spatial mesh raises (ROADMAP A16).
+A (D, M) mesh with M > 1: every reduction runs over the data group
+(`mesh.group`), so the M model ranks of a data group compute the same
+step and nothing is counted M times. With a model that replicate made
+spatial (parallel/spatial.py), the eval steps take this model rank's rows
+of the images (shard_batch_spatial); the 2D eval step gathers its
+heatmaps over the model group when the forward returned the rank's rows
+(heatmap_split), then computes its loss and PCK as without a split. The
+training loops replicate with spatial=False and train whole images on
+every model rank; training on split images raises NotImplementedError,
+as not applicable (parallel/spatial.py spatial_of).
 
 An epoch function runs S batches from a device frame cache
 (data/device_cache.py): each batch is preprocessed on the device
@@ -50,7 +53,7 @@ from ..data.device_pipeline import (preprocess_mono_batch_cached,
                                     preprocess_stereo_batch_cached)
 from ..models.metrics import pck_counts, pck_from_counts, per_sample_mpjpe
 from ..parallel.mesh import all_reduce, row_counts
-from ..parallel.spatial import gather_height
+from ..parallel.spatial import gather_height, heatmap_split
 from .state import TrainState, clip_grads_by_norm, global_grad_norm
 
 
@@ -249,8 +252,9 @@ def make_train_step_2d(loss_fn, mesh=None) -> Callable:
 def make_eval_step_2d(loss_fn, mesh=None) -> Callable:
     """PoseResNet eval step (steps.py:80-100): batch-mean loss and acc, and
     the accumulatable loss_sum / hits / cnt / n; those of the global batch
-    under a mesh. On a spatial mesh the images are this model rank's rows
-    and the heatmaps are gathered over the model group first."""
+    under a mesh. With a spatial model the images are this model rank's
+    rows, and the heatmaps are gathered over the model group first where
+    the forward returned the rank's rows (heatmap_split)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
@@ -261,8 +265,8 @@ def make_eval_step_2d(loss_fn, mesh=None) -> Callable:
         mask = batch.get("row_valid")
         rows = row_counts(mesh, mask, batch["image"].shape[0], dev)
         out = model(batch["image"])
-        if mesh is not None and mesh.model_size > 1:
-            out = gather_height(out, mesh, 1)
+        if heatmap_split(model, batch["image"].shape[1]):
+            out = gather_height(out, model.spatial, 1)
         loss = loss_fn(out, batch["target"], batch["target_weight"],
                        sample_mask=mask, rows=rows)
         hits, cnt, _ = pck_counts(out, batch["target"], row_mask=mask)
