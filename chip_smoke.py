@@ -1,11 +1,13 @@
-"""Drive the PyTorch/CUDA port (fast3dhpe_tpu_torch) on one GPU.
+"""Drive the PyTorch/CUDA port (fast3dhpe_tpu_torch) on one GPU, and with
+--slice10 across four.
 
-    python3 chip_smoke.py             # everything below
+    python3 chip_smoke.py             # everything below but 15, one card
     python3 chip_smoke.py --kernels   # steps 1, 2 and the kernel timings
     python3 chip_smoke.py --slice6    # steps 1-3, 5, 8a and 11
     python3 chip_smoke.py --slice7    # steps 1-3 and 12
     python3 chip_smoke.py --slice8    # steps 1-3 and 13
     python3 chip_smoke.py --slice9    # steps 1-3 and 14
+    python3 chip_smoke.py --slice10   # steps 1-3 and 15, four cards
 
 1. Prints the card's name and power limit, builds the kernels
    (csrc/softargmax.cu and csrc/fused_bottleneck.cu, one nvcc each, in
@@ -21,7 +23,10 @@
    (2, 16, 64, 19)) and at the whole 192 px heatmap ((2, 48, 48, 19),
    (8, 48, 48, 19)), K3 on every haloed tile phase 13 gives it (layer1.0
    at 33, 17 and 18 rows x 64, layer2.x at 17, 9 and 10 x 32; layer1.0
-   and layer1.1 at 13 and 14 rows x 48 and the whole 48 x 48 plane).
+   and layer1.1 at 13 and 14 rows x 48 and the whole 48 x 48 plane);
+   for phase 15 also K1 on (8, 16, 64, 19) (4 pairs at M = 4) and K1 and
+   K2 on a data-parallel rank's 16 and 8 pairs ((32, 64, 64, 19),
+   (16, 64, 64, 19)).
 3. Serving path: three requests of four uint8 stereo pairs through
    `CDRNetInferencer.predict_batch` at the width of configs/mads_3d.yaml
    (CDRNet-101, 256 px, 19 joints), bf16 with fused_inference=True, from
@@ -231,10 +236,61 @@
     gather or keypoint exchange; best.pth, latest.pth and latest.opt.pt
     written once; the epochs' seconds and peak memory a rank beside the
     one process's.
-15. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
+15. Slice 10, the process group across cards (`--slice10` only: it
+    needs four cards and exits non-zero, naming them, on a host with
+    fewer; it prints all four `nvidia-smi` lines). The script starts
+    itself as ranks (`--s10-child`), one NCCL rank a card, rank r on
+    cuda:r, with a collective timeout of S10_COLL_TIMEOUT: first a world
+    of 4, then a world of 2 on cards 0-1; every rank waits until this
+    process has run the references on cuda:0 and written `go`, and at
+    the first rank that fails, or at S10_LAUNCH_TIMEOUT, this process
+    kills them all. The spatial exchanges take the neighbour form
+    (parallel/mesh.py: NCCL's point-to-point halos, all_gather for the
+    gather and the keypoints):
+   a. CDRNet-101 at 256 px (phase 3's weights) split over M = 4 (cards
+      0-3) and M = 2 (cards 0-1): fp32 (TF32 off) and bf16 fused at 1 and
+      4 pairs, int8 from a pack calibrated here at 1 and 4 pairs, the
+      eval step on 4 pairs (one padded), and at M = 4 the 192 px
+      forwards, which gather before layer4.0; each held against an
+      unsplit forward of the same weights on cuda:0 under phase 13's
+      limits (s8_check, s8_check_int8, s8_check_eval,
+      s8_check_gathered): 38 halos + 1 keypoint combine a forward at 256
+      px, 32 halos + 1 gather at 192 px, on every rank. Every halo of
+      every checked forward sends exactly its edge rows' bytes (the last
+      `top` rows down, the first `bottom` rows up; at an interior rank
+      top + bottom rows, 1/M of the slot form's M slots), printed a
+      forward in both forms. A rank's 1-pair forward timed (wall ms,
+      host clock between synchronisations), profiled (device busy
+      outside NCCL, the NCCL kernels' device ms, which hold the wait for
+      the peers), again in the slot form over the same cards, and the
+      forward's halos alone in both forms, beside the unsplit forward.
+   b. Data parallelism over NCCL at world 4 and 2 (8 and 16 pairs a
+      rank of a 32-pair global batch): one CDR train step from the same
+      start weights against the same step of the whole batch on cuda:0
+      (loss within S7_WARMUP_RTOL, grad_norm and the BN statistics within
+      S7_2D_RTOL; 224 BN, 1 gradient, 1 row-count and 1 metrics
+      all_reduce; 1 K1 + 1 K2), its warm step ms, the NCCL kernels'
+      device ms and the peak memory a rank beside one card's; then
+      loop_cdr.run (phase 12's 32-pair tree, 2 epochs, into one shared
+      weights root) within S7_* of one process, the histories equal on
+      every rank, one checkpoint set. Then `python -m
+      torch.distributed.run --standalone --nproc_per_node 4 -m
+      fast3dhpe_tpu_torch.apps.train_cdr` (torchrun) for one epoch, each
+      rank importing an audit hook (S10_AUDIT): exit 0, one checkpoint
+      set, every write under the weights root rank 0's.
+   c. A 2 x 2 (data, model) mesh over the four cards: split serving,
+      each data group its own pair (fp32, bf16, int8 at 1 pair) against
+      the unsplit forward as in a; and loop_cdr.run as phase 14 runs it
+      (whole images, the model replicated over the model axis): the two
+      model ranks of each data index bit-equal (their final weights'
+      digest), the history against world 2's (reported) and within S7_*
+      of one process.
+   Every K1, K2 and K3 shape of the phase is one that step 2 checks
+   (s10_shapes_checked).
+16. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
 
-It needs one CUDA device. Without one, or when any phase fails, it exits
-non-zero and prints no result.
+It needs one CUDA device, and four for --slice10. Without one, or when
+any phase fails, it exits non-zero and prints no result.
 """
 
 import ctypes
@@ -388,6 +444,12 @@ SOFTARGMAX_SHAPES = (("2 images", (2, 64, 64, 19)),
                      ("rows of M=2, 4 pairs", (8, 32, 64, 19)),
                      ("rows of M=2, 2 pairs", (4, 32, 64, 19)),
                      ("rows of M=4", (2, 16, 64, 19)),
+                     # phase 15 a: 4 pairs (fp32, bf16, int8, the eval
+                     # step) at M = 4 too; b: a data-parallel rank's whole
+                     # heatmaps at 16 and 8 pairs (world 2 and 4)
+                     ("rows of M=4, 4 pairs", (8, 16, 64, 19)),
+                     ("16 pairs", (32, 64, 64, 19)),
+                     ("8 pairs", (16, 64, 64, 19)),
                      # phase 13 c: at 192 px over M = 4 the forward gathers
                      # before layer4.0, so K1 takes the whole 48 x 48
                      # heatmap of 1 pair (and of 4 pairs, checked beside)
@@ -3440,7 +3502,9 @@ def _nccl_ms(step, state, batch):
     busy = nccl = 0.0
     n_nccl = 0
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        # not the "nccl:*" annotations of the NCCL kernels' spans
+        if e.device_type == DeviceType.CUDA and not e.key.startswith(
+                "nccl:"):
             busy += e.self_device_time_total / 1e3
             if "nccl" in e.key.lower():
                 nccl += e.self_device_time_total / 1e3
@@ -3754,31 +3818,10 @@ def run_dp_gloo(dev, work):
     require(h0["train_loss"][0] > 1e-5 and h0["grad_norm"][0] > 1e-5,
             f"vacuous training: {h0}")
 
-    def rel(a, b):
-        return float(np.max(np.abs(np.asarray(a) - np.asarray(b))
-                            / np.abs(np.asarray(b))))
-
-    errs = {"train_loss warmup": rel(h0["train_loss"][:1],
-                                     ref["train_loss"][:1]),
-            "train_loss after": rel(h0["train_loss"][1:],
-                                    ref["train_loss"][1:]),
-            "val_mpjpe_2d": rel(h0["val_mpjpe_2d"], ref["val_mpjpe_2d"]),
-            "val_loss warmup": rel(h0["val_loss"][:1], ref["val_loss"][:1])}
-    decades = {k: float(np.max(np.abs(np.log10(np.asarray(h0[k], float))
-                                      - np.log10(np.asarray(ref[k], float)))))
-               for k in ("val_mpjpe_3d", "val_loss")}
+    errs, decades = _vs_one_process(h0, ref, "gloo ranks")
     print(f"# slice 7 b, 2 gloo ranks x {n_pairs // 2} pairs against 1 "
           f"process x {n_pairs}: relative {errs}, decades {decades}; "
           f"rank 0 {h0}; 1 process {ref}")
-    for k, bound in (("train_loss warmup", S7_WARMUP_RTOL),
-                     ("train_loss after", S7_POST_RTOL),
-                     ("val_mpjpe_2d", S7_2D_RTOL),
-                     ("val_loss warmup", S7_2D_RTOL)):
-        require(errs[k] <= bound, f"gloo ranks vs 1 process: {k} "
-                                  f"{errs[k]:.3g} (bound {bound})")
-    for k, d in decades.items():
-        require(np.isfinite(h0[k]).all() and min(h0[k]) > 0 and d < 1.0,
-                f"gloo ranks vs 1 process: {k} {h0[k]} / {ref[k]}")
     name = load_config(rank_cfg).MODEL.NAME
     files = sorted(os.listdir(os.path.join(shared, name)))
     files0 = sorted(os.listdir(os.path.join(roots[0], name)))
@@ -4272,7 +4315,7 @@ def s8_check(outs, ref, m, what, kinds, projs, dev, exchanges=None):
     return errs
 
 
-def s8_check_int8(outs, ref, m):
+def s8_check_int8(outs, ref, m, pairs=S8_INT8_PAIRS):
     """Int8 split over M = 2 against the unsplit int8 forward on the same
     pack: the encoder's last codes bit-equal row by row (exact int32
     arithmetic, halo rows delivered bit for bit); each rank's cf_out codes
@@ -4308,7 +4351,7 @@ def s8_check_int8(outs, ref, m):
     kp_err = float((outs[0]["int8"]["kp"] - want["kp"]).abs().max())
     same = all(torch.equal(o["int8"]["kp"], outs[0]["int8"]["kp"])
                for o in outs)
-    print(f"# slice 8 int8 at M={m}, {S8_INT8_PAIRS} pairs: encoder's last "
+    print(f"# slice 8 int8 at M={m}, {pairs} pairs: encoder's last "
           f"codes bit-equal {enc_equal}; cf_out bit-equal to the unsplit "
           f"CanonicalFusion on the ranks' rows {cf_rows_equal}; against the "
           f"unsplit forward's cf_out {flips} of {want['cf_out'].numel()} "
@@ -4776,29 +4819,8 @@ def run_slice9(dev, smi):
     require(h0["train_loss"][0] > 1e-5 and h0["grad_norm"][0] > 1e-5,
             f"vacuous training: {h0}")
 
-    def rel(a, b):
-        return float(np.max(np.abs(np.asarray(a) - np.asarray(b))
-                            / np.abs(np.asarray(b))))
-
-    errs = {"train_loss warmup": rel(h0["train_loss"][:1],
-                                     ref["train_loss"][:1]),
-            "train_loss after": rel(h0["train_loss"][1:],
-                                    ref["train_loss"][1:]),
-            "val_mpjpe_2d": rel(h0["val_mpjpe_2d"], ref["val_mpjpe_2d"]),
-            "val_loss warmup": rel(h0["val_loss"][:1], ref["val_loss"][:1])}
-    decades = {k: float(np.max(np.abs(np.log10(np.asarray(h0[k], float))
-                                      - np.log10(np.asarray(ref[k], float)))))
-               for k in ("val_mpjpe_3d", "val_loss")}
+    errs, decades = _vs_one_process(h0, ref, f"1 x {S9_M} mesh")
     print(f"# slice 9 against 1 process: relative {errs}, decades {decades}")
-    for k, bound in (("train_loss warmup", S7_WARMUP_RTOL),
-                     ("train_loss after", S7_POST_RTOL),
-                     ("val_mpjpe_2d", S7_2D_RTOL),
-                     ("val_loss warmup", S7_2D_RTOL)):
-        require(errs[k] <= bound, f"1 x {S9_M} mesh vs 1 process: {k} "
-                                  f"{errs[k]:.3g} (bound {bound})")
-    for k, d in decades.items():
-        require(np.isfinite(h0[k]).all() and min(h0[k]) > 0 and d < 1.0,
-                f"1 x {S9_M} mesh vs 1 process: {k} {h0[k]} / {ref[k]}")
     for r, g in enumerate(got):
         require(g["mesh"] == (0, 1, r, S9_M) and g["spatial"] is None,
                 f"phase 14 rank {r}: mesh {g['mesh']}, spatial "
@@ -4834,6 +4856,1119 @@ def run_slice9(dev, smi):
           + f" GiB a rank, 1 process {out['one_process_peak_gib']:.2f} GiB;"
           f" ranks' wall {ranks_s:.1f} s, 1 process {one_s:.1f} s; phase "
           f"{out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------ slice 10
+
+S10_CARDS = 4                     # one NCCL rank a card: M = 4 and world 4
+S10_MS = (2, 4)                   # a: M = 2 on cards 0-1, M = 4 on 0-3
+S10_WORLDS = (4, 2)               # b: the data-parallel world sizes, in
+#                                   the order of the launches
+S10_PAIRS = (1, 4)                # a: fp32, bf16 and int8 forwards checked
+S10_COLL_TIMEOUT = 180            # s: init_distributed(timeout=), a
+#                                   collective's longest wait
+S10_LAUNCH_TIMEOUT = 420          # s: a launch's whole run; the parent
+#                                   kills every rank at it, or at a failure
+S10_TIMED = 10                    # a: timed 1-pair forwards, each way
+S10_PROFILED = 3                  # a: 1-pair forwards under torch.profiler
+S10_STEP_TIMED = 4                # b: timed steps after the checked one
+S10_STEP_PAIRS, S10_STEP_PAD = TRAIN_PAIRS, TRAIN_PAD   # b: the global batch
+# NCCL's kernels by what they carry (torch.profiler's names of the
+# kernels, NCCL 2.28): the halos' point-to-point, the all_gathers of the
+# gather and the keypoint statistics, the all_reduces of the slot form and
+# the reductions
+NCCL_KINDS = (("halo sendrecv", "SendRecv"), ("all_gather", "AllGather"),
+              ("all_reduce", "AllReduce"), ("broadcast", "Broadcast"))
+
+# the file that the CLI's ranks import first (PYTHONPATH): it logs every
+# write, rename and removal under the weights root into one file a rank,
+# then hands over to any sitecustomize further on the path
+S10_AUDIT = r'''
+import importlib.machinery, importlib.util, os, sys
+_root = os.environ["S10_AUDIT_ROOT"]
+_log = os.path.join(os.environ["S10_AUDIT_DIR"],
+                    "rank" + os.environ.get("RANK", "x") + ".txt")
+
+
+def _hook(event, args):
+    if event == "open":
+        path, mode = args[0], args[1]
+        writes = isinstance(mode, str) and any(c in mode for c in "wax+")
+    elif event in ("os.rename", "os.remove", "os.mkdir", "shutil.rmtree"):
+        path, writes = args[1] if event == "os.rename" else args[0], True
+    else:
+        return
+    if writes and isinstance(path, (str, bytes, os.PathLike)) and \
+            os.fsdecode(path).startswith(_root):
+        with open(_log, "a") as f:
+            f.write(event + " " + os.fsdecode(path) + "\n")
+
+
+sys.addaudithook(_hook)
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path
+                      if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+'''
+
+
+_HALO_LOG = []
+
+
+def s10_halo_log():
+    """Wrap halo_rows (parallel/spatial.py's, which every layer's window
+    reaches, and the copy that models/resnet.py imports for K3's tiles),
+    once a process, so that each call with a halo logs the bytes this rank
+    sent (COUNTS_BYTES), the edge rows' bytes it should send (its last
+    `top` rows where a rank lies below, its first `bottom` rows where one
+    lies above), both edges' rows (top + bottom) and the slot form's bytes
+    at the same point (M slots of int32 words). Returns the log, which
+    s10_logged clears."""
+    from fast3dhpe_tpu_torch.models import resnet
+    from fast3dhpe_tpu_torch.parallel import spatial
+    from fast3dhpe_tpu_torch.parallel.mesh import COUNTS_BYTES
+    orig = spatial.halo_rows
+    if getattr(orig, "s10_logged", False):
+        return _HALO_LOG
+
+    def logged(x, dim, top, bottom, mesh, pad_value):
+        before = COUNTS_BYTES["halo"]
+        y = orig(x, dim, top, bottom, mesh, pad_value)
+        if top or bottom:
+            row = x.numel() // x.shape[dim] * x.element_size()
+            j, m = mesh.model_rank, mesh.model_size
+            edges = (top + bottom) * row
+            _HALO_LOG.append({
+                "shape": tuple(x.shape), "dtype": str(x.dtype)[6:],
+                "dim": dim, "top": top, "bottom": bottom,
+                "sent": COUNTS_BYTES["halo"] - before,
+                "edge_rows": ((top if j < m - 1 else 0)
+                              + (bottom if j > 0 else 0)) * row,
+                "both_edges": edges, "slots": m * (-(-edges // 4) * 4)})
+        return y
+
+    logged.s10_logged = True
+    spatial.halo_rows = resnet.halo_rows = logged
+    return _HALO_LOG
+
+
+def s10_halo_inputs(log, dev):
+    """Seeded random tensors of the logged halos' shapes and dtypes, in
+    the activations' memory layout, each with its log entry."""
+    gen = torch.Generator().manual_seed(SEED)
+    xs = []
+    for h in log:
+        x = torch.randn(h["shape"], generator=gen).to(
+            getattr(torch, h["dtype"])).to(dev)
+        if len(h["shape"]) == 4 and h["dim"] == 2:
+            x = x.contiguous(memory_format=torch.channels_last)
+        xs.append((x, h))
+    return xs
+
+
+def s10_logged(log, fn, *args, **kw):
+    """fn(*args) (a counted forward of phase 13) with its halos' log."""
+    log.clear()
+    out = fn(*args, **kw)
+    out["halos"] = list(log)
+    return out
+
+
+def s10_profile(fn, n=S10_PROFILED):
+    """fn() n times under torch.profiler: a call's device busy ms (the
+    sum of its kernels' durations), the part outside NCCL's kernels
+    (compute_ms), and its NCCL kernels' device ms by NCCL_KINDS (and
+    their count). NCCL runs on streams of its own, beside the compute,
+    and a kernel of a send or a receive lasts until its peer has posted
+    the other side: its duration holds the wait for the slowest peer as
+    well as the transfer, and busy_ms can exceed the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy, ms, count = 0.0, {k: 0.0 for k, _ in NCCL_KINDS}, {}
+    names = {}
+    for e in prof.key_averages():
+        # "nccl:*" ranges annotate each NCCL kernel's span on the device
+        # timeline; counting them would count every NCCL kernel twice
+        if e.device_type != DeviceType.CUDA or e.key.startswith("nccl:"):
+            continue
+        busy += e.self_device_time_total / 1e3
+        if "nccl" in e.key.lower():
+            kind = next((k for k, s in NCCL_KINDS if s in e.key), "other")
+            ms[kind] = ms.get(kind, 0.0) + e.self_device_time_total / 1e3
+            count[kind] = count.get(kind, 0) + e.count
+            names[e.key[:60]] = e.count
+    require(busy > 0, "the profiler recorded no device time")
+    return {"busy_ms": busy / n,
+            "compute_ms": (busy - sum(ms.values())) / n,
+            "nccl_ms": {k: v / n for k, v in ms.items()},
+            "nccl_kernels": {k: v / n for k, v in count.items()},
+            "nccl_names": names}
+
+
+def s10_set_exchange(model, form):
+    """The spatial mesh on every module of `model` that holds one, with
+    its exchange set to `form` (the same groups)."""
+    import dataclasses
+    for mod in model.modules():
+        mesh = getattr(mod, "spatial", None)
+        if mesh is not None:
+            mod.spatial = dataclasses.replace(mesh, exchange=form)
+
+
+def _infer(model, b):
+    with torch.inference_mode():
+        return model(b["image"], b["proj"])
+
+
+class _Deterministic:
+    """cuDNN deterministic for the block, as phases 12 a and 14 run their
+    steps and loops."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.saved
+
+
+def s10_serve(job, spec, inp, work):
+    """a / c: the fp32, bf16 and int8 forwards at job["pairs"] pairs on
+    this rank's rows of its data group's pairs (data index g serves pairs
+    [g*p, (g+1)*p)), each with its halos' log; the split int8 decoder on
+    the unsplit cf_out codes; with job["eval"] the eval step, with
+    job["gather"] the forwards at 192 px (c of phase 13), with
+    job["timed"] the 1-pair forwards timed on the host clock, profiled
+    (device busy, NCCL kernels), and again in the slot form over the same
+    group."""
+    import dataclasses
+    import os
+    from fast3dhpe_tpu_torch.models import quantized as qz
+    from fast3dhpe_tpu_torch.parallel import (make_mesh, replicate,
+                                              shard_batch_spatial)
+    from fast3dhpe_tpu_torch.parallel.mesh import COUNTS, COUNTS_BYTES
+    from fast3dhpe_tpu_torch.parallel.spatial import halo_rows
+    mesh = make_mesh(model_parallel=job["m"], exchange=spec["exchange"])
+    dev, g, j, m = mesh.device, mesh.rank, mesh.model_rank, mesh.model_size
+    log = s10_halo_log()
+    out = {"mesh": (mesh.rank, mesh.size, j, m, mesh.exchange,
+                    str(mesh.device))}
+
+    def rows(p, first=None):
+        first = g * p if first is None else first
+        return shard_batch_spatial(mesh, {
+            "image": inp["imgs"][first:first + p],
+            "proj": inp["projs"][first:first + p]})
+
+    models = {kind: replicate(mesh, s8_model(spec, dev, kind))
+              for kind in ("fp32", "bf16")}
+    for kind, model in models.items():
+        for p in job["pairs"]:
+            b = rows(p)
+            out[f"{kind} {p}"] = s10_logged(log, s8_forward, model,
+                                            b["image"], b["proj"])
+    model8 = replicate(mesh, qz.cdrnet_int8(qz.load_pack(spec["pack"]),
+                                            device=dev))
+    for p in job["pairs"]:
+        b = rows(p)
+        o = s10_logged(log, s8_int8_forward, model8, b["image"], b["proj"])
+        codes = torch.load(os.path.join(work, f"cf_out_{g * p}_{p}.pt"))
+        h = codes.shape[1] // m
+        with torch.inference_mode():
+            hm = qz._decoder_walk(qz._Int8Ctx(model8.rt, mesh), (
+                codes[:, j * h:(j + 1) * h].to(dev),
+                model8.rt.scale("cf_out")))
+        o["decoder_on_unsplit_codes"] = hm.cpu()
+        out[f"int8 {p}"] = o
+    if job["eval"]:
+        out["eval"] = s8_eval(models["fp32"], shard_batch_spatial(
+            mesh, inp["eval"]), dev, mesh)
+    gsize = job["gather"]
+    if gsize:
+        b192 = shard_batch_spatial(mesh, {"image": inp["imgs192"],
+                                          "proj": inp["projs192"]})
+        for kind, model in models.items():
+            out[f"{kind} {gsize}"] = s10_logged(
+                log, s8_repeated, model, b192["image"], b192["proj"])
+        out[f"int8 {gsize}"] = s10_logged(
+            log, s8_int8_forward, model8, b192["image"], b192["proj"],
+            keep_codes=True)
+    del model8
+    if not job["timed"]:
+        return out
+    b = rows(1, 0)
+    times = {}
+    for kind, model in models.items():
+        def fwd(model=model, b=b):
+            return _infer(model, b)
+
+        times[f"{kind} wall_ms"] = s8_wall_ms(fwd, S10_TIMED)
+        times[f"{kind} profile"] = s10_profile(fwd)
+        if gsize:
+            times[f"{kind} {gsize} wall_ms"] = s8_wall_ms(
+                lambda model=model: _infer(model, b192), S10_TIMED)
+        kp = fwd()[0]
+        # the forward's halos alone (its shapes, random rows), both forms
+        for form in ("neighbours", "slots"):
+            def halos(fm=dataclasses.replace(mesh, exchange=form),
+                      xs=s10_halo_inputs(out[f"{kind} 1"]["halos"], dev)):
+                with torch.inference_mode():
+                    for x, h in xs:
+                        halo_rows(x, h["dim"], h["top"], h["bottom"], fm, 0)
+
+            times[f"{kind} halos {form} wall_ms"] = s8_wall_ms(halos,
+                                                               S10_TIMED)
+            times[f"{kind} halos {form} profile"] = s10_profile(halos)
+        s10_set_exchange(model, "slots")
+        try:
+            COUNTS.clear()
+            COUNTS_BYTES.clear()
+            slot_kp = fwd()[0]
+            times[f"{kind} slots bytes"] = dict(COUNTS_BYTES)
+            times[f"{kind} slots counts"] = dict(COUNTS)
+            times[f"{kind} slots kp gap"] = float(
+                (slot_kp - kp).abs().max())
+            times[f"{kind} slots wall_ms"] = s8_wall_ms(fwd, S10_TIMED)
+            times[f"{kind} slots profile"] = s10_profile(fwd)
+        finally:
+            s10_set_exchange(model, mesh.exchange)
+    out["times"] = times
+    return out
+
+
+def s10_step(job, spec, inp, work):
+    """b: one CDR train step (use_3d False) of the global batch of
+    S10_STEP_PAIRS pairs, this rank's share of its rows, from the parent's
+    start weights through replicate on a data-parallel mesh of the world
+    (cuDNN deterministic): its metrics, the BN statistics it updates, its
+    collectives and launches; then S10_STEP_TIMED warm steps timed with
+    the peak memory above what was allocated, and one profiled (device
+    busy, NCCL kernels)."""
+    import os
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.models.cdrnet import CDRNet
+    from fast3dhpe_tpu_torch.parallel import make_mesh, replicate, shard_batch
+    from fast3dhpe_tpu_torch.parallel.mesh import COUNTS
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    cfg = load_config(spec["cfg"])
+    mesh = make_mesh()
+    per = S10_STEP_PAIRS // mesh.size
+    batch = torch.load(os.path.join(work, "train_batch.pt"),
+                       weights_only=False)
+    b = shard_batch(mesh, {k: v[mesh.rank * per:(mesh.rank + 1) * per]
+                           for k, v in batch.items()})
+    model = CDRNet.from_config(cfg)
+    model.load_state_dict(torch.load(os.path.join(work, "start.pt"),
+                                     weights_only=True), strict=True)
+    replicate(mesh, model.to(mesh.device))
+    state = TrainState.create(model, cfg, steps_per_epoch=1)
+    step = train_step_fn(cfg, mesh)
+    with _Deterministic():
+        COUNTS.clear()
+        counters = reset_counts()
+        metrics = step(state, b, False)
+        launches = read_counts(counters)
+        counts = dict(COUNTS)
+        out = {"metrics": {k: v.item() for k, v in metrics.items()},
+               "stats": {n: v.detach().cpu().clone()
+                         for n, v in model.named_buffers()
+                         if "running" in n},
+               "launches": launches, "counts": counts, "pairs": per}
+        out.update(s10_timed_steps(step, state, b))
+    return out
+
+
+def s10_timed_steps(step, state, b):
+    """S10_STEP_TIMED warm steps on the host clock between
+    synchronisations (ms each), their peak memory above what was
+    allocated (GiB), and one step under torch.profiler."""
+    times, peak = [], 0.0
+    for i in range(1 + S10_STEP_TIMED):
+        sync()
+        before = torch.cuda.memory_allocated() if torch.cuda.is_available() \
+            else 0
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        step(state, b, False)
+        sync()
+        if i:
+            times.append((time.perf_counter() - t) * 1e3)
+        if torch.cuda.is_available():
+            peak = max(peak, (torch.cuda.max_memory_allocated() - before)
+                       / 2 ** 30)
+    return {"step_ms": times, "peak_gib": peak,
+            "profile": s10_profile(lambda: step(state, b, False), 1)}
+
+
+def s10_loop(job, spec, inp, work):
+    """b / c: loop_cdr.run on the job's (D, M) mesh (M = job["m"]) into
+    the shared weights root without overwrite, cuDNN deterministic: the
+    history, launches, collectives, epoch seconds, peak memory and a
+    digest of the final weights."""
+    import hashlib
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.parallel import make_mesh
+    from fast3dhpe_tpu_torch.parallel.mesh import COUNTS
+    from fast3dhpe_tpu_torch.train import loop_cdr
+    mesh = make_mesh(model_parallel=job["m"], exchange=spec["exchange"])
+    models, init = [], loop_cdr._init_model
+
+    def init_model(config, seed):
+        models.append(init(config, seed))
+        return models[-1]
+
+    loop_cdr._init_model = init_model
+    try:
+        with _Deterministic():
+            if torch.cuda.is_available():
+                torch.cuda.reset_peak_memory_stats()
+            COUNTS.clear()
+            counters = reset_counts()
+            with EpochTimes() as et:
+                hist = loop_cdr.run(load_config(job["cfg"]), mesh=mesh,
+                                    seed=SEED, weights_root=job["root"])
+            launches = read_counts(counters)
+    finally:
+        loop_cdr._init_model = init
+    digest = hashlib.sha256()
+    for v in models[-1].state_dict().values():
+        digest.update(v.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return {"history": hist, "launches": launches, "counts": dict(COUNTS),
+            "epoch_s": et.seconds, "digest": digest.hexdigest(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+            if torch.cuda.is_available() else 0.0,
+            "mesh": (mesh.rank, mesh.size, mesh.model_rank, mesh.model_size),
+            "spatial": models[-1].spatial is not None}
+
+
+S10_JOBS = {"serve": s10_serve, "step": s10_step, "loop": s10_loop}
+
+
+def s10_child(rank, world, port, work, launch):
+    """One rank of a phase-15 launch: init_distributed with the launch's
+    backend on this rank's device (NCCL on cuda:rank on the card) and a
+    collective timeout of S10_COLL_TIMEOUT; once the parent writes `go`,
+    the launch's jobs in order, all on one process group (every rank calls
+    make_mesh, so every dist.new_group, in the same order)."""
+    import os
+    from fast3dhpe_tpu_torch.parallel import (destroy_distributed,
+                                              init_distributed)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(os.path.join(work, f"spec_{launch}.json")) as f:
+        spec = json.load(f)
+    os.environ.update(rank_env(rank, world, port))
+    t = time.perf_counter()
+    require(init_distributed(backend=spec["backend"], device=spec["device"],
+                             timeout=S10_COLL_TIMEOUT),
+            "init_distributed made no group")
+    out = {"init_s": time.perf_counter() - t}
+    try:
+        inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+        go = os.path.join(work, "go")
+        deadline = time.perf_counter() + S10_LAUNCH_TIMEOUT
+        while not os.path.exists(go) and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        require(os.path.exists(go), f"rank {rank}: no `go` from the parent")
+        for job in spec["jobs"]:
+            t = time.perf_counter()
+            out[job["name"]] = S10_JOBS[job["kind"]](job, spec, inp, work)
+            print(f"# {job['name']}: {time.perf_counter() - t:.1f} s",
+                  flush=True)
+    finally:
+        destroy_distributed()
+    torch.save(out, os.path.join(work, f"out_{launch}_{rank}.pt"))
+
+
+def s10_launch(work, launch, world, spec):
+    """Start the launch's `world` ranks (this script with `--s10-child`),
+    their output in <work>/<launch>_rank<r>.log."""
+    import os
+    with open(os.path.join(work, f"spec_{launch}.json"), "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    procs = []
+    for r in range(world):
+        log = open(os.path.join(work, f"{launch}_rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--s10-child",
+             str(r), str(world), str(port), work, launch],
+            stdout=log, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, NCCL_DEBUG="WARN")), log))
+    return procs
+
+
+def s10_finish(procs, what, timeout=S10_LAUNCH_TIMEOUT):
+    """Wait for every rank; at the first that fails, or at the timeout,
+    kill them all. Prints the ranks' '#' lines; fails naming the rank."""
+    deadline = time.perf_counter() + timeout
+    bad = None
+    while any(p.poll() is None for p, _ in procs):
+        bad = next((r for r, (p, _) in enumerate(procs)
+                    if p.poll() not in (None, 0)), None)
+        if bad is not None or time.perf_counter() > deadline:
+            break
+        time.sleep(0.2)
+    for p, log in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        log.close()
+    logs = []
+    for r, (p, log) in enumerate(procs):
+        with open(log.name) as f:
+            logs.append(f.read())
+        for line in logs[-1].splitlines():
+            if line.startswith("#"):
+                print(f"# {what} rank {r}: {line[1:].strip()}")
+    failed = sorted((r for r, (p, _) in enumerate(procs) if p.returncode),
+                    key=lambda r: procs[r][0].returncode < 0)
+    for r in failed[:1]:
+        code = procs[r][0].returncode
+        require(False, f"{what}: rank {r} exited {code}"
+                + (" (killed: another rank failed or the launch timed out)"
+                   if code < 0 else "") + f":\n{logs[r][-3000:]}")
+
+
+def s10_shapes_checked(size, joints):
+    """Every K1 and K2 input and K3 tile of phase 15 is one that step 2
+    holds against its plain version: phase 13's (s8_shapes_checked: 1
+    pair at M = 2 and 4, the 192 px gather); K1 on a rank's heatmap rows
+    at M = 2 and 4 for every pair count of a (S10_PAIRS and the eval
+    step's S8_EVAL_PAIRS; c serves 1 pair a data group); K1 and K2 on a
+    data-parallel rank's whole heatmaps (S10_STEP_PAIRS over 1, 2 and 4
+    ranks: the step, the loops' batches and the CLI's); K3 on the haloed
+    tiles at S10_PAIRS, which step 2 checks at S8_PAIRS."""
+    s8_shapes_checked(size, joints)
+    k1 = {shape for _, shape in SOFTARGMAX_SHAPES}
+    hm = size // 4
+    for m in S10_MS:
+        for p in S10_PAIRS + (S8_EVAL_PAIRS,):
+            shape = (2 * p, hm // m, hm, joints)
+            require(shape in k1, f"phase 15 gives K1 {shape}, which step 2 "
+                                 f"does not check")
+    for w in (1,) + S10_WORLDS:
+        shape = (2 * S10_STEP_PAIRS // w, hm, hm, joints)
+        require(shape in k1, f"phase 15 gives K1 and K2 {shape}, which step "
+                             f"2 does not check")
+    require(set(S10_PAIRS) <= set(S8_PAIRS),
+            f"phase 15 runs K3's haloed tiles at {S10_PAIRS} pairs, step 2 "
+            f"checks them at {S8_PAIRS}")
+
+
+def s10_references(spec, inp, dev, firsts):
+    """The unsplit forwards in this process: fp32 and bf16 at S10_PAIRS
+    pairs from pair 0 and at 1 pair from each first in `firsts` (c's data
+    groups, keyed "<kind> 1@<first>"), int8 likewise with each rank's
+    CanonicalFusion rows at M = 2 and 4 (s8_cf_rows) and its cf_out codes
+    saved for the ranks, the eval step, and the 192 px forwards; with the
+    models."""
+    import os
+    from fast3dhpe_tpu_torch.models import quantized as qz
+    ref = {}
+    models = {kind: s8_model(spec, dev, kind) for kind in ("fp32", "bf16")}
+    model8 = qz.cdrnet_int8(qz.load_pack(spec["pack"]), device=dev)
+    cases = [(0, p, f"{p}") for p in S10_PAIRS]
+    cases += [(f, 1, f"1@{f}") for f in firsts]
+    for first, p, tag in cases:
+        x = inp["imgs"][first:first + p].to(dev)
+        pr = inp["projs"][first:first + p].to(dev)
+        for kind, model in models.items():
+            ref[f"{kind} {tag}"] = s8_forward(model, x, pr)
+        r8 = s8_int8_forward(model8, x, pr)
+        r8["cf_out_rows"] = {m: s8_cf_rows(
+            model8, r8["enc_last"].to(dev), r8["enc_scale"].to(dev), pr, m)
+            for m in S10_MS}
+        torch.save(r8["cf_out"], os.path.join(spec["work"],
+                                               f"cf_out_{first}_{p}.pt"))
+        ref[f"int8 {tag}"] = r8
+    ref["eval"] = s8_eval(models["fp32"], on_device(inp["eval"], dev), dev)
+    x192, p192 = inp["imgs192"].to(dev), inp["projs192"].to(dev)
+    for kind, model in models.items():
+        ref[f"{kind} {S8_GATHER_SIZE}"] = s8_repeated(model, x192, p192)
+    ref[f"int8 {S8_GATHER_SIZE}"] = s8_int8_forward(model8, x192, p192,
+                                                    keep_codes=True)
+    return ref, models
+
+
+def s10_check_int8(outs, ref, m, key, pairs):
+    """s8_check_int8 on the forward `key` against ref[key], with the
+    unsplit CanonicalFusion on each rank's rows at this M."""
+    want = dict(ref[key], cf_out_rows=ref[key]["cf_out_rows"][m])
+    return s8_check_int8([dict(o, int8=o[key]) for o in outs],
+                         {"int8": want}, m, pairs)
+
+
+def s10_check_bytes(outs, m, keys, what):
+    """Each halo of each checked forward sent exactly the edge rows'
+    bytes (s10_halo_log): at an interior rank both edges, (top + bottom)
+    rows, which is 1/M of the slot form's M slots at the same point; one
+    logged call a counted halo. Returns a 1-pair fp32 forward's bytes by
+    rank in each form."""
+    for key in keys:
+        for j, o in enumerate(outs):
+            log, n = o[key]["halos"], o[key]["counts"].get("halo", 0)
+            # s8_repeated's two forwards, each counted alike
+            n *= 2 if "repeat_equal" in o[key] else 1
+            require(len(log) == n, f"{what} {key} rank {j}: {len(log)} "
+                                   f"halos logged, {n} counted")
+            bad = [h for h in log if h["sent"] != h["edge_rows"]]
+            require(not bad, f"{what} {key} rank {j}: {len(bad)} halos sent "
+                             f"other bytes than their edge rows: {bad[:3]}")
+            if 0 < j < m - 1:
+                bad = [h for h in log if h["sent"] != h["both_edges"]
+                       or h["slots"] != m * h["sent"]]
+                require(not bad, f"{what} {key} interior rank {j}: halos "
+                                 f"not (top + bottom) rows, 1/M of the "
+                                 f"slots: {bad[:3]}")
+    got = {"neighbours": [sum(h["sent"] for h in o["fp32 1"]["halos"])
+                          for o in outs],
+           "slots": [sum(h["slots"] for h in o["fp32 1"]["halos"])
+                     for o in outs],
+           "both_edges": [sum(h["both_edges"] for h in o["fp32 1"]["halos"])
+                          for o in outs]}
+    print(f"# slice 10 {what}: every halo of {len(keys)} forwards a rank "
+          f"sent exactly its edge rows; a 1-pair fp32 forward's "
+          f"{len(outs[0]['fp32 1']['halos'])} halos send "
+          f"{got['neighbours']} bytes from model ranks 0-{m - 1} "
+          f"(both edges' rows {got['both_edges'][0]}), against "
+          f"{got['slots'][0]} bytes a rank in the slot form")
+    return got
+
+
+def s10_times(outs, one, m, what):
+    """Each rank's 1-pair forward in both forms beside the unsplit one:
+    wall ms (host clock, synchronised), device busy and the NCCL kernels'
+    device ms a forward (torch.profiler); the slot form's measured halo
+    bytes against s10_halo_log's sum."""
+    t = {}
+    for kind in ("fp32", "bf16"):
+        ranks = []
+        for o in outs:
+            tm = o["times"]
+            p, ps = tm[f"{kind} profile"], tm[f"{kind} slots profile"]
+            slots = sum(h["slots"] for h in o[f"{kind} 1"]["halos"])
+            ranks.append({
+                "wall_ms": tm[f"{kind} wall_ms"], "busy_ms": p["busy_ms"],
+                "compute_ms": p["compute_ms"],
+                "halo_nccl_ms": p["nccl_ms"]["halo sendrecv"],
+                "all_gather_nccl_ms": p["nccl_ms"]["all_gather"],
+                "nccl_kernels": p["nccl_kernels"],
+                "nccl_names": p["nccl_names"],
+                "slots_wall_ms": tm[f"{kind} slots wall_ms"],
+                "slots_busy_ms": ps["busy_ms"],
+                "slots_nccl_ms": ps["nccl_ms"]["all_reduce"],
+                "slots_counts": tm[f"{kind} slots counts"],
+                "slots_kp_gap_px": tm[f"{kind} slots kp gap"],
+                "halo_bytes": sum(h["sent"] for h in o[f"{kind} 1"]["halos"]),
+                "slot_bytes": slots,
+                "slot_bytes_measured": tm[f"{kind} slots bytes"].get("halo"),
+                "halos_alone": {form: {
+                    "wall_ms": tm[f"{kind} halos {form} wall_ms"],
+                    "nccl_ms": tm[f"{kind} halos {form} profile"]["nccl_ms"],
+                    "nccl_kernels": tm[f"{kind} halos {form} profile"][
+                        "nccl_kernels"]}
+                    for form in ("neighbours", "slots")}})
+            require(ranks[-1]["slot_bytes_measured"] == slots,
+                    f"{what} {kind}: the slot form sent "
+                    f"{ranks[-1]['slot_bytes_measured']} halo bytes, the "
+                    f"log predicts {slots}")
+        t[kind] = {"unsplit": one[kind], "ranks": ranks}
+
+        def by_rank(get, digits=2):
+            return ", ".join(f"{get(r):.{digits}f}" for r in ranks)
+
+        def alone(form, get, digits=2):
+            return by_rank(lambda r: get(r["halos_alone"][form]), digits)
+
+        nb_wall = alone("neighbours", lambda a: a["wall_ms"])
+        nb_nccl = alone("neighbours",
+                        lambda a: a["nccl_ms"]["halo sendrecv"], 3)
+        sl_wall = alone("slots", lambda a: a["wall_ms"])
+        sl_nccl = alone("slots", lambda a: a["nccl_ms"]["all_reduce"], 3)
+        print(f"# slice 10 {what} {kind} at 1 pair: unsplit "
+              f"{one[kind]['wall_ms']:.2f} ms wall, "
+              f"{one[kind]['busy_ms']:.2f} ms busy; ranks' wall "
+              f"{by_rank(lambda r: r['wall_ms'])} ms, busy outside NCCL "
+              f"{by_rank(lambda r: r['compute_ms'])} ms; the halos' NCCL "
+              f"send/recv kernels (the wait for the peers included) "
+              f"{by_rank(lambda r: r['halo_nccl_ms'], 3)} ms and the "
+              f"keypoints' all_gather "
+              f"{by_rank(lambda r: r['all_gather_nccl_ms'], 3)} ms; halo "
+              f"bytes {[r['halo_bytes'] for r in ranks]}; the slot form on "
+              f"the same cards: wall {by_rank(lambda r: r['slots_wall_ms'])}"
+              f" ms, its all_reduce kernels "
+              f"{by_rank(lambda r: r['slots_nccl_ms'], 3)} ms, "
+              f"{ranks[0]['slot_bytes']} bytes a rank, pred_2d "
+              f"{max(r['slots_kp_gap_px'] for r in ranks):.3g} px from the "
+              f"neighbour form's; the forward's halos alone: neighbours "
+              f"wall {nb_wall} ms, send/recv kernels {nb_nccl} ms; slots "
+              f"wall {sl_wall} ms, all_reduce kernels {sl_nccl} ms")
+    return t
+
+
+def _vs_one_process(h, ref, what):
+    """A mesh run's history against one process on the global batch:
+    tests/test_distributed_real.py's tolerances (S7_*) on the losses and
+    MPJPE2D, the 3D figures finite, positive and within one decade.
+    Returns (relative errors, decades)."""
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                            / np.abs(np.asarray(b))))
+
+    errs = {"train_loss warmup": rel(h["train_loss"][:1],
+                                     ref["train_loss"][:1]),
+            "train_loss after": rel(h["train_loss"][1:],
+                                    ref["train_loss"][1:]),
+            "val_mpjpe_2d": rel(h["val_mpjpe_2d"], ref["val_mpjpe_2d"]),
+            "val_loss warmup": rel(h["val_loss"][:1], ref["val_loss"][:1])}
+    decades = {k: float(np.max(np.abs(np.log10(np.asarray(h[k], float))
+                                      - np.log10(np.asarray(ref[k], float)))))
+               for k in ("val_mpjpe_3d", "val_loss")}
+    for k, bound in (("train_loss warmup", S7_WARMUP_RTOL),
+                     ("train_loss after", S7_POST_RTOL),
+                     ("val_mpjpe_2d", S7_2D_RTOL),
+                     ("val_loss warmup", S7_2D_RTOL)):
+        require(errs[k] <= bound, f"{what} vs 1 process: {k} {errs[k]:.3g} "
+                                  f"(bound {bound})")
+    for k, d in decades.items():
+        require(np.isfinite(h[k]).all() and min(h[k]) > 0 and d < 1.0,
+                f"{what} vs 1 process: {k} {h[k]} / {ref[k]}")
+    return errs, decades
+
+
+def s10_one_card(cfg, start_sd, batch, dev):
+    """b's reference: the same step of the whole global batch in this
+    process on one card (cuDNN deterministic), from the same weights: its
+    metrics, BN statistics, launches, and the warm steps timed, peak
+    memory and the profile, as the ranks measure theirs."""
+    from fast3dhpe_tpu_torch.models.cdrnet import CDRNet
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    model = CDRNet.from_config(cfg)
+    model.load_state_dict(start_sd, strict=True)
+    model.to(dev)
+    state = TrainState.create(model, cfg, steps_per_epoch=1)
+    step = train_step_fn(cfg)
+    b = on_device(batch, dev)
+    with _Deterministic():
+        counters = reset_counts()
+        metrics = step(state, b, False)
+        out = {"metrics": {k: v.item() for k, v in metrics.items()},
+               "stats": {n: v.detach().cpu().clone()
+                         for n, v in model.named_buffers()
+                         if "running" in n},
+               "launches": read_counts(counters),
+               "pairs": S10_STEP_PAIRS}
+        out.update(s10_timed_steps(step, state, b))
+    return out
+
+
+def s10_check_steps(outs, one, world, n_bn):
+    """b: the ranks' step against the one-card step: the ranks' metrics
+    equal to each other; loss and loss_2d within S7_WARMUP_RTOL, grad_norm
+    and the BN running statistics (relative, over all of them) within
+    S7_2D_RTOL (NCCL's ring sums the BN statistics' partial sums in
+    another order, and E[x^2] - E[x]^2 over ~1e6 values a channel turns
+    that into ~1e-4: 1.18e-4 at world 4 in the first 4-card run); the
+    collectives a step by kind and 1 K1 + 1 K2 + 0 K3 a rank. Prints the
+    warm steps' ms, the NCCL kernels' device ms and the peak memory a
+    rank beside one card's."""
+    want = {"rows": 1, "bn forward": n_bn, "bn backward": n_bn,
+            "gradients": 1, "metrics": 1}
+    m0 = outs[0]["metrics"]
+    require(all(o["metrics"] == m0 for o in outs),
+            f"world {world}: the ranks' step metrics differ: "
+            f"{[o['metrics'] for o in outs]}")
+    rel = {k: abs(m0[k] - one["metrics"][k]) / max(abs(one["metrics"][k]),
+                                                    1e-30)
+           for k in m0}
+    rel["bn statistics"] = _global_rel(outs[0]["stats"], one["stats"])
+    print(f"# slice 10 b, world {world} over NCCL, {outs[0]['pairs']} pairs "
+          f"a rank: step metrics {m0} against one card's {one['metrics']}, "
+          f"relative {rel}; collectives {outs[0]['counts']}; launches "
+          f"{[o['launches'] for o in outs]}")
+    print(f"# slice 10 b, world {world}: warm step "
+          + "; ".join(f"rank {r} " + ", ".join(f"{x:.1f}" for x in
+                                               o["step_ms"])
+                      for r, o in enumerate(outs))
+          + " ms against one card's " + ", ".join(f"{x:.1f}" for x in
+                                                  one["step_ms"])
+          + " ms; NCCL kernels " + ", ".join(
+              f"{o['profile']['nccl_ms']['all_reduce']:.2f}" for o in outs)
+          + f" ms a step (device busy "
+          + ", ".join(f"{o['profile']['busy_ms']:.1f}" for o in outs)
+          + f", one card's {one['profile']['busy_ms']:.1f} ms); peak above "
+          f"what was allocated "
+          + ", ".join(f"{o['peak_gib']:.2f}" for o in outs)
+          + f" GiB, one card's {one['peak_gib']:.2f} GiB")
+    for k, bound in (("loss", S7_WARMUP_RTOL), ("loss_2d", S7_WARMUP_RTOL),
+                     ("grad_norm", S7_2D_RTOL),
+                     ("bn statistics", S7_2D_RTOL)):
+        require(rel[k] <= bound, f"world {world} step vs one card: {k} "
+                                 f"{rel[k]:.3g} (bound {bound})")
+    for r, o in enumerate(outs):
+        require(o["counts"] == want, f"world {world} rank {r}: collectives "
+                                     f"{o['counts']}, not {want}")
+        require_counts(o["launches"], 1, 1, 1, 0, f"world {world} rank {r}")
+    return {"vs_one_card": rel,
+            "step_ms_by_rank": [o["step_ms"] for o in outs],
+            "peak_gib_by_rank": [o["peak_gib"] for o in outs],
+            "profile_by_rank": [o["profile"] for o in outs],
+            "collectives": outs[0]["counts"]}
+
+
+def s10_check_loops(outs, ref, what, name, shared, epochs):
+    """b / c: every rank's loop history equal (but the throughput), within
+    S7_* of the one process; the one checkpoint set in the shared root;
+    per rank 2 K1 + 1 K2 an epoch (a train step and an eval batch)."""
+    import os
+    h0 = outs[0]["history"]
+    for r, o in enumerate(outs):
+        for k in h0:
+            if not k.endswith("_per_sec"):
+                require(o["history"][k] == h0[k],
+                        f"{what}: rank {r}'s {k} {o['history'][k]} differs "
+                        f"from rank 0's {h0[k]}")
+        require_counts(o["launches"], epochs, 2, 1, 0, f"{what} rank {r}")
+    require(h0["train_loss"][0] > 1e-5 and h0["grad_norm"][0] > 1e-5,
+            f"{what}: vacuous training: {h0}")
+    errs, decades = _vs_one_process(h0, ref, what)
+    files = sorted(os.listdir(os.path.join(shared, name)))
+    require(os.listdir(shared) == [name]
+            and files == ["latest.opt.pt", "latest.pth"],
+            f"{what}: the shared root holds {os.listdir(shared)}, {files}")
+    print(f"# slice 10 {what}: histories equal on every rank, against one "
+          f"process relative {errs}, decades {decades}; epochs "
+          + "; ".join(f"rank {r} " + ", ".join(f"{x:.2f}" for x in
+                                               o["epoch_s"])
+                      for r, o in enumerate(outs))
+          + " s; peak " + ", ".join(f"{o['peak_gib']:.2f}" for o in outs)
+          + f" GiB; collectives rank 0 {outs[0]['counts']}; checkpoints "
+          f"{files}")
+    return {"vs_one_process": errs, "decades": decades,
+            "epoch_s_by_rank": [o["epoch_s"] for o in outs],
+            "peak_gib_by_rank": [o["peak_gib"] for o in outs],
+            "collectives_by_rank": [o["counts"] for o in outs],
+            "launches_by_rank": [o["launches"] for o in outs],
+            "history": h0}
+
+
+def s10_cli(work, mads, world, device):
+    """b: `torchrun --nproc_per_node <world> -m
+    fast3dhpe_tpu_torch.apps.train_cdr` (python -m torch.distributed.run)
+    for one epoch on the tree, each rank importing S10_AUDIT first, which
+    logs the rank's writes under the weights root: exit 0, one checkpoint
+    set, every write rank 0's."""
+    import os
+    root = os.path.join(work, "w_cli")
+    audit, site = (os.path.join(work, d) for d in ("cli_audit", "cli_site"))
+    os.makedirs(audit)
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(S10_AUDIT)
+    import fast3dhpe_tpu_torch
+    cfg = s7_cfg(work, mads, S10_STEP_PAIRS // world, "cli", epochs=1)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(
+        fast3dhpe_tpu_torch.__file__)))
+    env = dict(os.environ, S10_AUDIT_ROOT=root + os.sep,
+               S10_AUDIT_DIR=audit, NCCL_DEBUG="WARN", PYTHONPATH=os.pathsep
+               .join([site, repo] + [p for p in os.environ.get(
+                   "PYTHONPATH", "").split(os.pathsep) if p]))
+    t = time.perf_counter()
+    try:
+        done = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(world), "-m",
+             "fast3dhpe_tpu_torch.apps.train_cdr", "--config_path", cfg,
+             "--weights_root", root, "--device", device],
+            capture_output=True, text=True, env=env, cwd=repo,
+            timeout=S10_LAUNCH_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        require(False, f"torchrun train_cdr: no exit in "
+                       f"{S10_LAUNCH_TIMEOUT} s:\n{str(e.stdout)[-3000:]}")
+    secs = time.perf_counter() - t
+    require(done.returncode == 0, f"torchrun train_cdr exited "
+                                  f"{done.returncode}:\n"
+                                  f"{(done.stdout + done.stderr)[-3000:]}")
+    writes = {}
+    for r in range(world):
+        path = os.path.join(audit, f"rank{r}.txt")
+        writes[r] = open(path).read().split("\n")[:-1] \
+            if os.path.exists(path) else []
+    name = "cli"
+    files = sorted(os.listdir(os.path.join(root, name)))
+    renamed = sorted(os.path.basename(w.split(" ", 1)[1]) for w in writes[0]
+                     if w.startswith("os.rename"))
+    print(f"# slice 10 b, torchrun --nproc_per_node {world} -m "
+          f"fast3dhpe_tpu_torch.apps.train_cdr, 1 epoch: exit 0 in "
+          f"{secs:.1f} s; {files} in the weights root; writes under it by "
+          f"rank {({r: len(w) for r, w in writes.items()})}, rank 0's "
+          f"{writes[0]}")
+    require(files == ["latest.opt.pt", "latest.pth"]
+            and renamed == files
+            and not any(writes[r] for r in range(1, world)),
+            f"torchrun train_cdr: files {files}; rank 0 moved {renamed} into "
+            f"place; writes by the other ranks "
+            f"{ {r: writes[r] for r in range(1, world)} }")
+    return {"seconds": secs, "files": files,
+            "writes_by_rank": {r: len(w) for r, w in writes.items()}}
+
+
+def run_slice10(inf, cfg, dev, smi):
+    """Phase 15: the process group across cards. Two launches of ranks,
+    one NCCL rank a card (rank r on cuda:r): world 4 (a at M = 4 with c's
+    gather at 192 px; c's split serving on a 2 x 2 mesh; b's step and
+    loop at world 4; c's loop on 2 x 2), then world 2 (a at M = 2; b's
+    step and loop at world 2); then torchrun's train_cdr over 4 ranks.
+    The references run in this process on cuda:0 while the first launch's
+    ranks start, and the ranks begin only at `go`."""
+    import os
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.models import quantized as qz
+    from fast3dhpe_tpu_torch.models.resnet import RESNET_SPEC, encoder_ops
+    from fast3dhpe_tpu_torch.parallel.spatial import gather_point
+    from fast3dhpe_tpu_torch.train import loop_cdr
+    t0 = time.perf_counter()
+    cpu = dev.type == "cpu"     # a rehearsal: gloo ranks on the CPU
+    size = cfg.MODEL.IMAGE_SIZE[1]
+    s10_shapes_checked(size, cfg.MODEL.NUM_JOINTS)
+    ops = encoder_ops(cfg.MODEL.NUM_LAYERS)
+    g = gather_point(S8_GATHER_SIZE, S8_GATHER_M, ops)
+    require(g is not None and ops[g][0] == S8_GATHER_AT,
+            f"{S8_GATHER_SIZE} px at M = {S8_GATHER_M} gathers before "
+            f"{None if g is None else ops[g][0]}")
+    n_split = 2 + (3 if RESNET_SPEC[cfg.MODEL.NUM_LAYERS][0] == "bottleneck"
+                   else 2) * (g - 2)
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        t = time.perf_counter()
+        sd = {k: v.detach().float().cpu()
+              for k, v in inf.model.state_dict().items()}
+        weights = os.path.join(work, "weights.pt")
+        torch.save(sd, weights)
+        rng = np.random.RandomState(SEED + 15)
+        img_l, img_r, proj = stereo_request(rng, max(S10_PAIRS), size)
+        eval_batch = train_batch(rng, S8_EVAL_PAIRS, 1, size)
+        l192, r192, p192 = stereo_request(rng, S8_GATHER_PAIRS,
+                                          S8_GATHER_SIZE)
+        inp = {"imgs": normalized(img_l, img_r, "cpu"),
+               "projs": torch.as_tensor(proj), "eval": {
+                   k: torch.as_tensor(v) for k, v in eval_batch.items()},
+               "imgs192": normalized(l192, r192, "cpu"),
+               "projs192": torch.as_tensor(p192)}
+        torch.save(inp, os.path.join(work, "inputs.pt"))
+        calib = []
+        crng = np.random.RandomState(SEED + 11)
+        for _ in range(S6_CALIB):
+            cl, cr, cp = stereo_request(crng, S8_CALIB_PAIRS, size)
+            calib.append((normalized(cl, cr, dev),
+                          torch.as_tensor(cp, device=dev)))
+        pack = qz.quantize_cdrnet({k: v.to(dev) for k, v in sd.items()},
+                                  calib)
+        del calib
+        pack_path = os.path.join(work, "pack.npz")
+        qz.save_pack(pack_path, pack)
+        mads = s7_tree(work)
+        n_pairs = len(S7_MOVEMENTS) * S7_FRAMES
+        cfgs = {w: s7_cfg(work, mads, n_pairs // w, f"dp{w}")
+                for w in S10_WORLDS}
+        mesh_cfg = s7_cfg(work, mads, n_pairs // 2, "mesh2x2")
+        one_cfg = s7_cfg(work, mads, n_pairs, "single")
+        step_cfg = s7_cfg(work, mads, S10_STEP_PAIRS, "step")
+        batch = train_batch(np.random.RandomState(SEED + 2), S10_STEP_PAIRS,
+                            S10_STEP_PAD, size)
+        torch.save(batch, os.path.join(work, "train_batch.pt"))
+        scfg = load_config(step_cfg)
+        model = seeded_train_model(scfg).to(dev)
+        calibrate_train_head(model, on_device(batch, dev))
+        start_sd = {k: v.detach().cpu().clone()
+                    for k, v in model.state_dict().items()}
+        n_bn = sum(1 for k in start_sd if k.endswith("running_mean"))
+        del model
+        torch.save(start_sd, os.path.join(work, "start.pt"))
+        setup_s = time.perf_counter() - t
+        spec = {"backend": "gloo" if cpu else "nccl",
+                "device": "cpu" if cpu else "cuda",
+                "exchange": "neighbours" if cpu else None,
+                "joints": cfg.MODEL.NUM_JOINTS,
+                "layers": cfg.MODEL.NUM_LAYERS, "weights": weights,
+                "pack": pack_path, "work": work, "cfg": step_cfg}
+        roots = {k: os.path.join(work, f"w_{k}")
+                 for k in ("dp4", "dp2", "mesh2x2")}
+        serve_a = {"kind": "serve", "pairs": list(S10_PAIRS), "eval": True,
+                   "timed": True}
+        jobs = {
+            "w4": [dict(serve_a, name="a M=4", m=4, gather=S8_GATHER_SIZE),
+                   {"name": "c serve 2x2", "kind": "serve", "m": 2,
+                    "pairs": [1], "eval": False, "gather": 0,
+                    "timed": False},
+                   {"name": "b step", "kind": "step"},
+                   {"name": "b loop", "kind": "loop", "m": 1,
+                    "cfg": cfgs[4], "root": roots["dp4"]},
+                   {"name": "c loop 2x2", "kind": "loop", "m": 2,
+                    "cfg": mesh_cfg, "root": roots["mesh2x2"]}],
+            "w2": [dict(serve_a, name="a M=2", m=2, gather=0),
+                   {"name": "b step", "kind": "step"},
+                   {"name": "b loop", "kind": "loop", "m": 1,
+                    "cfg": cfgs[2], "root": roots["dp2"]}]}
+        t = time.perf_counter()
+        procs = s10_launch(work, "w4", 4, dict(spec, jobs=jobs["w4"]))
+        try:
+            tr = time.perf_counter()
+            ref, models = s10_references(spec, inp, dev, (1,))
+            one_step = s10_one_card(scfg, start_sd, batch, dev)
+            torch.cuda.empty_cache()
+            with _Deterministic():
+                if not cpu:
+                    torch.cuda.reset_peak_memory_stats()
+                with EpochTimes() as et:
+                    one_loop = loop_cdr.run(
+                        load_config(one_cfg), overwrite=True, seed=SEED,
+                        scan_epochs=False, device=dev.type,
+                        weights_root=os.path.join(work, "w_one"))
+            one_loop_s = et.seconds
+            one_loop_peak = 0.0 if cpu else \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+            refs_s = time.perf_counter() - tr
+        except BaseException:
+            for p, _ in procs:
+                p.kill()
+            raise
+        open(os.path.join(work, "go"), "w").close()
+        s10_finish(procs, "phase 15 world 4")
+        w4_s = time.perf_counter() - t
+        outs4 = [torch.load(os.path.join(work, f"out_w4_{r}.pt"),
+                            weights_only=False) for r in range(4)]
+        # the unsplit forward at 1 pair, alone on the card
+        one, one192 = {}, {}
+        b1 = {"image": inp["imgs"][:1].to(dev),
+              "proj": inp["projs"][:1].to(dev)}
+        b192 = {"image": inp["imgs192"].to(dev),
+                "proj": inp["projs192"].to(dev)}
+        for kind, model in models.items():
+            one[kind] = {"wall_ms": s8_wall_ms(lambda: _infer(model, b1),
+                                               S10_TIMED),
+                         "busy_ms": s10_profile(lambda: _infer(model, b1))[
+                             "busy_ms"]}
+            one192[kind] = s8_wall_ms(lambda: _infer(model, b192), S10_TIMED)
+        del models
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        s10_finish(s10_launch(work, "w2", 2, dict(spec, jobs=jobs["w2"])),
+                   "phase 15 world 2")
+        w2_s = time.perf_counter() - t
+        outs2 = [torch.load(os.path.join(work, f"out_w2_{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        cli = s10_cli(work, mads, 4, dev.type)
+
+        # a: split serving across cards
+        for m, outs in ((4, [o["a M=4"] for o in outs4]),
+                        (2, [o["a M=2"] for o in outs2])):
+            what = f"a M={m}"
+            for r, o in enumerate(outs):
+                require(o["mesh"][:5] == (0, 1, r, m, "neighbours")
+                        and (cpu or o["mesh"][5] == f"cuda:{r}"),
+                        f"{what} rank {r}: mesh {o['mesh']}")
+            keys = [f"{k} {p}" for k in ("fp32", "bf16") for p in S10_PAIRS]
+            res = {"vs_unsplit": s8_check(outs, ref, m, f"slice 10 {what}",
+                                          keys, inp["projs"], dev),
+                   "int8": {p: s10_check_int8(outs, ref, m, f"int8 {p}", p)
+                            for p in S10_PAIRS},
+                   "eval": s8_check_eval(outs, ref)}
+            logged = keys + [f"int8 {p}" for p in S10_PAIRS]
+            if m == S8_GATHER_M:
+                res["gathered"] = s8_check_gathered(
+                    outs, ref, m, ("fp32", "bf16"), inp["projs192"], dev,
+                    n_split, one192)
+                logged += [f"{k} {S8_GATHER_SIZE}"
+                           for k in ("fp32", "bf16", "int8")]
+            res["bytes"] = s10_check_bytes(outs, m, logged, what)
+            res["times"] = s10_times(outs, one, m, what)
+            res["launches"] = [{k: sum(o[key]["launches"][k] for key in logged)
+                                for k in ("soft_argmax", "soft_argmax_bwd",
+                                          "fused_bottleneck")} for o in outs]
+            out[what] = res
+
+        # c: split serving on the 2 x 2 mesh, each data group its own pair
+        outs = [o["c serve 2x2"] for o in outs4]
+        res = {}
+        for grp in (0, 1):
+            group = outs[2 * grp:2 * grp + 2]
+            for j, o in enumerate(group):
+                require(o["mesh"][:5] == (grp, 2, j, 2, "neighbours"),
+                        f"c data group {grp} rank {j}: mesh {o['mesh']}")
+            tag = "1" if grp == 0 else f"1@{grp}"
+            gref = {f"{k} 1": ref[f"{k} {tag}"] for k in ("fp32", "bf16",
+                                                          "int8")}
+            res[f"group {grp}"] = {
+                "vs_unsplit": s8_check(group, gref, 2,
+                                       f"slice 10 c data group {grp}",
+                                       ["fp32 1", "bf16 1"],
+                                       inp["projs"][grp:grp + 1], dev),
+                "int8": s10_check_int8(group, gref, 2, "int8 1", 1),
+                "bytes": s10_check_bytes(group, 2, ["fp32 1", "bf16 1",
+                                                    "int8 1"],
+                                         f"c data group {grp}")}
+        out["c serve 2x2"] = res
+
+        # b: data parallelism across cards, against one card
+        out["b one card"] = {k: one_step[k] for k in
+                             ("metrics", "launches", "step_ms", "peak_gib",
+                              "profile")}
+        out["b one process loop"] = {"history": one_loop,
+                                     "epoch_s": one_loop_s,
+                                     "peak_gib": one_loop_peak}
+        for w, outs in ((4, outs4), (2, outs2)):
+            out[f"b world {w}"] = {
+                "step": s10_check_steps([o["b step"] for o in outs],
+                                        one_step, w, n_bn),
+                "loop": s10_check_loops([o["b loop"] for o in outs],
+                                        one_loop, f"b loop world {w}",
+                                        f"dp{w}", roots[f"dp{w}"],
+                                        S7_EPOCHS)}
+        out["b cli"] = cli
+        # c: the loop on the 2 x 2 mesh
+        loops = [o["c loop 2x2"] for o in outs4]
+        for r, o in enumerate(loops):
+            require(o["mesh"] == (r // 2, 2, r % 2, 2) and not o["spatial"]
+                    and not {"halo", "gather", "keypoints"} & set(o["counts"]),
+                    f"c loop rank {r}: mesh {o['mesh']}, spatial "
+                    f"{o['spatial']}, collectives {o['counts']}")
+        same = [loops[2 * d]["digest"] == loops[2 * d + 1]["digest"]
+                for d in (0, 1)]
+        as_world2 = all(loops[0]["history"][k] == outs2[0]["b loop"][
+            "history"][k] for k in loops[0]["history"]
+            if not k.endswith("_per_sec"))
+        print(f"# slice 10 c loop on 2 x 2: the model ranks' final weights "
+              f"bit-equal by data group {same}; the history bit-equal to "
+              f"world 2's (D = 2, M = 1) {as_world2}")
+        require(all(same), f"c loop 2 x 2: the model ranks' final weights "
+                           f"differ (by data group {same})")
+        out["c loop 2x2"] = dict(
+            s10_check_loops(loops, one_loop, "c loop 2x2", "mesh2x2",
+                            roots["mesh2x2"], S7_EPOCHS),
+            model_ranks_bit_equal=same, history_equal_to_world2=as_world2)
+        out["init_s"] = {"w4": [o["init_s"] for o in outs4],
+                         "w2": [o["init_s"] for o in outs2]}
+        out["seconds"] = {"setup": setup_s, "references": refs_s,
+                          "world 4": w4_s, "world 2": w2_s,
+                          "cli": cli["seconds"]}
+    out["seconds"]["phase"] = time.perf_counter() - t0
+    print(f"# slice 10 ({smi}): {out['seconds']}")
     return out
 
 
@@ -5209,24 +6344,34 @@ def main():
         rank, world, port, cfg_path, root, out, device = args[1:]
         return s9_child(int(rank), int(world), int(port), cfg_path, root,
                         out, device)
+    if args[:1] == ["--s10-child"]:
+        rank, world, port, work, launch = args[1:]
+        return s10_child(int(rank), int(world), int(port), work, launch)
     if args not in ([], ["--kernels"], ["--slice6"], ["--slice7"],
-                    ["--slice8"], ["--slice9"]):
+                    ["--slice8"], ["--slice9"], ["--slice10"]):
         sys.exit("usage: python3 chip_smoke.py [--kernels | --slice6 | "
-                 "--slice7 | --slice8 | --slice9]")
+                 "--slice7 | --slice8 | --slice9 | --slice10]")
     kernels_only = args == ["--kernels"]
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs a CUDA device")
+    if args == ["--slice10"] and torch.cuda.device_count() < S10_CARDS:
+        sys.exit(f"chip_smoke --slice10: phase 15 needs {S10_CARDS} CUDA "
+                 f"devices, one NCCL rank a card (NCCL refuses two ranks on "
+                 f"one card); this host has {torch.cuda.device_count()}")
     check_apis()
     from fast3dhpe_tpu_torch.config import load_config
     from fast3dhpe_tpu_torch.ops._build import build
 
     t_start = time.perf_counter()
-    smi = subprocess.run(
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
+        check=True).stdout.strip().splitlines()
+    smi = cards[0]
+    if args == ["--slice10"]:
+        smi = "; ".join(cards)
+    print("\n".join(cards if args == ["--slice10"] else cards[:1]))
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     # fp32 references and the fp32 train step run in full fp32
@@ -5296,6 +6441,15 @@ def main():
         print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
                                            for k, v in phases.items()))
         print(json.dumps({"slice9": s9}))
+        return
+    if args == ["--slice10"]:
+        del cpu_inf
+        torch.cuda.empty_cache()
+        s10 = phase("slice 10", run_slice10, inf, cfg, dev, smi)
+        print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in phases.items()))
+        print(f"# total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"slice10": s10}))
         return
     k1 = phase("K1 timing", time_softargmax, dev, gen)
     k2 = phase("K2 timing", time_softargmax_bwd, dev, gen)

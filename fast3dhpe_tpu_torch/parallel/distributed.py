@@ -10,14 +10,24 @@ without WORLD_SIZE, as the JAX one is without JAX_COORDINATOR_ADDRESS. It
 initialises from WORLD_SIZE=1 up, so `torchrun --nproc_per_node 1` runs
 the collectives too.
 
-NCCL needs a card of its own for every rank. Two ranks on one card take
-gloo, which the caller asks for (`backend="gloo", device="cuda:0"`):
-gloo reduces CUDA tensors by way of the host. Nothing here falls back from
-one backend or device to another; a failed initialisation raises.
+Across cards every rank is NCCL on its own card, `cuda:LOCAL_RANK`:
+`torch.cuda.set_device` first, then `init_process_group(device_id=...)`,
+which makes the communicators at init (and the model and data groups by
+splitting them), so a rank that cannot reach the others fails there and
+not in its first collective. NCCL refuses two ranks on one card
+("Duplicate GPU detected"); ranks that share a card take gloo, which the
+caller asks for (`backend="gloo", device="cuda:0"`): gloo reduces CUDA
+tensors by way of the host, and has no point-to-point send of them, so
+parallel/mesh.py gives such a mesh the all_reduce ("slots") form of the
+spatial exchanges and an NCCL mesh the neighbour form. Nothing here falls
+back from one backend or device to another; a failed initialisation
+raises. `timeout` bounds every collective, so a rank whose peers are gone
+fails after it rather than after NCCL's default of ten minutes.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import List, Optional, Sequence
 
@@ -53,7 +63,8 @@ def _rank_device(device, local_rank: int) -> torch.device:
 
 
 def init_distributed(backend: Optional[str] = None, device=None,
-                     init_method: str = "env://") -> bool:
+                     init_method: str = "env://",
+                     timeout: Optional[float] = None) -> bool:
     """Join the process group that torchrun's environment describes.
 
     Args:
@@ -76,10 +87,15 @@ def init_distributed(backend: Optional[str] = None, device=None,
     dev = _rank_device(device, local_rank)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
+    kw = {}
+    if timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+        if backend == "nccl":
+            kw["device_id"] = dev
     dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world)
+                            world_size=world, **kw)
     _RANK_DEVICE = dev
     return True
 

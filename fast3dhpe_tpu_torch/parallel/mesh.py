@@ -15,9 +15,27 @@ exactly what the global program reduces:
   - the gradient (SUM of the ranks' gradients of their shares of the
     global loss), and the reported losses and metrics.
 
-Every reduction is one `all_reduce` of one packed tensor (per dtype), and
-the slice uses no collective beyond all_reduce, broadcast and barrier,
-which gloo also runs on CUDA tensors. The explicit reduction in one place
+Every reduction is one `all_reduce` of one packed tensor (per dtype);
+replication is a `broadcast`, and the loops order their writes by a
+`barrier`. A spatial mesh exchanges rows between its model ranks in one
+of two forms, recorded once, when make_mesh builds it, as
+`Mesh.exchange` (parallel/spatial.py does the exchanges):
+
+  - "neighbours", under NCCL (one rank a card, across cards): a halo is
+    one batch_isend_irecv with the model ranks above and below, the
+    edge rows only, and the gather and the keypoint statistics one
+    `all_gather` (all_gather_into_tensor), XLA's collective-permute and
+    all-gather;
+  - "slots", under gloo (ranks sharing a card, or the CPU): every
+    exchange is one all_reduce of M zeroed slots of int32 words, the
+    collective that gloo runs on CUDA tensors, which have no
+    point-to-point send over gloo.
+
+The form follows the backend and never changes after a failure;
+make_mesh(exchange=...) sets it explicitly (the CPU tests run the
+neighbour form over gloo on CPU tensors). COUNTS counts the collectives
+by kind and COUNTS_BYTES the bytes that this rank hands to them. The
+explicit reduction in one place
 (train/steps.py) takes the place of DistributedDataParallel: DDP would
 average rather than sum, wrap the model (and its state-dict keys) and
 broadcast the BN buffers, none of which the global-batch step wants.
@@ -65,6 +83,14 @@ from . import distributed
 #: "barrier"; on a spatial mesh "halo", "keypoints", "gather"), as the
 #: kernel wrappers count their launches
 COUNTS: Counter = Counter()
+#: the bytes this rank hands to those collectives, by the same kinds: an
+#: all_reduce's or broadcast's whole packed tensor, what a neighbour
+#: exchange sends to the two neighbours, an all_gather's own part
+COUNTS_BYTES: Counter = Counter()
+
+#: Mesh.exchange: the spatial exchanges' form by the process group's
+#: backend (parallel/spatial.py)
+EXCHANGES = {"nccl": "neighbours", "gloo": "slots"}
 
 
 @dataclass(frozen=True)
@@ -72,7 +98,8 @@ class Mesh:
     """A (data, model) grid of processes, one device a rank. group, rank
     and size are the data group's (WORLD at model_size 1); model_group,
     model_rank and model_size the model group's (None, 0 and 1 without a
-    spatial split)."""
+    spatial split); exchange the form of the spatial exchanges,
+    "neighbours" or "slots" (EXCHANGES)."""
     group: object
     rank: int
     size: int
@@ -80,10 +107,12 @@ class Mesh:
     model_group: object = None
     model_rank: int = 0
     model_size: int = 1
+    exchange: str = "slots"
 
 
 def make_mesh(n_devices: Optional[int] = None,
-              model_parallel: int = 1) -> Mesh:
+              model_parallel: int = 1,
+              exchange: Optional[str] = None) -> Mesh:
     """The mesh of the process group that init_distributed joined: D data
     groups of M = model_parallel model ranks.
 
@@ -91,7 +120,9 @@ def make_mesh(n_devices: Optional[int] = None,
     devices in one process, PyTorch runs one process a device, so an
     N-device mesh is N processes (torchrun --nproc_per_node N). So does a
     world size that M does not divide. At M > 1 every rank calls
-    dist.new_group for every group, in the same order.
+    dist.new_group for every group, in the same order. exchange: the
+    spatial exchanges' form, "neighbours" or "slots"; None takes the
+    backend's (EXCHANGES: NCCL's point-to-point sends, gloo's all_reduce).
     """
     if not dist.is_initialized():
         raise RuntimeError("no process group: start the ranks with torchrun "
@@ -110,9 +141,19 @@ def make_mesh(n_devices: Optional[int] = None,
     if model_parallel < 1 or size % model_parallel:
         raise ValueError(f"{size} ranks (the world size) not divisible by "
                          f"model_parallel={model_parallel}")
+    if exchange is None:
+        backend = dist.get_backend()
+        if backend not in EXCHANGES:
+            raise ValueError(f"no spatial exchange for the backend "
+                             f"{backend!r}: pass exchange='neighbours' or "
+                             f"'slots'")
+        exchange = EXCHANGES[backend]
+    elif exchange not in EXCHANGES.values():
+        raise ValueError(f"exchange={exchange!r}: expected one of "
+                         f"{sorted(EXCHANGES.values())}")
     rank = dist.get_rank()
     if model_parallel == 1:
-        return Mesh(dist.group.WORLD, rank, size, device)
+        return Mesh(dist.group.WORLD, rank, size, device, exchange=exchange)
     m, d = model_parallel, size // model_parallel
     model_group = data_group = None
     for i in range(d):
@@ -123,7 +164,8 @@ def make_mesh(n_devices: Optional[int] = None,
         g = dist.new_group([i * m + j for i in range(d)])
         if j == rank % m:
             data_group = g
-    return Mesh(data_group, rank // m, d, device, model_group, rank % m, m)
+    return Mesh(data_group, rank // m, d, device, model_group, rank % m, m,
+                exchange)
 
 
 def mesh_device(mesh: Optional[Mesh], device) -> torch.device:
@@ -155,8 +197,28 @@ def all_reduce(group, tensors: Sequence[torch.Tensor], kind: str
     new tensors of the same shapes (one dtype; the inputs are untouched)."""
     flat = _pack(tensors)
     COUNTS[kind] += 1
+    COUNTS_BYTES[kind] += flat.numel() * flat.element_size()
     dist.all_reduce(flat, group=group)
     return _unpack(flat, tensors)
+
+
+# torch 2.13 renames all_gather_into_tensor; 2.11 has only the old name
+_all_gather_single = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+def all_gather(group, tensor: torch.Tensor, kind: str) -> torch.Tensor:
+    """Every rank's `tensor` (one shape on every rank of the group) in rank
+    order, (n, *tensor.shape), bit for bit: one all_gather_into_tensor of
+    the tensor's bytes, XLA's all-gather. The input is untouched."""
+    n = dist.get_world_size(group)
+    mine = tensor.contiguous().view(-1).view(torch.uint8)
+    out = torch.empty(n * mine.numel(), dtype=torch.uint8,
+                      device=tensor.device)
+    COUNTS[kind] += 1
+    COUNTS_BYTES[kind] += mine.numel()
+    _all_gather_single(out, mine, group=group)
+    return out.view(tensor.dtype).view(n, *tensor.shape)
 
 
 def broadcast_(group, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
@@ -167,6 +229,7 @@ def broadcast_(group, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
     for ts in by_dtype.values():
         flat = _pack(ts)
         COUNTS["broadcast"] += 1
+        COUNTS_BYTES["broadcast"] += flat.numel() * flat.element_size()
         dist.broadcast(flat, src=src, group=group)
         for t, s in zip(ts, _unpack(flat, ts)):
             t.copy_(s)
@@ -176,10 +239,14 @@ def barrier(mesh: Optional[Mesh]) -> None:
     """Wait for every rank of the world, all data and model ranks
     (nothing without a mesh): the loops order global rank 0's writes of
     the model directory against every rank's reads with it, and the data
-    group alone would leave the other model ranks out."""
+    group alone would leave the other model ranks out. Under NCCL it
+    names the rank's card, which NCCL would otherwise guess."""
     if mesh is not None:
         COUNTS["barrier"] += 1
-        dist.barrier()
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[mesh.device.index])
+        else:
+            dist.barrier()
 
 
 def replicate(mesh: Mesh, model: nn.Module, spatial: bool = True

@@ -30,13 +30,25 @@ mesh. While split:
     `gather_height` assembles the whole heatmap (`heatmap_split` says
     which of the two a forward returns).
 
-Every exchange is one `all_reduce` over the model group (parallel/mesh.py)
-of a zeroed buffer with one slot a rank, in which each rank writes what its
-neighbours need: the only collective that gloo also runs on CUDA tensors,
-which two ranks sharing one card must take. The slot holds the rows' bytes
-as int32 words, so the sum of a word and zeros cannot round: the rows
-arrive bit for bit, -0.0 and NaN included, whatever their dtype. A
-point-to-point form (NCCL `batch_isend_irecv`) is later work (ROADMAP B).
+The exchanges take the form that the mesh records (parallel/mesh.py
+`Mesh.exchange`, chosen once by the process group's backend). Either way
+the rows travel as raw bytes, so they arrive bit for bit, -0.0 and NaN
+included, whatever their dtype (fp32, bf16, the int8 path's codes):
+
+  - "neighbours" (NCCL, one rank a card, across cards): a halo is one
+    `batch_isend_irecv` with the model ranks above and below, as XLA's
+    collective-permute moves it: a rank sends its first `bottom` rows up
+    and its last `top` rows down from contiguous staging buffers, and
+    receives only the rows its window reaches; the ranks at the global
+    edge post only the operations whose peer exists. The gather and the
+    keypoint statistics are one `all_gather` over the model group
+    (parallel/mesh.py), XLA's all-gather;
+  - "slots" (gloo: ranks that share a card, whose CUDA tensors gloo
+    cannot send point to point, and the CPU): every exchange is one
+    `all_reduce` over the model group of a zeroed buffer with one slot a
+    rank, in which each rank writes what its neighbours need, as int32
+    words, so the sum of a word and zeros cannot round. Every rank sends
+    and receives M slots where the neighbour form moves the edge rows.
 
 Training on a spatial mesh (train-mode BN over data x model, the adjoint
 of the halo exchange, K2 over a split heatmap) is not applicable and
@@ -50,9 +62,10 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops.softargmax import soft_argmax_fused, soft_argmax_stats
-from .mesh import all_reduce
+from .mesh import COUNTS, COUNTS_BYTES, all_gather, all_reduce
 
 NOT_APPLICABLE = (
     "not applicable: no caller of the JAX package trains on split images "
@@ -159,9 +172,9 @@ def deconv_halo(k: int, s: int, p: int) -> Tuple[int, int, int, int]:
 def _exchange(parts: Sequence[torch.Tensor], mesh, kind: str
               ) -> List[List[torch.Tensor]]:
     """Every model rank's `parts` (one dtype; the same shapes on every
-    rank), bit for bit: one all_reduce over the model group of M zeroed
-    slots of int32 words, this rank's slot holding the parts' bytes.
-    Returns, for each model rank j, views of its parts."""
+    rank), bit for bit: the slot form, one all_reduce over the model group
+    of M zeroed slots of int32 words, this rank's slot holding the parts'
+    bytes. Returns, for each model rank j, views of its parts."""
     dt = parts[0].dtype
     nbytes = [p.numel() * p.element_size() for p in parts]
     words = max(1, -(-sum(nbytes) // 4))
@@ -184,6 +197,47 @@ def _exchange(parts: Sequence[torch.Tensor], mesh, kind: str
     return out
 
 
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """t's bytes in a contiguous staging buffer: (numel * itemsize,)
+    uint8."""
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+def _neighbours(first: torch.Tensor, last: torch.Tensor, mesh, kind: str
+                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The neighbour form of a halo, in one batch_isend_irecv over the
+    model group: `first` (this rank's first `bottom` rows) to the model
+    rank above and `last` (its last `top` rows) to the rank below, from
+    contiguous staging buffers as raw bytes. Returns (the rank above's
+    `last`, the rank below's `first`): None where there is no such rank,
+    and nothing is sent or received where the rows are empty (a halo of
+    0 on that side). Every rank posts its operations in one order, the
+    rank above first and the send before the receive."""
+    j, m = mesh.model_rank, mesh.model_size
+    ops, got, sent = [], [None, None], 0
+    for side, (near, out, back) in enumerate(((j - 1, first, last),
+                                              (j + 1, last, first))):
+        if not 0 <= near < m:
+            continue
+        peer = dist.get_global_rank(mesh.model_group, near)
+        if out.numel():
+            buf = _bytes(out)
+            sent += buf.numel()
+            ops.append(dist.P2POp(dist.isend, buf, peer, mesh.model_group))
+        if back.numel():
+            got[side] = torch.empty(back.numel() * back.element_size(),
+                                    dtype=torch.uint8, device=back.device)
+            ops.append(dist.P2POp(dist.irecv, got[side], peer,
+                                  mesh.model_group))
+    COUNTS[kind] += 1
+    COUNTS_BYTES[kind] += sent
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return tuple(None if g is None else g.view(t.dtype).view(t.shape)
+                 for g, t in zip(got, (last, first)))
+
+
 def _channels_last(t: torch.Tensor, dim: int) -> torch.Tensor:
     """The port's float activations are NCHW in channels_last memory (the
     height is dim 2); the int8 path's are NHWC (dim 1), contiguous."""
@@ -196,13 +250,17 @@ def halo_rows(x: torch.Tensor, dim: int, top: int, bottom: int, mesh,
               pad_value) -> torch.Tensor:
     """x with `top` rows of the model rank above and `bottom` rows of the
     rank below around it along `dim` (the height: 2 for NCHW, 1 for the
-    int8 path's NHWC), in one all_reduce over the model group.
+    int8 path's NHWC), in one exchange over the model group in the mesh's
+    form: a batch_isend_irecv with the two neighbours ("neighbours") or
+    an all_reduce of M slots ("slots").
 
     At the global edge the missing rows are `pad_value` (the op's own
     padding: 0 for a convolution, -inf or -128 for the max-pool), or are
-    left out when pad_value is None. Each rank's slot holds its first
-    `bottom` rows (the upper neighbour's bottom halo) and its last `top`
-    rows (the lower neighbour's top halo). Counts into COUNTS["halo"]."""
+    left out when pad_value is None. A rank's first `bottom` rows are the
+    upper neighbour's bottom halo and its last `top` rows the lower
+    neighbour's top halo. Counts into COUNTS["halo"], and what this rank
+    sends into COUNTS_BYTES["halo"]: the edge rows themselves in the
+    neighbour form, the M slots in the slot form."""
     n = x.shape[dim]
     if n < max(top, bottom):
         raise ValueError(f"halo_rows: the rank's {n} rows cannot supply a "
@@ -210,18 +268,23 @@ def halo_rows(x: torch.Tensor, dim: int, top: int, bottom: int, mesh,
     if not (top or bottom):
         return x
     first, last = x.narrow(dim, 0, bottom), x.narrow(dim, n - top, top)
-    slots = _exchange([first, last], mesh, "halo")
     j, m = mesh.model_rank, mesh.model_size
+    if mesh.exchange == "neighbours":
+        above, below = _neighbours(first, last, mesh, "halo")
+    else:
+        slots = _exchange([first, last], mesh, "halo")
+        above = slots[j - 1][1] if j > 0 else None
+        below = slots[j + 1][0] if j < m - 1 else None
     pieces = []
     if top:
-        if j > 0:
-            pieces.append(slots[j - 1][1])
+        if above is not None:
+            pieces.append(above)
         elif pad_value is not None:
             pieces.append(torch.full_like(last, pad_value))
     pieces.append(x)
     if bottom:
-        if j < m - 1:
-            pieces.append(slots[j + 1][0])
+        if below is not None:
+            pieces.append(below)
         elif pad_value is not None:
             pieces.append(torch.full_like(first, pad_value))
     return _channels_last(torch.cat(pieces, dim), dim)
@@ -262,9 +325,14 @@ def deconv_rows(fn, x: torch.Tensor, dim: int, k: int, s: int, p: int,
 
 def gather_height(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     """The whole tensor from the model ranks' row blocks along `dim`, bit
-    for bit, in one all_reduce over the model group (COUNTS["gather"])."""
-    slots = _exchange([x], mesh, "gather")
-    return _channels_last(torch.cat([s[0] for s in slots], dim), dim)
+    for bit, in one exchange over the model group (COUNTS["gather"]): an
+    all_gather in the neighbour form, an all_reduce of M slots in the
+    slot form."""
+    if mesh.exchange == "neighbours":
+        blocks = list(all_gather(mesh.model_group, x, "gather"))
+    else:
+        blocks = [s[0] for s in _exchange([x], mesh, "gather")]
+    return _channels_last(torch.cat(blocks, dim), dim)
 
 
 def split_soft_argmax(hm_local: torch.Tensor, mesh) -> torch.Tensor:
@@ -276,7 +344,9 @@ def split_soft_argmax(hm_local: torch.Tensor, mesh) -> torch.Tensor:
     K1's statistics (m, 1/S, cx, cy) of the rank's rows (one launch on the
     card, the plain version on the CPU; ops/softargmax.py
     soft_argmax_stats), cy shifted by the rank's first row, gathered in one
-    all_reduce (COUNTS["keypoints"]), then combined in a fixed order on
+    exchange (COUNTS["keypoints"]; an all_gather in the neighbour form,
+    an all_reduce of M slots in the slot form), then combined in a fixed
+    order on
     every rank: M* = max m_j, w_j = S_j exp(m_j - M*),
     c = sum w_j c_j / sum w_j, which is the softmax over all rows."""
     if mesh is None:
@@ -284,8 +354,11 @@ def split_soft_argmax(hm_local: torch.Tensor, mesh) -> torch.Tensor:
     stats = soft_argmax_stats(hm_local)
     row0 = float(mesh.model_rank * hm_local.shape[1])
     stats = torch.cat([stats[..., :3], stats[..., 3:] + row0], dim=-1)
-    allst = torch.stack([s[0] for s in _exchange([stats], mesh,
-                                                 "keypoints")])
+    if mesh.exchange == "neighbours":
+        allst = all_gather(mesh.model_group, stats, "keypoints")
+    else:
+        allst = torch.stack([s[0] for s in _exchange([stats], mesh,
+                                                     "keypoints")])
     m, inv_s, c = allst[..., 0], allst[..., 1], allst[..., 2:]
     w = torch.exp(m - m.amax(dim=0)) / inv_s
     return (w[..., None] * c).sum(dim=0) / w.sum(dim=0)[..., None]
