@@ -8,6 +8,7 @@
     python3 chip_smoke.py --slice8    # steps 1-3 and 13
     python3 chip_smoke.py --slice9    # steps 1-3 and 14
     python3 chip_smoke.py --slice10   # steps 1-3 and 15, four cards
+    python3 chip_smoke.py --slice11   # steps 1-3 and 16
 
 1. Prints the card's name and power limit, builds the kernels
    (csrc/softargmax.cu and csrc/fused_bottleneck.cu, one nvcc each, in
@@ -26,7 +27,9 @@
    and layer1.1 at 13 and 14 rows x 48 and the whole 48 x 48 plane);
    for phase 15 also K1 on (8, 16, 64, 19) (4 pairs at M = 4) and K1 and
    K2 on a data-parallel rank's 16 and 8 pairs ((32, 64, 64, 19),
-   (16, 64, 64, 19)).
+   (16, 64, 64, 19)). Phase 16 launches K1 and K2 inside CUDA graphs at
+   the training path's 32 pairs only ((64, 64, 64, 19), fp32 and bf16),
+   which the 64-image cases check (s16_shapes_checked).
 3. Serving path: three requests of four uint8 stereo pairs through
    `CDRNetInferencer.predict_batch` at the width of configs/mads_3d.yaml
    (CDRNet-101, 256 px, 19 joints), bf16 with fused_inference=True, from
@@ -287,7 +290,38 @@
       of one process.
    Every K1, K2 and K3 shape of the phase is one that step 2 checks
    (s10_shapes_checked).
-16. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
+16. Slice 11, one-dispatch training: CDRNet-101 at 256 px (configs/
+    mads_3d.yaml: 19 joints, CUTOUT, 32 pairs a step) on phase 12's
+    tree, whole in the device frame cache, cuDNN deterministic, TF32
+    off; each train and eval step of a stacked epoch replays a CUDA graph
+    of the whole step (train/graphs.py):
+   a. the occlusion masks of 6 replays of the train pipeline bit-equal to
+      step_generator's; one fp32 train epoch of 6 stacked steps (use_3d,
+      the last 4 rows of each padded) graphed against the same epoch run
+      eagerly from the same weights with the same capturable Adam: the
+      per-step metrics, the weights, the BN statistics and Adam's state
+      bit-equal (or, d, within phase 12's S7_* bounds, the gaps printed),
+      1 K1 + 1 K2 a step counted through the replays; then one bf16 epoch
+      held the same way. Each way: a warm epoch's wall ms a step, the
+      device-busy ms a step and the idle share (torch.profiler), host
+      launches a step (the CUDA calls that put work on the device),
+      capture seconds, reserved memory and peak;
+   b. make_segment_cdr over E_full = 4 epochs (3 valid, 1 padding) of 2
+      steps, WARMUP 1, the LR / 10 from epoch 3, against the same 3
+      epochs on the epoch path with the best chosen on the host: the
+      per-epoch metrics, `improved`, the best error, the best state and
+      the final state bit-equal, the padding epoch's metrics 0 and the LR
+      read back from the optimizer the schedule's;
+   c. loop_cdr.run by segments (checkpoint_every 2, 3 epochs) against
+      segments=False: histories bit-equal, latest.pth written only on the
+      grid (after epochs 2 and 3) and best.pth only there; the occlusion
+      epoch seeds seed * 10007 + epoch, after --resume too (the epoch
+      path's restart at the loader's 0); 2 K1 + 1 K2 an epoch; loop2d.run
+      for PoseResNet-101 (configs/mads_2d.yaml) by segments against
+      segments=False, 2 epochs, bit-equal;
+   and prints measure_scan_floor (a replayed trivial graph) beside the
+   host's time a trivial eager launch.
+17. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
 
 It needs one CUDA device, and four for --slice10. Without one, or when
 any phase fails, it exits non-zero and prints no result.
@@ -2357,7 +2391,7 @@ def run_train_apps(mads, work, dev):
                                               logging.getLogger("chip"))
     sync()
     resume_ms = (time.perf_counter() - t) * 1e3
-    loaded = state.optimizer.state_dict()
+    loaded = state.optimizer_state_dict()
     same = all(torch.equal(v.cpu(), saved["optimizer"]["state"][i][k])
                for i, s in loaded["state"].items() for k, v in s.items())
     require(same and step == saved["step"] == APPS_EPOCHS_CDR * steps
@@ -2717,7 +2751,11 @@ def check_apis():
          hasattr(torch.library, "register_autograd")),
         ("torch.export.export", hasattr(torch, "export")
          and hasattr(torch.export, "export")),
-        ("torch._int_mm", hasattr(torch, "_int_mm"))) if not ok]
+        ("torch._int_mm", hasattr(torch, "_int_mm")),
+        ("torch.cuda.CUDAGraph.register_generator_state",
+         hasattr(torch.cuda.CUDAGraph, "register_generator_state")),
+        ("torch.cuda.graph_pool_handle",
+         hasattr(torch.cuda, "graph_pool_handle"))) if not ok]
     try:
         import torch.export.passes as passes
         if not hasattr(passes, "move_to_device_pass"):
@@ -5972,6 +6010,513 @@ def run_slice10(inf, cfg, dev, smi):
     return out
 
 
+# ----------------------------------------------------------------- slice 11
+
+S16_BATCH, S16_PAD = 32, 4        # a, b: 32 pairs a step, the last 4 padded
+S16_STEPS = 6                     # a: an epoch of 6 stacked steps
+S16_SEG_E, S16_SEG_VALID = 4, 3   # b: E_full 4, 3 valid epochs + 1 padding
+S16_SEG_STEPS = 2                 # b: steps an epoch
+S16_LR_STEP = 2                   # b: the LR / 10 from epoch 3 (update 4)
+S16_LOOP_EPOCHS, S16_LOOP_EVERY = 3, 2   # c: the loops' run and grid
+S16_2D_EPOCHS = 2
+S16_HOST_LAUNCHES = 2000          # trivial launches timed for the host's
+                                  # cost of one
+# CPU-side CUDA calls of torch.profiler that put work on the device
+S16_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                    "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def s16_cfg(work, mads, name, src="configs/mads_3d.yaml", epochs=3, **train):
+    """src on phase 12's tree, the tree whole in the device cache, 32 pairs
+    a batch, MODEL.NAME name, WARMUP 1."""
+    import os
+    return app_config(
+        src, os.path.join(work, f"{name}.yaml"), mads,
+        MODEL={"PRETRAINED": "", "NAME": name},
+        DATASET={"DEVICE_CACHE_BYTES": S9_CACHE_BYTES},
+        TRAIN=dict({"BATCH_SIZE": S16_BATCH, "EPOCH": epochs, "WARMUP": 1},
+                   **train),
+        TEST={"BATCH_SIZE": S16_BATCH})
+
+
+def s16_stacked(loader, steps, pad):
+    """`steps` stacked epochs of the loader (one batch each on phase 12's
+    tree) as one epoch of `steps` steps, the last `pad` rows of each step
+    marked padded."""
+    xs = [loader.stacked_epoch()[1] for _ in range(steps)]
+    xs = {k: np.concatenate([np.asarray(x[k]) for x in xs]) for k in xs[0]}
+    xs["row_valid"] = xs["row_valid"].copy()
+    xs["row_valid"][:, -pad:] = 0.0
+    return xs
+
+
+def s16_state(cfg, dev, dtype, steps_per_epoch):
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    model = seeded_train_model(cfg).to(dev)
+    model.dtype = dtype
+    return TrainState.create(model, cfg, steps_per_epoch)
+
+
+def s16_snapshot(state):
+    """The weights, BN statistics and Adam's state, cloned."""
+    out = {f"w.{k}": v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    for i, s in state.optimizer.state_dict()["state"].items():
+        for k, v in s.items():
+            out[f"adam.{i}.{k}"] = v.detach().clone()
+    return out
+
+
+def s16_gaps(a, b):
+    """{name: max |a - b|} of the tensors that are not bit-equal."""
+    return {k: float((a[k].double() - b[k].double()).abs().max())
+            for k in a if not torch.equal(a[k], b[k])}
+
+
+def s16_recorder(graphs):
+    rec = []
+    graphs.on_step = lambda m: rec.append({k: v.detach().clone()
+                                           for k, v in m.items()})
+    return rec
+
+
+def s16_profile(fn, steps):
+    """One fn() (`steps` steps) under torch.profiler: device busy ms, kernels
+    and host launches (the CUDA calls that put work on the device) a step;
+    busy None where the profile holds no device time."""
+    from collections import Counter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.events()
+    ks = [e for e in ev if e.device_type == DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)]
+    busy = sum((e.time_range.end - e.time_range.start) / 1e3 for e in ks)
+    calls = Counter(e.name for e in ev if e.device_type == DeviceType.CPU
+                    and e.name in S16_LAUNCH_CALLS)
+    return {"busy_ms": busy / steps if busy > 0 else None,
+            "kernels": len(ks) / steps,
+            "host_launches": sum(calls.values()) / steps,
+            "calls": {k: v / steps for k, v in sorted(calls.items())}}
+
+
+def s16_wall_ms(fn, steps):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / steps
+
+
+def s16_masks(frames, xs, cfg, dev):
+    """The occlusion masks of a graph's replays against step_generator's:
+    graphs.py's StepGraphs on the train pipeline alone (CUTOUT, the
+    epoch's rows), its per-step keep-masks against the eager pipeline's
+    with step_generator(dev, SEED, i). Returns the masks' hidden share."""
+    from fast3dhpe_tpu_torch.data.device_pipeline import (
+        preprocess_stereo_batch_cached)
+    from fast3dhpe_tpu_torch.train.graphs import StepGraphs
+    from fast3dhpe_tpu_torch.train.steps import step_generator, step_seed
+    size = tuple(cfg.MODEL.IMAGE_SIZE)
+    xd = {k: torch.as_tensor(v).to(dev) for k, v in xs.items()}
+
+    def batch(x, gen):
+        return preprocess_stereo_batch_cached(
+            gen, frames, x["idx_l"], x["idx_r"], x["trans"], x["P_l"],
+            x["P_r"], x["pose_3d"], x["joints_vis"], image_size=size,
+            occlusion=cfg.DATASET.OCCLUSION, train=True, return_masks=True)
+
+    graphs = StepGraphs()
+    rec = s16_recorder(graphs)
+    graphs.epoch(("masks",), frames, xd,
+                 lambda x, gen, update: {"keep": batch(x, gen)["keep_mask"]
+                                         .float()},
+                 seeds=[step_seed(SEED, i) for i in range(len(xs["idx_l"]))])
+    require(len(graphs._graphs) == (dev.type == "cuda"),
+            "phase 16 a: the mask pipeline was not captured")
+    hidden = []
+    for i, got in enumerate(rec):
+        want = batch({k: v[i] for k, v in xd.items()},
+                     step_generator(dev, SEED, i))["keep_mask"].float()
+        require(torch.equal(got["keep"], want),
+                f"phase 16 a: step {i}'s occlusion masks differ from "
+                f"step_generator's ({int((got['keep'] != want).sum())} "
+                f"pixels)")
+        hidden.append(float(1 - want.mean()))
+    return hidden
+
+
+def s16_epoch_pair(cfg, frames, xs, dev, dtype, loss, kw):
+    """a. One train epoch (use_3d) of S16_STEPS steps, eager and graphed,
+    from the same seeded weights with the same (capturable) optimizer:
+    per-step metrics, weights, BN statistics and Adam's state bit-equal,
+    1 K1 + 1 K2 a step; then each way one timed epoch and one profiled."""
+    from fast3dhpe_tpu_torch.train import steps
+    n = len(xs["idx_l"])
+    runs = {}
+    for graphed in (False, True):
+        state = s16_state(cfg, dev, dtype, n)
+        epoch = steps.make_train_epoch_cdr(
+            loss, cfg.MODEL.IMAGE_SIZE, occlusion=cfg.DATASET.OCCLUSION,
+            graphed=graphed, **kw)
+        rec = s16_recorder(epoch.graphs)
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counts()
+        sums = epoch(state, frames, xs, SEED, True)
+        launches = read_counts(counters)
+        run = {"sums": {k: v.clone() for k, v in sums.items()},
+               "steps": rec[:], "snap": s16_snapshot(state),
+               "launches": launches, "capture_s": epoch.graphs.capture_s,
+               "variants": len(epoch.graphs._graphs),
+               "reserved_gib": (torch.cuda.memory_reserved() - reserved)
+               / 2 ** 30,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        epoch.graphs.on_step = None
+        run["wall_ms"] = s16_wall_ms(
+            lambda: epoch(state, frames, xs, SEED + 1, True), n)
+        run.update(s16_profile(
+            lambda: epoch(state, frames, xs, SEED + 2, True), n))
+        run["idle"] = (None if run["busy_ms"] is None
+                       else 1 - run["busy_ms"] / run["wall_ms"])
+        require(len(rec) == n and all(
+            np.isfinite(float(v)) for m in rec for v in m.values()),
+            f"phase 16 a: non-finite metrics {rec}")
+        require_counts(launches, n, 1, 1, 0,
+                       f"phase 16 a, {'graphed' if graphed else 'eager'}")
+        runs["graphed" if graphed else "eager"] = run
+        del state, epoch
+        torch.cuda.empty_cache()
+    e, g = runs["eager"], runs["graphed"]
+    require(g["variants"] == (dev.type == "cuda") and e["variants"] == 0,
+            f"phase 16 a: {g['variants']} graphed variants, {e['variants']} "
+            f"eager")
+    step_gaps = [s16_gaps(a, b) for a, b in zip(e["steps"], g["steps"])]
+    state_gaps = s16_gaps(e["snap"], g["snap"])
+    sum_gaps = s16_gaps(e["sums"], g["sums"])
+    bit_equal = not any(step_gaps) and not state_gaps and not sum_gaps
+    return runs, bit_equal, {"steps": step_gaps, "sums": sum_gaps,
+                             "state": dict(list(state_gaps.items())[:8]),
+                             "state_differing": len(state_gaps)}
+
+
+def s16_bounds(gaps, e, g, what):
+    """d. Where graphed and eager are not bit-equal: the metrics within
+    phase 12's S7_* bounds (relative), the state's largest gap printed."""
+    for i, (a, b) in enumerate(zip(e["steps"], g["steps"])):
+        for k in a:
+            rel = float((a[k] - b[k]).abs() / b[k].abs().clamp_min(1e-30))
+            bound = S7_WARMUP_RTOL if k in ("loss", "loss_2d") else S7_2D_RTOL
+            require(rel <= bound, f"{what}: step {i} {k} {rel:.3g} from "
+                                  f"eager (bound {bound})")
+    print(f"# phase 16 {what}: NOT bit-equal, within S7_* bounds; gaps "
+          f"{gaps}")
+
+
+def s16_segment(cfg, tl, vl, dev, loss, kw):
+    """b. make_segment_cdr over E_full = S16_SEG_E epochs, S16_SEG_VALID
+    valid and the rest padding, WARMUP 1 and the LR / 10 from epoch
+    S16_LR_STEP + 1, against the same epochs on the epoch path with the
+    best chosen on the host: bit-equal."""
+    from fast3dhpe_tpu_torch.train import loop2d, steps
+    cfg.TRAIN.LR_STEP = [S16_LR_STEP]
+    warmup = cfg.TRAIN.WARMUP
+    tframes = tl.ensure_device_cache().frames
+    vframes = vl.ensure_device_cache().frames
+    epochs = [s16_stacked(tl, S16_SEG_STEPS, S16_PAD)
+              for _ in range(S16_SEG_VALID)]
+    seq, epoch_valid, _ = loop2d._stack_segment(epochs, S16_SEG_E)
+    vxs = vl.stacked_epoch()[1]
+    size = cfg.MODEL.IMAGE_SIZE
+    occl = cfg.DATASET.OCCLUSION
+
+    n = len(epochs[0]["idx_l"])             # steps an epoch
+    seg_state = s16_state(cfg, dev, torch.float32, n)
+    segment = steps.make_segment_cdr(loss, size, occlusion=occl,
+                                     warmup=warmup, seed=SEED, **kw)
+    best = loop2d._best_snapshot(seg_state)
+    counters = reset_counts()
+    t = time.perf_counter()
+    _, _, best_err, ms = segment(seg_state, best, torch.tensor(
+        float("inf"), device=dev), tframes, vframes, seq, vxs, 0,
+        epoch_valid)
+    seg_launches = read_counts(counters)
+    seg_s = time.perf_counter() - t
+    lr_got = seg_state.optimizer.param_groups[0]["lr"]
+    lr_want = seg_state.schedule(seg_state.step - 1)
+
+    ep_state = s16_state(cfg, dev, torch.float32, n)
+    train = steps.make_train_epoch_cdr(loss, size, occlusion=occl, **kw)
+    evaluate = steps.make_eval_epoch_cdr(loss, size, **kw)
+    rows, berr, best_ep = [], float("inf"), None
+    for e in range(S16_SEG_VALID):
+        use_3d = e >= warmup
+        tsum = train(ep_state, tframes, epochs[e], SEED * 10007 + e, use_3d)
+        esum = evaluate(ep_state, vframes, vxs, use_3d)
+        e3 = float(esum["e3_sum"] / esum["n"].clamp_min(1.0))
+        improved = e > warmup and e3 < berr
+        if improved:
+            berr = e3
+            best_ep = {k: v.clone()
+                       for k, v in ep_state.model.state_dict().items()}
+        rows.append({"train": {k: v.clone() for k, v in tsum.items()},
+                     "eval": {k: v.clone() for k, v in esum.items()},
+                     "improved": improved})
+    metric_gaps = []
+    for e in range(S16_SEG_E):
+        for part in ("train", "eval"):
+            for k, v in ms[part].items():
+                want = (rows[e][part][k] if e < S16_SEG_VALID
+                        else torch.zeros_like(v[e]))
+                if not torch.equal(v[e], want):
+                    metric_gaps.append((e, part, k, float(v[e]),
+                                        float(want)))
+    improved = [bool(x) for x in ms["improved"].tolist()]
+    want_improved = [r["improved"] for r in rows] + [False] * (
+        S16_SEG_E - S16_SEG_VALID)
+    best_gaps = (s16_gaps({k: best[k] for k in best_ep}, best_ep)
+                 if best_ep is not None else {"no best": 1.0})
+    final_gaps = s16_gaps(s16_snapshot(seg_state), s16_snapshot(ep_state))
+    out = {"segment_s": seg_s, "launches": seg_launches,
+           "improved": improved, "best_err": float(best_err),
+           "best_err_epochs": berr, "lr_after": float(lr_got),
+           "lr_schedule": lr_want, "steps": seg_state.step,
+           "metric_gaps": metric_gaps[:6], "best_gaps": len(best_gaps),
+           "final_gaps": len(final_gaps)}
+    print(f"# phase 16 b, segment E_full {S16_SEG_E} ({S16_SEG_VALID} valid) "
+          f"against {S16_SEG_VALID} epochs: {out}")
+    require(improved == want_improved and float(best_err) == berr,
+            f"phase 16 b: improved {improved} / {want_improved}, best "
+            f"{float(best_err)} / {berr}")
+    require(not metric_gaps and not best_gaps and not final_gaps,
+            f"phase 16 b: the segment differs from the epochs: metrics "
+            f"{metric_gaps[:6]}, best {list(best_gaps.items())[:4]}, final "
+            f"{list(final_gaps.items())[:4]}")
+    require(seg_state.step == S16_SEG_VALID * n
+            and lr_want == cfg.TRAIN.LR * cfg.TRAIN.LR_FACTOR
+            and float(lr_got) == (float(torch.tensor(lr_want,
+                                                     dtype=lr_got.dtype))
+                                  if torch.is_tensor(lr_got) else lr_want),
+            f"phase 16 b: after the segment step {seg_state.step}, LR "
+            f"{float(lr_got)} (schedule {lr_want})")
+    # a train step K1 + K2, an eval batch K1, S16_SEG_VALID epochs
+    n_eval = len(vxs["idx_l"])
+    require_counts(seg_launches, 1, S16_SEG_VALID * (n + n_eval),
+                   S16_SEG_VALID * n, 0, "phase 16 b")
+    return out
+
+
+def s16_loops(work, mads, dev):
+    """c. loop_cdr.run by segments (segments=None, checkpoint_every
+    S16_LOOP_EVERY) against segments=False, bit-equal; saves only on the
+    grid; a resumed run's occlusion keys; loop2d.run both ways."""
+    import os
+    import shutil
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.train import checkpoint, loop2d, loop_cdr, steps
+    cfg3 = s16_cfg(work, mads, "s16loop", epochs=S16_LOOP_EPOCHS)
+    saves, seeds = [], []
+    save_file, step_seed = checkpoint.save_file, steps.step_seed
+
+    def spy_save(path, obj):
+        step = (obj["step"] if path.endswith(".opt.pt")
+                else checkpoint.weights_step(obj))
+        saves.append((os.path.basename(path), step))
+        save_file(path, obj)
+
+    def spy_seed(epoch_seed, step):
+        if step == 0:
+            seeds.append(epoch_seed)
+        return step_seed(epoch_seed, step)
+
+    def run(name, **kw):
+        del saves[:], seeds[:]
+        counters = reset_counts()
+        h = loop_cdr.run(load_config(cfg3), seed=SEED, device=dev.type,
+                         checkpoint_every=S16_LOOP_EVERY,
+                         weights_root=os.path.join(work, name),
+                         **dict({"overwrite": True}, **kw))
+        return h, list(saves), list(seeds), read_counts(counters)
+
+    checkpoint.save_file, steps.step_seed = spy_save, spy_seed
+    try:
+        h_seg, saves_seg, seeds_seg, n_seg = run("w_seg")
+        h_ep, _, seeds_ep, n_ep = run("w_ep", segments=False)
+        run("w_res", max_epochs=S16_LOOP_EPOCHS - 1)
+        shutil.copytree(os.path.join(work, "w_res"),
+                        os.path.join(work, "w_res_ep"))
+        _, _, seeds_res, _ = run("w_res", resume=True, overwrite=False)
+        _, _, seeds_res_ep, _ = run("w_res_ep", resume=True, overwrite=False,
+                                    segments=False)
+    finally:
+        checkpoint.save_file, steps.step_seed = save_file, step_seed
+    keys = [k for k in h_seg if not k.endswith("_per_sec")]
+    equal = all(h_seg[k] == h_ep[k] for k in keys)
+    latest = [s for n, s in saves_seg if n == "latest.pth"]
+    S = latest[-1] // S16_LOOP_EPOCHS       # steps an epoch (1 on the card)
+    best = [s for n, s in saves_seg if n == "best.pth"]
+    grid = [e * S for e in range(1, S16_LOOP_EPOCHS + 1)
+            if e % S16_LOOP_EVERY == 0 or e == S16_LOOP_EPOCHS]
+    want_seeds = [SEED * 10007 + e for e in range(S16_LOOP_EPOCHS)]
+    print(f"# phase 16 c, loop_cdr.run by segments against segments=False: "
+          f"history bit-equal {equal}; saves {saves_seg} (grid {grid}); "
+          f"epoch seeds {seeds_seg}, epoch path {seeds_ep}, resumed by "
+          f"segments {seeds_res}, by epochs {seeds_res_ep}; {h_seg}")
+    require(equal, f"phase 16 c: segments {h_seg} / epochs {h_ep}")
+    require(np.isfinite([h_seg[k] for k in keys]).all(),
+            f"phase 16 c: {h_seg}")
+    require(latest == grid and all(s in grid for s in best) and best,
+            f"phase 16 c: latest written at steps {latest}, best at {best} "
+            f"(grid {grid})")
+    require(seeds_seg == seeds_ep == want_seeds
+            and seeds_res == [SEED * 10007 + S16_LOOP_EPOCHS - 1]
+            and seeds_res_ep == [SEED * 10007],
+            f"phase 16 c: occlusion epoch seeds {seeds_seg}, {seeds_ep}; "
+            f"resumed {seeds_res} (segments), {seeds_res_ep} (epochs)")
+    for n, what in ((n_seg, "segments"), (n_ep, "epochs")):
+        # an epoch: a train step (K1 + K2) and an eval batch (K1)
+        require_counts(n, S16_LOOP_EPOCHS, 2, 1, 0, f"phase 16 c, {what}")
+
+    cfg2 = s16_cfg(work, mads, "s16loop2d", src="configs/mads_2d.yaml",
+                   epochs=S16_2D_EPOCHS)
+    h2 = {}
+    counters = reset_counts()
+    for segments in (None, False):
+        h2[segments] = loop2d.run(
+            load_config(cfg2), seed=SEED, device=dev.type, overwrite=True,
+            segments=segments, weights_root=os.path.join(
+                work, f"w2d_{segments}"))
+    n2d = read_counts(counters)
+    keys2 = [k for k in h2[None] if not k.endswith("_per_sec")]
+    equal2 = all(h2[None][k] == h2[False][k] for k in keys2)
+    print(f"# phase 16 c, loop2d.run (PoseResNet-101) by segments against "
+          f"segments=False: history bit-equal {equal2}; {h2[None]}")
+    require(equal2, f"phase 16 c: 2D segments {h2[None]} / epochs "
+                    f"{h2[False]}")
+    require_counts(n2d, 1, 0, 0, 0, "phase 16 c, 2D loops")
+    return {"history_bit_equal": equal, "saves": saves_seg, "grid": grid,
+            "seeds": seeds_seg, "seeds_resumed": seeds_res,
+            "seeds_resumed_epochs": seeds_res_ep, "launches": n_seg,
+            "launches_epochs": n_ep, "history": h_seg,
+            "history_2d_bit_equal": equal2, "launches_2d": n2d}
+
+
+def s16_host_launch_us(dev):
+    """Host time of one trivial eager launch, us (no synchronisation
+    between the launches)."""
+    x = torch.zeros(8, device=dev)
+    x.add_(1.0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(S16_HOST_LAUNCHES):
+        x.add_(1.0)
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return host / S16_HOST_LAUNCHES * 1e6
+
+
+def s16_shapes_checked(size, joints):
+    """Every K1 and K2 input of phase 16 is one that step 2 checks: the
+    train step's and the eval batch's whole heatmaps at 32 pairs."""
+    k1 = {shape for _, shape in SOFTARGMAX_SHAPES}
+    shape = (2 * S16_BATCH, size // 4, size // 4, joints)
+    require(shape in k1, f"phase 16 gives K1 and K2 {shape}, which step 2 "
+                         f"does not check")
+
+
+def run_slice11(dev, smi):
+    """Phase 16: the stacked train epoch with each step replayed from a
+    CUDA graph against the same epoch run eagerly (a), a segment against
+    its epochs (b) and the loops by segments (c), CDRNet-101 at 256 px on
+    phase 12's tree, with cuDNN deterministic (TF32 is off)."""
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.data.loader import load_data
+    from fast3dhpe_tpu_torch.models.losses import make_loss
+    from fast3dhpe_tpu_torch.utils.profiling import measure_scan_floor
+    t0 = time.perf_counter()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {"part_s": {}}
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            mads = s7_tree(work)
+            cfg = load_config(s16_cfg(work, mads, "s16"))
+            s16_shapes_checked(cfg.MODEL.IMAGE_SIZE[0], cfg.MODEL.NUM_JOINTS)
+            require(cfg.DATASET.OCCLUSION == "CUTOUT",
+                    f"phase 16: OCCLUSION {cfg.DATASET.OCCLUSION}")
+            tl, vl = load_data(cfg, seed=SEED, device=dev)
+            try:
+                cache = tl.ensure_device_cache()
+                require(cache is not None and not cache.partial,
+                        "phase 16: the tree is not whole on the card")
+                loss = make_loss(cfg.LOSS.TYPE, cfg.LOSS.USE_TARGET_WEIGHT)
+                kw = dict(loss_3d_weight=cfg.TRAIN.LOSS_3D_WEIGHT,
+                          num_joints=cfg.MODEL.NUM_JOINTS)
+                xs = s16_stacked(tl, S16_STEPS, S16_PAD)
+                out["part_s"]["set-up"] = time.perf_counter() - t0
+                out["mask_hidden_share"] = s16_masks(cache.frames, xs, cfg,
+                                                     dev)
+                for name, dt in (("fp32", torch.float32),
+                                 ("bf16", torch.bfloat16)):
+                    runs, equal, gaps = s16_epoch_pair(
+                        cfg, cache.frames, xs, dev, dt, loss, kw)
+                    if not equal:
+                        s16_bounds(gaps, runs["eager"], runs["graphed"],
+                                   f"a {name}")
+                    out[name] = {
+                        "bit_equal": equal, "gaps": gaps,
+                        **{w: {k: v for k, v in r.items()
+                               if k not in ("sums", "steps", "snap")}
+                           for w, r in runs.items()}}
+                    e, g = runs["eager"], runs["graphed"]
+                    print(f"# phase 16 a, {name} epoch of {S16_STEPS} steps "
+                          f"({smi}): graphed bit-equal to eager {equal}; "
+                          f"wall {e['wall_ms']:.1f} eager / "
+                          f"{g['wall_ms']:.1f} graphed ms a step, busy "
+                          f"{e['busy_ms']} / {g['busy_ms']} ms, idle "
+                          f"{e['idle']} / {g['idle']}, host launches "
+                          f"{e['host_launches']:.1f} / "
+                          f"{g['host_launches']:.1f} a step ({g['calls']}), "
+                          f"capture {g['capture_s']:.2f} s, reserved "
+                          f"{e['reserved_gib']:.2f} / {g['reserved_gib']:.2f}"
+                          f" GiB, peak {e['peak_gib']:.2f} / "
+                          f"{g['peak_gib']:.2f} GiB")
+                out["part_s"]["a"] = (time.perf_counter() - t0
+                                      - out["part_s"]["set-up"])
+                t = time.perf_counter()
+                out["segment"] = s16_segment(cfg, tl, vl, dev, loss, kw)
+                out["part_s"]["b"] = time.perf_counter() - t
+            finally:
+                tl.close()
+                vl.close()
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            out["loops"] = s16_loops(work, mads, dev)
+            out["part_s"]["c"] = time.perf_counter() - t
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out["scan_floor_us"] = {"graph": measure_scan_floor(50, dev) * 1e6,
+                            "cpu": measure_scan_floor(50, "cpu") * 1e6}
+    out["host_launch_us"] = s16_host_launch_us(dev)
+    out["launches"] = {
+        "a fp32": out["fp32"]["graphed"]["launches"],
+        "a bf16": out["bf16"]["graphed"]["launches"],
+        "b": out["segment"]["launches"], "c": out["loops"]["launches"],
+        "c epochs": out["loops"]["launches_epochs"],
+        "c 2D": out["loops"]["launches_2d"]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"# slice 11 ({smi}): replay floor {out['scan_floor_us']} us an "
+          f"iteration, host {out['host_launch_us']:.2f} us a launch; phase "
+          f"{out['seconds']:.1f} s ({out['part_s']})")
+    return out
+
+
 # ------------------------------------------------------------------ timing
 
 def _decoder_logits(gen, dev, n, dt):
@@ -6348,9 +6893,10 @@ def main():
         rank, world, port, work, launch = args[1:]
         return s10_child(int(rank), int(world), int(port), work, launch)
     if args not in ([], ["--kernels"], ["--slice6"], ["--slice7"],
-                    ["--slice8"], ["--slice9"], ["--slice10"]):
+                    ["--slice8"], ["--slice9"], ["--slice10"],
+                    ["--slice11"]):
         sys.exit("usage: python3 chip_smoke.py [--kernels | --slice6 | "
-                 "--slice7 | --slice8 | --slice9 | --slice10]")
+                 "--slice7 | --slice8 | --slice9 | --slice10 | --slice11]")
     kernels_only = args == ["--kernels"]
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -6442,6 +6988,15 @@ def main():
                                            for k, v in phases.items()))
         print(json.dumps({"slice9": s9}))
         return
+    if args == ["--slice11"]:
+        del inf, cpu_inf
+        torch.cuda.empty_cache()
+        s11 = phase("slice 11", run_slice11, dev, smi)
+        print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in phases.items()))
+        print(f"# total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"slice11": s11}))
+        return
     if args == ["--slice10"]:
         del cpu_inf
         torch.cuda.empty_cache()
@@ -6495,6 +7050,8 @@ def main():
     s7 = phase("slice 7", run_slice7, cfg, dev, smi)
     torch.cuda.empty_cache()
     s9 = phase("slice 9", run_slice9, dev, smi)
+    torch.cuda.empty_cache()
+    s11 = phase("slice 11", run_slice11, dev, smi)
 
     def launch_counts(key):
         by_path = {"serving": serve_launches[key],
@@ -6522,6 +7079,8 @@ def main():
         by_path.update({f"slice 9, 1 x {S9_M} rank {r}": n[key]
                         for r, n in enumerate(s9["launches_by_rank"])})
         by_path["slice 9, 1 process"] = s9["one_process_launches"][key]
+        by_path.update({f"slice 11, {k}": n[key]
+                        for k, n in s11["launches"].items()})
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -6558,6 +7117,7 @@ def main():
     print(json.dumps({"slice7": s7}))
     print(json.dumps({"slice8": s8}))
     print(json.dumps({"slice9": s9}))
+    print(json.dumps({"slice11": s11}))
     print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phases.items()))
     print(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -50,18 +50,25 @@ def parse_and_run(run_fn, default_config: str, description: str,
                              "to N times")
     parser.add_argument("--checkpoint_every", type=int, default=1,
                         help="save the rolling latest checkpoint every N "
-                             "epochs")
+                             "epochs (with the dataset in the device "
+                             "cache, a segment runs the epochs up to each "
+                             "save)")
     parser.add_argument("--async_checkpoint", action="store_true",
                         help="write checkpoints on a background thread")
     parser.add_argument("--no_segments", action="store_true",
-                        help="accepted for the JAX package's command "
-                             "lines; the port runs no segments")
+                        help="keep stacked epochs (one train and one eval "
+                             "call an epoch) instead of segments of "
+                             "epochs with the best state selected on the "
+                             "device; --retries reaches this on the "
+                             "second retry")
     parser.add_argument("--per_batch", action="store_true",
                         help="iterate the loader batch by batch even when "
-                             "the device cache holds the dataset")
+                             "the device cache holds the dataset "
+                             "(scan_epochs=False, no segments)")
     parser.add_argument("--segment_epochs", type=int, default=None,
-                        help="accepted for the JAX package's command "
-                             "lines; the port runs no segments")
+                        help="epochs a segment at most (default and upper "
+                             "bound: --checkpoint_every); checkpoints "
+                             "still fall on the --checkpoint_every grid")
     args = parser.parse_args(argv)
 
     created = init_distributed(device=args.device)  # no-op without torchrun

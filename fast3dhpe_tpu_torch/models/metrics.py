@@ -22,8 +22,10 @@ def pck_counts(output, target, thr: float = 0.05, row_mask=None):
     H, W = output.shape[-3], output.shape[-2]
     # [H, W] / 10 applied to (x, y): x is divided by H/10 and y by W/10,
     # the reference's quirk (the same for square heatmaps)
-    norm = torch.tensor([H, W], dtype=torch.float32,
-                        device=output.device) / 10.0
+    # made by fills on the device, not from host data: a CUDA graph of a
+    # train or eval step captures it
+    norm = torch.stack([output.new_full((), H, dtype=torch.float32),
+                        output.new_full((), W, dtype=torch.float32)]) / 10.0
     valid = (gt[..., 0] > 1) & (gt[..., 1] > 1)          # (B, J)
     if row_mask is not None:
         valid = valid & (torch.as_tensor(row_mask,

@@ -18,9 +18,9 @@ FILL_VALUE = 128.0
 def fill_occluded(images, keep):
     """images (B, H, W, C) with the pixels where keep (B, H, W) is False
     set to FILL_VALUE."""
+    # a fill, not a tensor from host data: a CUDA graph captures it
     return torch.where(keep[..., None], images,
-                       torch.tensor(FILL_VALUE, dtype=images.dtype,
-                                    device=images.device))
+                       images.new_full((), FILL_VALUE))
 
 
 def cutout_draw(gen, batch, height, width, n_holes: int = 6):

@@ -46,9 +46,9 @@ JAX names and what they are here:
     counterpart. PyTorch has no sharding annotations: a rank's tensors are
     its shard by construction, replication is `replicate`, and a process
     drives one device (Mesh.device), not a list of them.
-  shard_stacked: not applicable. It feeds the JAX scan segments, which the
-    port does not run (ROADMAP A8); under a process group the loops take
-    the per-batch path.
+  shard_stacked: not yet ported (ROADMAP A18). It feeds the JAX scan
+    epochs and segments under a mesh; under a process group the port's
+    loops take the per-batch path.
   make_mesh(model_parallel=M), spatial_sharding, shard_batch_spatial:
     spatial partitioning, the image height split over a "model" axis of M
     ranks (below, and parallel/spatial.py for the exchanges). The D*M

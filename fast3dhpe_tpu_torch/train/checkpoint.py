@@ -140,7 +140,7 @@ def save_file(path: str, obj) -> None:
 
 def resume_payload(state, best_metric: float) -> Dict[str, Any]:
     """What latest.opt.pt holds for a TrainState (train/state.py)."""
-    return {"optimizer": state.optimizer.state_dict(), "step": state.step,
+    return {"optimizer": state.optimizer_state_dict(), "step": state.step,
             "best_metric": float(best_metric)}
 
 

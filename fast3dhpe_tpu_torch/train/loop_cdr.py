@@ -9,12 +9,17 @@ clipped at 100; the best checkpoint by val MPJPE3D, only after the warmup
 epoch (and once a --log_every window); the best metric is kept beside
 `latest` so that --resume does not overwrite a better best.
 
-The epoch runs as loop2d describes: stacked epochs through
-make_train_epoch_cdr / make_eval_epoch_cdr when the device cache holds
-the dataset, else the loader's batches; no segments. Under a mesh it is
-data-parallel as loop2d describes. Occlusion is keyed
-by the loader's epoch counter, which starts at 0 in every new loader, so a
-resumed run replays epoch 0's draws, as the JAX epoch path does.
+The epochs run as loop2d describes: segments (make_segment_cdr, the
+best selected on the device only after the warmup) when both caches
+hold their datasets, else stacked epochs through make_train_epoch_cdr /
+make_eval_epoch_cdr when the train cache does, else the loader's
+batches. Under a mesh it is data-parallel, batch by batch, as loop2d
+describes. A segment keys an epoch's occlusion by its global index,
+seed * 10007 + epoch, so a resumed run goes on with the draws where it
+stopped, as the JAX package's default (segment) path does. Stacked
+epochs and batches key it by the loader's epoch counter, which starts at
+0 in every new loader, so there a resumed run replays epoch 0's draws,
+as the JAX epoch path does.
 """
 
 from __future__ import annotations
@@ -34,12 +39,14 @@ from ..utils.interrupt import interruptible
 from ..utils.logging import setup_logger
 from ..utils.profiling import StepTracer, ThroughputMeter
 from .checkpoint import make_checkpoint_writer
-from .loop2d import (_best_snapshot, _check_port_options, _fetch,
+from .loop2d import (_best_snapshot, _compute_dtype, _fetch, _fetch_arrays,
                      _load_pretrained, _prepare_model_dir, _restore_state,
-                     _save_latest, _tree_add, _try_stacked)
+                     _save_latest, _scan_allowed, _segments_on,
+                     _stack_segment, _tree_add, _try_stacked, segment_plan)
 from .state import TrainState
 from .steps import (make_eval_epoch_cdr, make_eval_step_cdr,
-                    make_train_epoch_cdr, make_train_step_cdr)
+                    make_segment_cdr, make_train_epoch_cdr,
+                    make_train_step_cdr)
 
 SCALE_3D = 0.1      # [ref: train_cdr.py:74]
 BASE_JOINT = 1      # [ref: train_cdr.py:73]
@@ -66,11 +73,10 @@ def run(config, mesh=None, overwrite: bool = False,
         device="cuda") -> Dict:
     """Train CDRNet; returns the history (losses, grad norm and val MPJPE
     an epoch). The keywords are loop2d.run's; early_stop_patience counts
-    post-warmup epochs without a better val MPJPE3D, and the LR schedule
-    still follows TRAIN.EPOCH."""
+    post-warmup epochs without a better val MPJPE3D (once a segment on the
+    segment path), and the LR schedule still follows TRAIN.EPOCH."""
     logger = setup_logger()
-    dtype = _check_port_options(logger, compute_dtype, segments,
-                                segment_epochs)
+    dtype = _compute_dtype(compute_dtype)
     dev = mesh_device(mesh, device)
     model_path = os.path.join(weights_root, config.MODEL.NAME)
     if not resume:
@@ -87,8 +93,8 @@ def run(config, mesh=None, overwrite: bool = False,
         return _train(config, train_loader, valid_loader, model_path, dev,
                       logger, max_epochs, max_steps_per_epoch, seed,
                       plot_dir, resume, log_every, trace_dir, scan_epochs,
-                      checkpoint_every, async_checkpoint,
-                      early_stop_patience, dtype, mesh)
+                      segments, checkpoint_every, segment_epochs,
+                      async_checkpoint, early_stop_patience, dtype, mesh)
     finally:
         train_loader.close()
         valid_loader.close()
@@ -96,8 +102,9 @@ def run(config, mesh=None, overwrite: bool = False,
 
 def _train(config, train_loader, valid_loader, model_path, dev, logger,
            max_epochs, max_steps_per_epoch, seed, plot_dir, resume,
-           log_every, trace_dir, scan_epochs, checkpoint_every,
-           async_checkpoint, early_stop_patience, dtype, mesh) -> Dict:
+           log_every, trace_dir, scan_epochs, segments, checkpoint_every,
+           segment_epochs, async_checkpoint, early_stop_patience, dtype,
+           mesh) -> Dict:
     model = _init_model(config, seed)
     model.dtype = dtype         # the compute dtype; parameters stay fp32
     _load_pretrained(model, config, logger)
@@ -124,17 +131,18 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
     train_step = make_train_step_cdr(loss_fn, **kw, **mesh_kw)
     eval_step = make_eval_step_cdr(loss_fn, **kw, **mesh_kw)
 
-    scan_allowed = (scan_epochs is not False and log_every is None
-                    and trace_dir is None and mesh is None)
-    if scan_epochs and not scan_allowed:
-        logger.info("scan_epochs=True ignored: log_every, trace_dir and "
-                    "mesh need the per-batch loop")
-    train_epoch_fn = eval_epoch_fn = None
+    scan_allowed = _scan_allowed(logger, scan_epochs, segments, log_every,
+                                 trace_dir, mesh)
+    train_epoch_fn = eval_epoch_fn = segment_fn = None
+    image_size = tuple(config.MODEL.IMAGE_SIZE)
     if scan_allowed and (scan_epochs or config.DATASET.DEVICE_CACHE_BYTES):
-        image_size = tuple(config.MODEL.IMAGE_SIZE)
         train_epoch_fn = make_train_epoch_cdr(
             loss_fn, image_size, occlusion=config.DATASET.OCCLUSION, **kw)
         eval_epoch_fn = make_eval_epoch_cdr(loss_fn, image_size, **kw)
+    if _segments_on(segments, train_epoch_fn, train_loader, valid_loader):
+        segment_fn = make_segment_cdr(
+            loss_fn, image_size, occlusion=config.DATASET.OCCLUSION,
+            warmup=config.TRAIN.WARMUP, seed=seed, **kw)
 
     n_epochs = max_epochs if max_epochs is not None else config.TRAIN.EPOCH
     warmup = config.TRAIN.WARMUP
@@ -154,9 +162,96 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
     def latest_metric():
         return best_err if best_err != float("inf") else 0.0
 
+    def epoch_slice(xs):
+        if max_steps_per_epoch is not None:
+            xs = {k: v[:max_steps_per_epoch] for k, v in xs.items()}
+        return xs
+
+    def run_segments():
+        """The segment path (loop2d's run_segments): one segment_fn call
+        and one fetch a segment, then each epoch's history and log; saves
+        on the checkpoint_every grid, early stopping once a segment."""
+        nonlocal best_state, best_dirty, best_err, global_step, \
+            last_best_epoch
+        vcache, vxs, _ = valid_loader.stacked_epoch()
+        vxs = epoch_slice(vxs)
+        best_state = _best_snapshot(state)
+        best_dev = torch.tensor(best_err, dtype=torch.float32, device=dev)
+        E_full, plan = segment_plan(start_epoch, n_epochs, checkpoint_every,
+                                    segment_epochs)
+        for epoch, boundary, save in plan:
+            t0 = time.time()
+            meter.reset()
+            meter.start()
+            xs_list = []
+            for _ in range(boundary - epoch):
+                tcache, xs, _ = train_loader.stacked_epoch()
+                xs_list.append(epoch_slice(xs))
+            seq, epoch_valid, n_pairs = _stack_segment(xs_list, E_full)
+            S = seq["idx_l"].shape[1]
+            step0 = state.step
+            _, _, best_dev, ms = segment_fn(
+                state, best_state, best_dev, tcache.frames, vcache.frames,
+                seq, vxs, epoch, epoch_valid)
+            msh = _fetch_arrays({"ms": ms, "best": best_dev})  # the one sync
+            meter.step(n_pairs)
+            global_step += (boundary - epoch) * S
+            pps = meter.samples_per_sec
+            dt = (time.time() - t0) / (boundary - epoch)
+            ms = msh["ms"]
+            for j in range(boundary - epoch):
+                tl = float(ms["train"]["loss"][j]) / max(S, 1)
+                gn = float(ms["train"]["grad_norm"][j]) / max(S, 1)
+                nv = max(float(ms["eval"]["n"][j]), 1.0)
+                vl = float(ms["eval"]["loss_sum"][j]) / nv
+                e2 = float(ms["eval"]["e2_sum"][j]) / nv
+                e3 = float(ms["eval"]["e3_sum"][j]) / nv
+                history["train_loss"].append(tl)
+                history["val_loss"].append(vl)
+                history["val_mpjpe_2d"].append(e2)
+                history["val_mpjpe_3d"].append(e3)
+                history["grad_norm"].append(gn)
+                history["train_pairs_per_sec"].append(pps)
+                logger.info("epoch %d/%d%s  train loss %.5f |grad| %.2f "
+                            "(%.1f pairs/s) | val loss %.5f MPJPE2D %.2fpx "
+                            "MPJPE3D %.2fmm  (%.1fs)", epoch + j + 1,
+                            n_epochs,
+                            " [warmup]" if epoch + j < warmup else "",
+                            tl, gn, pps, vl, e2, e3, dt)
+                if ms["improved"][j]:
+                    logger.info("New best (val 3D MPJPE %.2fmm)", e3)
+                    last_best_epoch = epoch + j
+                    best_state._metadata[""]["train_step"] = \
+                        step0 + (j + 1) * S
+            if float(msh["best"]) < best_err:
+                best_err = float(msh["best"])
+                best_dirty = True
+            stop = (early_stop_patience is not None
+                    and boundary - 1 > warmup
+                    and (boundary - 1) - last_best_epoch
+                    >= early_stop_patience)
+            if not (save or stop):
+                continue
+            if best_dirty:
+                ckpt.save(os.path.join(model_path, "best.pth"), best_state)
+                best_dirty = False
+                logger.info("Saved best (val 3D MPJPE %.2fmm)", best_err)
+            _save_latest(ckpt, model_path, state, latest_metric())
+            if stop:
+                logger.info(
+                    "Early stop at epoch %d: no val improvement for %d "
+                    "epochs (best %.2f mm at epoch %d)", boundary,
+                    (boundary - 1) - last_best_epoch, best_err,
+                    last_best_epoch + 1)
+                break
+
     try:
         with interruptible():   # SIGTERM -> KeyboardInterrupt
-            for epoch in range(start_epoch, n_epochs):
+            if segment_fn is not None:
+                run_segments()
+            epochs = (range(0) if segment_fn is not None
+                      else range(start_epoch, n_epochs))
+            for epoch in epochs:
                 t0 = time.time()
                 use_3d = epoch >= warmup
                 meter.reset()

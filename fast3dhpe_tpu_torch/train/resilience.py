@@ -12,13 +12,19 @@ device-side assert, an uncorrectable ECC error) poisons the process's
 CUDA context: every later call in the process fails, so an in-process
 retry cannot succeed, and only a new process (`--resume`) recovers. Out
 of memory and every numerical or programming error come from the work
-itself and would fail the same way again. What passes is what leaves the
-context usable and comes from outside the work: the card held by another
-process ("busy or unavailable"), and host I/O errors while reading the
-data or writing a checkpoint (EIO, ESTALE, ETIMEDOUT, as from a network
-filesystem). The JAX package's ladder, which degrades segments to epochs
-to per-batch steps after repeated crashes of a remote compile, has
-nothing to degrade here: the port runs no segments and compiles no graph.
+itself and would fail the same way again, and so does a step that
+cannot be captured into a CUDA graph (train/graphs.py
+GraphCaptureError). What passes is what leaves the context usable and
+comes from outside the work: the card held by another process ("busy or
+unavailable"), and host I/O errors while reading the data or writing a
+checkpoint (EIO, ESTALE, ETIMEDOUT, as from a network filesystem).
+
+The degrade ladder is the JAX package's (resilience.py:181-194): from
+the second retry the loop runs without segments (`segments=False`, the
+stacked epochs), and from the retry after that batch by batch
+(`scan_epochs=False`), on the chance that a failure which repeats comes
+from the larger path: a segment holds a best-state copy and the graphs
+of two variants more than an epoch does.
 """
 
 from __future__ import annotations
@@ -32,12 +38,15 @@ from typing import Callable
 import torch
 
 from ..parallel.distributed import process_count
+from .graphs import GraphCaptureError
 
 _RETRYABLE_CUDA = ("busy or unavailable",)
 _RETRYABLE_ERRNO = (errno.EIO, errno.ESTALE, errno.ETIMEDOUT)
 
 
 def is_retryable(exc: BaseException) -> bool:
+    if isinstance(exc, GraphCaptureError):
+        return False
     if isinstance(exc, OSError) and exc.errno in _RETRYABLE_ERRNO:
         return True
     msg = str(exc)
@@ -60,6 +69,11 @@ def run_with_retries(run_fn: Callable, config, retries: int = 0,
     `resume` and `overwrite` of the first attempt come from kwargs.
     _sleep and _probe replace time.sleep and the round trip in tests.
     Returns the history of the attempt that completed.
+
+    From the second retry the loop is called with segments=False, and
+    from the retry after that with scan_epochs=False, as the JAX
+    package's ladder degrades (module docstring); a caller's own
+    scan_epochs=False ends the ladder.
 
     Retries are off under several processes: a rank that resumed on its
     own would issue new collectives while the others still wait in the
@@ -98,3 +112,12 @@ def run_with_retries(run_fn: Callable, config, retries: int = 0,
                 sleep(wait)
             probe()
             kwargs = dict(kwargs, resume=has_ckpt, overwrite=not has_ckpt)
+            if attempt >= 2 and kwargs.get("scan_epochs") is not False:
+                if kwargs.get("segments") is not False:
+                    log.warning("degrading to stacked epochs "
+                                "(segments=False): the failure repeats")
+                    kwargs["segments"] = False
+                else:
+                    log.warning("degrading to per-batch execution "
+                                "(scan_epochs=False)")
+                    kwargs["scan_epochs"] = False

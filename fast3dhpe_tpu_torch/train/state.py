@@ -1,6 +1,16 @@
 """Train state and optimizer. Port of fast3dhpe_tpu/train/state.py
 (:19-89): the state holds the model (parameters and BN running
 statistics), the optimizer, the LR schedule and the count of updates.
+
+On CUDA the optimizer is Adam with `capturable=True` and its LR a device
+tensor that the schedule writes in place, so that a CUDA graph of the
+train step (train/graphs.py) replays every update at the LR of its own
+index: a graph would keep a Python-float LR of the step it captured. The
+eager steps on CUDA use the same optimizer, so an eager and a graphed
+epoch are bit-equal. The CPU keeps Adam with a float LR. Both forms write
+the same checkpoint (`optimizer_state_dict`: a float LR, `capturable`
+off, Adam's step counts on the host), and each loads the other's
+(`load_optimizer_state_dict`).
 """
 
 from __future__ import annotations
@@ -28,11 +38,19 @@ def make_optimizer(cfg, steps_per_epoch: int, params: Iterable):
     """Adam(0.9, 0.999, eps=1e-8) with the config's MultiStepLR schedule,
     as optax.adam(multistep_lr(...)). torch's Adam adds eps outside the
     square root of the bias-corrected second moment, as optax does with
-    eps_root = 0. Returns (optimizer, schedule)."""
+    eps_root = 0. On CUDA parameters it is capturable, its LR a device
+    tensor (module docstring). Returns (optimizer, schedule)."""
     schedule = multistep_lr(cfg.TRAIN.LR, cfg.TRAIN.LR_STEP,
                             cfg.TRAIN.LR_FACTOR, steps_per_epoch)
-    opt = torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999),
-                           eps=1e-8)
+    params = list(params)
+    dev = params[0].device if params else torch.device("cpu")
+    if dev.type == "cuda":
+        lr = torch.tensor(schedule(0), dtype=torch.float32, device=dev)
+        opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                               capturable=True)
+    else:
+        opt = torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999),
+                               eps=1e-8)
     return opt, schedule
 
 
@@ -57,9 +75,15 @@ def clip_grads_by_norm(grads: List[torch.Tensor], max_norm: float,
     return norm
 
 
+# param_group keys that belong to the optimizer's form, not to the run
+_FORM_KEYS = ("lr", "capturable", "foreach", "fused", "differentiable")
+
+
 class TrainState:
     """A model, its optimizer and LR schedule, and the number of updates
-    taken (`step`)."""
+    taken (`step`). `version` counts loads of optimizer state: a CUDA
+    graph of a step holds the optimizer's tensors, so graphs.py captures
+    anew after one."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  schedule: Optional[Callable[[int], float]] = None):
@@ -67,6 +91,8 @@ class TrainState:
         self.optimizer = optimizer
         self.schedule = schedule
         self.step = 0
+        self.version = 0
+        self._lr = None         # the LR last written, a Python float
 
     @classmethod
     def create(cls, model: nn.Module, cfg,
@@ -78,12 +104,65 @@ class TrainState:
     def grads(self) -> List[torch.Tensor]:
         return [p.grad for p in self.model.parameters() if p.grad is not None]
 
+    def set_lr(self):
+        """Write the LR the schedule gives update `step` into the
+        optimizer: a float, or in place into a device LR (one launch, only
+        when the value changes). A graphed step calls this on the host
+        before its replay."""
+        if self.schedule is None:
+            return
+        lr = self.schedule(self.step)
+        if lr == self._lr:
+            return
+        for group in self.optimizer.param_groups:
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
+        self._lr = lr
+
     def apply_gradients(self):
         """One optimizer update from the parameters' .grad, at the LR the
         schedule gives this update's index."""
-        if self.schedule is not None:
-            lr = self.schedule(self.step)
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
+        self.set_lr()
         self.optimizer.step()
         self.step += 1
+
+    def optimizer_state_dict(self):
+        """The optimizer's state_dict in the plain form that every device
+        writes and loads: float LRs (the last one written), `capturable`
+        off and Adam's step counts as host tensors. Tensors are the
+        optimizer's own, not copies (the checkpoint writers copy)."""
+        sd = self.optimizer.state_dict()
+        if not any(g.get("capturable") for g in sd["param_groups"]):
+            return sd
+        groups = []
+        for g in sd["param_groups"]:
+            lr = g["lr"]
+            if isinstance(lr, torch.Tensor):
+                lr = self._lr if self._lr is not None else float(lr)
+            groups.append(dict(g, lr=lr, capturable=False))
+        state = {i: {k: (v.detach().to("cpu", copy=True) if k == "step"
+                         else v) for k, v in s.items()}
+                 for i, s in sd["state"].items()}
+        return {"state": state, "param_groups": groups}
+
+    def load_optimizer_state_dict(self, sd):
+        """Load either form of optimizer state (optimizer_state_dict) into
+        this state's optimizer, which keeps its own form: its LR tensor
+        (the object a graph captured; it takes the loaded value), its
+        `capturable` and implementation flags."""
+        own = self.optimizer.param_groups
+        lrs = [g["lr"] for g in own]
+        groups = [dict(saved, **{k: g[k] for k in _FORM_KEYS if k in g})
+                  for saved, g in zip(sd["param_groups"], own)]
+        loaded = [saved["lr"] for saved in sd["param_groups"]]
+        self.optimizer.load_state_dict(dict(sd, param_groups=groups))
+        for g, lr, value in zip(self.optimizer.param_groups, lrs, loaded):
+            if isinstance(lr, torch.Tensor):
+                lr.fill_(float(value))
+                g["lr"] = lr
+            else:
+                g["lr"] = float(value)
+            self._lr = float(value)
+        self.version += 1

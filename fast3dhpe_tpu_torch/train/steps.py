@@ -1,5 +1,5 @@
 """Train and eval steps and epochs for CDRNet and PoseResNet. Port of
-fast3dhpe_tpu/train/steps.py (:37-330, :537-571).
+fast3dhpe_tpu/train/steps.py (:37-571).
 
 Each step factory returns a step that takes a TrainState (train/state.py)
 and a batch dict. The batch goes to the model's device; nothing falls
@@ -37,9 +37,13 @@ as not applicable (parallel/spatial.py spatial_of).
 
 An epoch function runs S batches from a device frame cache
 (data/device_cache.py): each batch is preprocessed on the device
-(data/device_pipeline.py), then stepped. It is a Python loop where the
-JAX package has one lax.scan; the per-step metrics are summed on the
-device, with no host sync inside the loop.
+(data/device_pipeline.py), then stepped. Where the JAX package runs the
+epoch as one lax.scan, the port replays a CUDA graph of the whole step,
+preprocessing included, once a batch (train/graphs.py); on the CPU the
+steps run eagerly. The per-step metrics are summed on the device, with
+no host sync inside the loop. A segment (make_segment_cdr /
+make_segment_2d) runs E epochs of train and eval with the best state
+selected on the device, as the JAX package's one-dispatch segment does.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from ..data.device_pipeline import (preprocess_mono_batch_cached,
 from ..models.metrics import pck_counts, pck_from_counts, per_sample_mpjpe
 from ..parallel.mesh import all_reduce, row_counts
 from ..parallel.spatial import gather_height, heatmap_split
+from .graphs import StepGraphs
 from .state import TrainState, clip_grads_by_norm, global_grad_norm
 
 
@@ -135,6 +140,38 @@ def _cdr_loss(model, loss_fn, batch, use_3d: bool, loss_3d_weight,
                   "loss_2d": loss_2d, "loss_3d": loss_3d}
 
 
+def _train_core_cdr(loss_fn, loss_3d_weight: float = 4.0,
+                    scale_3d: float = 0.1, base_joint: int = 1,
+                    num_joints: int = 19, clip_norm: float = 100.0,
+                    mesh=None) -> Callable:
+    """core(state, batch, use_3d, update) -> metrics: the CDR train step
+    with the optimizer update as `update()` (TrainState.apply_gradients
+    eagerly; inside a CUDA graph the optimizer's step alone, graphs.py)."""
+
+    def core(state: TrainState, batch, use_3d: bool, update):
+        model = state.model
+        model.train()
+        dev = _device_of(model)
+        batch = _on_device(batch, dev)
+        rows = row_counts(mesh, batch.get("row_valid"),
+                          batch["image"].shape[0], dev)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, aux = _cdr_loss(model, loss_fn, batch, use_3d, loss_3d_weight,
+                              scale_3d, base_joint, num_joints, train=True,
+                              rows=rows)
+        loss.backward()
+        _sync_grads(mesh, state)
+        grad_norm = clip_grads_by_norm(state.grads(), clip_norm, use_3d)
+        update()
+        loss, loss_2d, loss_3d = _global(
+            mesh, [loss.detach(), aux["loss_2d"].detach(),
+                   aux["loss_3d"].detach()])
+        return {"loss": loss, "loss_2d": loss_2d, "loss_3d": loss_3d,
+                "grad_norm": grad_norm}
+
+    return core
+
+
 def make_train_step_cdr(loss_fn, loss_3d_weight: float = 4.0,
                         scale_3d: float = 0.1, base_joint: int = 1,
                         num_joints: int = 19,
@@ -149,27 +186,11 @@ def make_train_step_cdr(loss_fn, loss_3d_weight: float = 4.0,
     loss_3d and grad_norm (before clipping), detached device scalars, of
     the global batch under a mesh.
     """
+    core = _train_core_cdr(loss_fn, loss_3d_weight, scale_3d, base_joint,
+                           num_joints, clip_norm, mesh)
 
     def train_step(state: TrainState, batch, use_3d: bool):
-        model = state.model
-        model.train()
-        dev = _device_of(model)
-        batch = _on_device(batch, dev)
-        rows = row_counts(mesh, batch.get("row_valid"),
-                          batch["image"].shape[0], dev)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = _cdr_loss(model, loss_fn, batch, use_3d, loss_3d_weight,
-                              scale_3d, base_joint, num_joints, train=True,
-                              rows=rows)
-        loss.backward()
-        _sync_grads(mesh, state)
-        grad_norm = clip_grads_by_norm(state.grads(), clip_norm, use_3d)
-        state.apply_gradients()
-        loss, loss_2d, loss_3d = _global(
-            mesh, [loss.detach(), aux["loss_2d"].detach(),
-                   aux["loss_3d"].detach()])
-        return {"loss": loss, "loss_2d": loss_2d, "loss_3d": loss_3d,
-                "grad_norm": grad_norm}
+        return core(state, batch, use_3d, state.apply_gradients)
 
     return train_step
 
@@ -216,15 +237,11 @@ def make_eval_step_cdr(loss_fn, loss_3d_weight: float = 4.0,
     return eval_step
 
 
-def make_train_step_2d(loss_fn, mesh=None) -> Callable:
-    """PoseResNet train step (steps.py:48-77): train_step(state, batch) ->
-    loss, acc (PCK) and grad_norm, of the global batch under a mesh.
+def _train_core_2d(loss_fn, mesh=None) -> Callable:
+    """core(state, batch, update) -> metrics: the PoseResNet train step
+    with the optimizer update as `update()` (see _train_core_cdr)."""
 
-    batch: {"image": (B, H, W, 3), "target": (B, h, w, J),
-            "target_weight": (B, J), optional "row_valid": (B,)}
-    """
-
-    def train_step(state: TrainState, batch):
+    def core(state: TrainState, batch, update):
         model = state.model
         model.train()
         dev = _device_of(model)
@@ -239,12 +256,27 @@ def make_train_step_2d(loss_fn, mesh=None) -> Callable:
         loss.backward()
         _sync_grads(mesh, state)
         grad_norm = global_grad_norm(state.grads())
-        state.apply_gradients()
+        update()
         hits, cnt, _ = pck_counts(out.detach(), batch["target"],
                                   row_mask=mask)
         loss, hits, cnt = _global(mesh, [loss.detach(), hits, cnt])
         acc, _ = pck_from_counts(hits, cnt)
         return {"loss": loss, "acc": acc, "grad_norm": grad_norm}
+
+    return core
+
+
+def make_train_step_2d(loss_fn, mesh=None) -> Callable:
+    """PoseResNet train step (steps.py:48-77): train_step(state, batch) ->
+    loss, acc (PCK) and grad_norm, of the global batch under a mesh.
+
+    batch: {"image": (B, H, W, 3), "target": (B, h, w, J),
+            "target_weight": (B, J), optional "row_valid": (B,)}
+    """
+    core = _train_core_2d(loss_fn, mesh)
+
+    def train_step(state: TrainState, batch):
+        return core(state, batch, state.apply_gradients)
 
     return train_step
 
@@ -291,23 +323,35 @@ def _stacked_on_device(state, frames, xs) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(frames.device) for k, v in xs.items()}
 
 
-def _accumulate(sums, metrics, keys=None):
-    for k in keys or metrics:
-        sums[k] = sums[k] + metrics[k] if k in sums else metrics[k]
-    return sums
+def _frames_key(frames):
+    return (frames.data_ptr(), tuple(frames.shape), frames.dtype)
+
+
+def step_seed(epoch_seed: int, step: int) -> int:
+    """The occlusion seed of one step of an epoch: from (the epoch's seed,
+    the step index), as the JAX epoch folds the step index into the
+    epoch's key, so an epoch is reproducible from its seed."""
+    return int(np.random.SeedSequence((epoch_seed, step)).generate_state(
+        1, np.uint64)[0])
 
 
 def step_generator(device, epoch_seed: int, step: int) -> torch.Generator:
-    """The occlusion generator of one step of an epoch: seeded from (the
-    epoch's seed, the step index), as the JAX epoch folds the step index
-    into the epoch's key, so an epoch is reproducible from its seed."""
-    seed = np.random.SeedSequence((epoch_seed, step)).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(seed))
+    """The occlusion generator of one step of an epoch, seeded with
+    step_seed(epoch_seed, step)."""
+    return torch.Generator(device=device).manual_seed(
+        step_seed(epoch_seed, step))
+
+
+def _occludes(occlusion) -> bool:
+    return occlusion not in (None, "None")
+
+
+_EVAL_KEYS_CDR = ("loss_sum", "e2_sum", "e3_sum", "n")
+_EVAL_KEYS_2D = ("loss_sum", "hits", "cnt", "n")
 
 
 def make_train_epoch_cdr(loss_fn, image_size, occlusion=None,
-                         **step_kwargs) -> Callable:
+                         graphed: bool = True, **step_kwargs) -> Callable:
     """CDR training over an epoch of cached batches (steps.py:255-299).
 
     epoch(state, frames, xs, epoch_seed, use_3d) -> summed metrics
@@ -316,60 +360,70 @@ def make_train_epoch_cdr(loss_fn, image_size, occlusion=None,
         stacks them: idx_l, idx_r (S, B), trans (S, B, 2, 3), P_l, P_r
         (S, B, 4, 4), pose_3d (S, B, J, 3), joints_vis (S, B, J),
         row_valid (S, B);
+      epoch_seed: step i draws its occlusion from step_seed(epoch_seed, i);
       returns the per-step metrics (loss, loss_2d, loss_3d, grad_norm)
       summed over the S steps, device tensors (divide by S for means).
-    The state is updated in place.
+    The state is updated in place. On CUDA the steps replay a CUDA graph
+    of the step (train/graphs.py), one a value of use_3d; graphed=False
+    runs them eagerly (the reference that chip_smoke.py holds the graphs
+    against). `epoch.graphs` holds the graphs.
     """
-    step = make_train_step_cdr(loss_fn, **step_kwargs)
+    core = _train_core_cdr(loss_fn, **step_kwargs)
     image_size = tuple(image_size)
+    graphs = StepGraphs(graphed)
 
     def epoch(state: TrainState, frames, xs, epoch_seed: int, use_3d: bool):
         xs = _stacked_on_device(state, frames, xs)
-        sums = {}
-        for i in range(xs["idx_l"].shape[0]):
-            batch = preprocess_stereo_batch_cached(
-                step_generator(frames.device, epoch_seed, i), frames,
-                xs["idx_l"][i], xs["idx_r"][i], xs["trans"][i],
-                xs["P_l"][i], xs["P_r"][i], xs["pose_3d"][i],
-                xs["joints_vis"][i], image_size=image_size,
-                occlusion=occlusion, train=True)
-            batch["row_valid"] = xs["row_valid"][i]
-            _accumulate(sums, step(state, batch, use_3d))
-        return sums
 
+        def step(x, gen, update):
+            batch = preprocess_stereo_batch_cached(
+                gen, frames, x["idx_l"], x["idx_r"], x["trans"], x["P_l"],
+                x["P_r"], x["pose_3d"], x["joints_vis"],
+                image_size=image_size, occlusion=occlusion, train=True)
+            batch["row_valid"] = x["row_valid"]
+            return core(state, batch, use_3d, update)
+
+        n = xs["idx_l"].shape[0]
+        seeds = ([step_seed(epoch_seed, i) for i in range(n)]
+                 if _occludes(occlusion) else None)
+        return graphs.epoch(("train", use_3d, _frames_key(frames)), state,
+                            xs, step, state=state, seeds=seeds)
+
+    epoch.graphs = graphs
     return epoch
 
 
 def make_eval_epoch_cdr(loss_fn, image_size, **step_kwargs) -> Callable:
     """CDR evaluation over an epoch of cached batches (steps.py:302-330):
     epoch(state, frames, xs, use_3d) -> loss_sum, e2_sum, e3_sum and n
-    summed over the S batches, no augmentation."""
-    step = make_eval_step_cdr(loss_fn, **step_kwargs)
+    summed over the S batches, no augmentation; replayed as
+    make_train_epoch_cdr's steps are."""
+    step_fn = make_eval_step_cdr(loss_fn, **step_kwargs)
     image_size = tuple(image_size)
+    graphs = StepGraphs()
 
     def epoch(state: TrainState, frames, xs, use_3d: bool):
         xs = _stacked_on_device(state, frames, xs)
-        sums = {}
-        for i in range(xs["idx_l"].shape[0]):
+
+        def step(x, gen, update):
             batch = preprocess_stereo_batch_cached(
-                None, frames, xs["idx_l"][i], xs["idx_r"][i],
-                xs["trans"][i], xs["P_l"][i], xs["P_r"][i],
-                xs["pose_3d"][i], xs["joints_vis"][i],
+                None, frames, x["idx_l"], x["idx_r"], x["trans"], x["P_l"],
+                x["P_r"], x["pose_3d"], x["joints_vis"],
                 image_size=image_size, occlusion=None, train=False)
-            batch["row_valid"] = xs["row_valid"][i]
-            _accumulate(sums, step(state, batch, use_3d),
-                        ("loss_sum", "e2_sum", "e3_sum", "n"))
-        return sums
+            batch["row_valid"] = x["row_valid"]
+            return step_fn(state, batch, use_3d)
+
+        return graphs.epoch(("eval", use_3d, _frames_key(frames)), state, xs,
+                            step, sum_keys=_EVAL_KEYS_CDR)
 
     return epoch
 
 
-def _mono_batch(frames, xs, i, image_size, heatmap_size, sigma):
+def _mono_batch(frames, x, image_size, heatmap_size, sigma):
     batch = preprocess_mono_batch_cached(
-        frames, xs["idx"][i], xs["flip"][i], xs["trans"][i],
-        xs["joints"][i], xs["vis"][i], image_size=image_size,
-        heatmap_size=heatmap_size, sigma=sigma)
-    batch["row_valid"] = xs["row_valid"][i]
+        frames, x["idx"], x["flip"], x["trans"], x["joints"], x["vis"],
+        image_size=image_size, heatmap_size=heatmap_size, sigma=sigma)
+    batch["row_valid"] = x["row_valid"]
     return batch
 
 
@@ -379,17 +433,21 @@ def make_train_epoch_2d(loss_fn, image_size, heatmap_size,
     (steps.py:103-131): epoch(state, frames, xs) -> summed loss, acc and
     grad_norm. xs as Mono2DLoader.stacked_epoch stacks them: idx (S, B),
     flip (S, B) bool, trans (S, B, 2, 3), joints (S, B, J, 2), vis
-    (S, B, J), row_valid (S, B). The state is updated in place."""
-    step = make_train_step_2d(loss_fn)
+    (S, B, J), row_valid (S, B). The state is updated in place; on CUDA
+    the steps replay a CUDA graph (make_train_epoch_cdr)."""
+    core = _train_core_2d(loss_fn)
     image_size, heatmap_size = tuple(image_size), tuple(heatmap_size)
+    graphs = StepGraphs()
 
     def epoch(state: TrainState, frames, xs):
         xs = _stacked_on_device(state, frames, xs)
-        sums = {}
-        for i in range(xs["idx"].shape[0]):
-            _accumulate(sums, step(state, _mono_batch(
-                frames, xs, i, image_size, heatmap_size, sigma)))
-        return sums
+
+        def step(x, gen, update):
+            return core(state, _mono_batch(frames, x, image_size,
+                                           heatmap_size, sigma), update)
+
+        return graphs.epoch(("train", _frames_key(frames)), state, xs, step,
+                            state=state)
 
     return epoch
 
@@ -399,16 +457,166 @@ def make_eval_epoch_2d(loss_fn, image_size, heatmap_size,
     """PoseResNet evaluation over an epoch of cached batches
     (steps.py:134-159): epoch(state, frames, xs) -> loss_sum, hits, cnt
     and n summed over the S batches."""
-    step = make_eval_step_2d(loss_fn)
+    step_fn = make_eval_step_2d(loss_fn)
     image_size, heatmap_size = tuple(image_size), tuple(heatmap_size)
+    graphs = StepGraphs()
 
     def epoch(state: TrainState, frames, xs):
         xs = _stacked_on_device(state, frames, xs)
-        sums = {}
-        for i in range(xs["idx"].shape[0]):
-            _accumulate(sums, step(state, _mono_batch(
-                frames, xs, i, image_size, heatmap_size, sigma)),
-                ("loss_sum", "hits", "cnt", "n"))
-        return sums
+
+        def step(x, gen, update):
+            return step_fn(state, _mono_batch(frames, x, image_size,
+                                              heatmap_size, sigma))
+
+        return graphs.epoch(("eval", _frames_key(frames)), state, xs, step,
+                            sum_keys=_EVAL_KEYS_2D)
 
     return epoch
+
+
+# ------------------------------------------------------------- segments
+
+def _make_select() -> Callable:
+    """select(best, state, improved): best (a state dict of device tensors,
+    train/loop2d.py _best_snapshot) takes the model's weights where the
+    0-d bool `improved` is set, by a masked copy on the device (one graph
+    on CUDA, captured as the epochs' steps are)."""
+    graphs = StepGraphs()
+
+    def select(best, state, improved):
+        pairs = [(best[k], v) for k, v in state.model.state_dict().items()]
+
+        def copy(x, gen, update):
+            for b, c in pairs:
+                b.copy_(torch.where(x["flag"], c, b))
+            return {}
+
+        graphs.epoch(("select",), (best, state.model),
+                     {"flag": improved.reshape(1)}, copy)
+
+    return select
+
+
+def _epoch_at(xs_seq, e):
+    return {k: v[e] for k, v in xs_seq.items()}
+
+
+def _stack_epochs(rows):
+    """Per-epoch metric trees (None for a padding epoch) -> one tree of
+    (E, ...) device tensors, zeros on padding rows; None when every epoch
+    is padding."""
+    first = next((r for r in rows if r is not None), None)
+    if first is None:
+        return None
+
+    def stack(path):
+        def leaf(r):
+            v = first if r is None else r
+            for k in path:
+                v = v[k]
+            return torch.zeros_like(v) if r is None else v
+        return torch.stack([leaf(r) for r in rows])
+
+    return {k: ({kk: stack((k, kk)) for kk in v} if isinstance(v, dict)
+                else stack((k,)))
+            for k, v in first.items()}
+
+
+def make_segment_cdr(loss_fn, image_size, occlusion=None,
+                     warmup: int = 0, seed: int = 0,
+                     loss_3d_weight: float = 4.0, scale_3d: float = 0.1,
+                     base_joint: int = 1, num_joints: int = 19,
+                     clip_norm: float = 100.0) -> Callable:
+    """A SEGMENT of E epochs, each a train epoch then an eval epoch, with
+    the best state selected on the device (steps.py:333-453).
+
+    segment(state, best_state, best_err, t_frames, v_frames, xs_seq,
+            vxs, epoch0, epoch_valid) -> (state, best_state, best_err, ms)
+      xs_seq: dict of (E, S, B, ...) train metadata (E stacked
+        Stereo3DLoader.stacked_epoch results);
+      vxs: (S', B, ...) eval metadata (the same every epoch);
+      epoch0: the global index of the segment's first epoch: epoch
+        ep = epoch0 + e trains with use_3d = ep >= warmup and draws its
+        occlusion from the epoch seed seed * 10007 + ep, whatever the
+        loader's own epoch counter (which a resumed run restarts at 0);
+      epoch_valid: (E,) bools; a False row is a PADDING epoch, skipped:
+        it changes no state and reports zero metrics;
+      best_state: a state dict of device tensors (loop2d._best_snapshot),
+        overwritten in place by the model's weights at an epoch whose val
+        MPJPE3D is below best_err, only when ep > warmup
+        [ref: train_cdr.py:223-228]; best_err: a 0-d fp32 device tensor,
+        returned updated;
+      ms: per-epoch stacked metrics {"train": sums over S, "eval":
+        {loss_sum, e2_sum, e3_sum, n}, "improved": (E,) bool}, device
+        tensors that the host fetches once a segment.
+    The state is updated in place and returned, as is best_state. The
+    epochs run through make_train_epoch_cdr / make_eval_epoch_cdr, so
+    on CUDA every step is a replay of their graphs, and the best state's
+    masked copy one more graph an epoch; nothing waits for the host
+    inside the segment.
+    """
+    kw = dict(loss_3d_weight=loss_3d_weight, scale_3d=scale_3d,
+              base_joint=base_joint, num_joints=num_joints)
+    train_epoch = make_train_epoch_cdr(loss_fn, image_size,
+                                       occlusion=occlusion,
+                                       clip_norm=clip_norm, **kw)
+    eval_epoch = make_eval_epoch_cdr(loss_fn, image_size, **kw)
+    select = _make_select()
+
+    def segment(state: TrainState, best_state, best_err, t_frames, v_frames,
+                xs_seq, vxs, epoch0, epoch_valid):
+        rows = []
+        for e, valid in enumerate(np.asarray(epoch_valid, bool).tolist()):
+            if not valid:
+                rows.append(None)
+                continue
+            ep = int(epoch0) + e
+            use_3d = ep >= warmup
+            tsum = train_epoch(state, t_frames, _epoch_at(xs_seq, e),
+                               seed * 10007 + ep, use_3d)
+            esum = eval_epoch(state, v_frames, vxs, use_3d)
+            e3 = esum["e3_sum"] / esum["n"].clamp_min(1.0)
+            improved = (e3 < best_err) & (ep > warmup)
+            select(best_state, state, improved)
+            best_err = torch.where(improved, e3, best_err)
+            rows.append({"train": tsum, "eval": esum, "improved": improved})
+        return state, best_state, best_err, _stack_epochs(rows)
+
+    return segment
+
+
+def make_segment_2d(loss_fn, image_size, heatmap_size,
+                    sigma: int = 3) -> Callable:
+    """2D counterpart of make_segment_cdr (steps.py:456-534): E epochs
+    (train then eval each), the best selected on the device by val PCK
+    (maximised, no warmup gate [ref: train.py:150-155]).
+
+    segment(state, best_state, best_acc, t_frames, v_frames, xs_seq,
+            vxs, epoch_valid) -> (state, best_state, best_acc, ms)
+      epoch_valid: (E,) bools, padding rows skipped (zero metrics,
+        improved False); ms per epoch: {"train": sums, "eval": {loss_sum,
+        hits, cnt, n}, "val_acc": (E,), "improved": (E,) bool}.
+    """
+    args = (loss_fn, image_size, heatmap_size, sigma)
+    train_epoch = make_train_epoch_2d(*args)
+    eval_epoch = make_eval_epoch_2d(*args)
+    select = _make_select()
+
+    def segment(state: TrainState, best_state, best_acc, t_frames, v_frames,
+                xs_seq, vxs, epoch_valid):
+        rows = []
+        for e, valid in enumerate(np.asarray(epoch_valid, bool).tolist()):
+            if not valid:
+                rows.append(None)
+                continue
+            tsum = train_epoch(state, t_frames, _epoch_at(xs_seq, e))
+            esum = eval_epoch(state, v_frames, vxs)
+            va, _ = pck_from_counts(esum["hits"], esum["cnt"])
+            improved = va > best_acc
+            select(best_state, state, improved)
+            best_acc = torch.where(improved, va, best_acc)
+            rows.append({"train": tsum, "eval": esum, "val_acc": va,
+                         "improved": improved})
+        return state, best_state, best_acc, _stack_epochs(rows)
+
+    return segment

@@ -1,6 +1,6 @@
-"""Throughput meter and step traces. Port of
-fast3dhpe_tpu/utils/profiling.py: `ThroughputMeter` and `StepTracer`
-(through torch.profiler).
+"""Throughput meter, step traces and the replay floor. Port of
+fast3dhpe_tpu/utils/profiling.py: `ThroughputMeter`, `StepTracer`
+(through torch.profiler) and `measure_scan_floor`.
 
 PyTorch returns from a CUDA call before the device finishes, so a host
 clock measures compute only across a true synchronisation
@@ -15,6 +15,45 @@ import time
 from typing import Optional
 
 import torch
+
+
+def measure_scan_floor(iters: int = 50, device="cuda") -> float:
+    """Fixed cost (seconds) an iteration of a trivial step, as the JAX
+    package measures its scan's (profiling.py:30-52): on CUDA a CUDA graph
+    of one (8, 128) multiply-add, replayed `iters` times after a warm
+    replay, timed from the first replay to a synchronisation; on the CPU
+    the same op called `iters` times in a loop. What a replayed train step
+    pays besides its work (train/graphs.py)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"measure_scan_floor: {device} asked for, but "
+                           f"torch.cuda.is_available() is False")
+    x = torch.zeros((8, 128), dtype=torch.float32, device=device)
+
+    def body():
+        x.mul_(1.0000001).add_(1e-9)
+
+    if device.type != "cuda":
+        body()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            body()
+        return (time.perf_counter() - t0) / iters
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        graph.replay()
+    torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) / iters
 
 
 class ThroughputMeter:
