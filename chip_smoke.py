@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port (fast3dhpe_tpu_torch) on one GPU, and with
---slice10 across four.
+--slice10 and --slice12 across four.
 
-    python3 chip_smoke.py             # everything below but 15, one card
+    python3 chip_smoke.py             # everything below but 15, 18, one card
     python3 chip_smoke.py --kernels   # steps 1, 2 and the kernel timings
     python3 chip_smoke.py --slice6    # steps 1-3, 5, 8a and 11
     python3 chip_smoke.py --slice7    # steps 1-3 and 12
@@ -9,6 +9,9 @@
     python3 chip_smoke.py --slice9    # steps 1-3 and 14
     python3 chip_smoke.py --slice10   # steps 1-3 and 15, four cards
     python3 chip_smoke.py --slice11   # steps 1-3 and 16
+    python3 chip_smoke.py --phase17   # steps 1, 2 and 17
+    python3 chip_smoke.py --slice12   # steps 1, 2, the kernel timings, 18
+                                      # and 19, four cards
 
 1. Prints the card's name and power limit, builds the kernels
    (csrc/softargmax.cu and csrc/fused_bottleneck.cu, one nvcc each, in
@@ -29,7 +32,9 @@
    K2 on a data-parallel rank's 16 and 8 pairs ((32, 64, 64, 19),
    (16, 64, 64, 19)). Phase 16 launches K1 and K2 inside CUDA graphs at
    the training path's 32 pairs only ((64, 64, 64, 19), fp32 and bf16),
-   which the 64-image cases check (s16_shapes_checked).
+   which the 64-image cases check (s16_shapes_checked); phases 17 and 18
+   inside graphs that also hold NCCL's kernels, at a rank's 32, 16 and 8
+   pairs ((64|32|16, 64, 64, 19); s18_shapes_checked).
 3. Serving path: three requests of four uint8 stereo pairs through
    `CDRNetInferencer.predict_batch` at the width of configs/mads_3d.yaml
    (CDRNet-101, 256 px, 19 joints), bf16 with fused_inference=True, from
@@ -321,10 +326,56 @@
       segments=False, 2 epochs, bit-equal;
    and prints measure_scan_floor (a replayed trivial graph) beside the
    host's time a trivial eager launch.
-17. Prints a {"kernels": [...]} line and, last, {"ok": true, ...}.
+17. Slice 12 on one card, the stacked epochs and segments under a mesh
+    (phase 12's tree whole in the device cache, cuDNN deterministic, TF32
+    off):
+   a. NCCL at world size 1 in this process: phase 16 a's fp32 epoch (6
+      steps of 32 pairs, CUTOUT, use_3d) under make_mesh(), each step a
+      replay of a graph that holds its collectives, against the same
+      epoch eager under the mesh and the graphed epoch without a mesh:
+      per-step metrics, weights, BN statistics and Adam's state bit-equal;
+      the collectives a step by kind (rows, a forward and a backward one
+      a BN, gradient, metrics) counted through the replays, one capture
+      check, fewer than 10 host launches a step; each way's wall, busy,
+      NCCL ms, idle share, host launches, capture s and memory; a step
+      whose capture fails raises GraphCaptureError naming the rank;
+   b. two gloo ranks sharing cuda:0 (`--s17-child`), loop_cdr.run at 16
+      pairs a rank with each rank's shard whole in its cache, augmentation
+      off, 2 epochs: by segments (logged, the steps eager as gloo decides)
+      against the same ranks' per-batch path (bit-equal, or within S7_*)
+      and against one process at 32 pairs by segments (S7_*); the ranks'
+      histories equal, rank 0's checkpoints only, 2 K1 + 1 K2 an epoch.
+18. Slice 12 across cards (`--slice12` only; four cards, or it exits
+    non-zero naming the host's): one NCCL rank a card (`--s10-child`
+    launches), world 4 and then world 2 on cards 0-1, 32 pairs global;
+    this process builds the global stacked epoch (6 steps, 4 rows of each
+    padded) and runs one card's references on cuda:0 first:
+   a. every rank's shard_stacked block of that epoch, the frames whole on
+      its card: the CUTOUT epoch graphed against eager (bit-equal, or
+      within S7_* with the gaps printed), the collectives a step by kind
+      through the replays, fewer than 10 host launches a step; then a
+      graphed epoch without occlusion or the 3D loss against one card's
+      on the whole batch (step 0 within S7_WARMUP_RTOL / S7_2D_RTOL, the
+      later losses within S7_POST_RTOL); beside one card's graphed step,
+      each rank's graphed and eager: wall, busy, NCCL ms, idle share, host
+      launches, capture s, reserved and peak memory;
+   b. a segment of E_full 4 (3 valid) of 2 steps on each rank's own
+      loaders against its 3 epochs, bit for bit (s16_segment);
+   c. loop_cdr.run (CUTOUT, 2 epochs) by segments, by stacked epochs and
+      batch by batch into shared weights roots: histories equal on every
+      rank, segments bit-equal to stacked epochs and to the per-batch
+      path (or within S7_*), the segment path logged with its graphs, one
+      checkpoint set a root, 2 K1 + 1 K2 an epoch a rank;
+   d. at world 4, loop_cdr.run by segments on a 2 x 2 mesh: the model
+      ranks' final weights bit-equal, histories equal;
+   e. torchrun's train_cdr over 4 ranks for one epoch by segments (the
+      S10_AUDIT hook: one checkpoint set, every write rank 0's; the
+      logged path).
+19. Prints a {"kernels": [...]} line and, last, {"ok": true, ...} (the
+    default run and --slice12).
 
-It needs one CUDA device, and four for --slice10. Without one, or when
-any phase fails, it exits non-zero and prints no result.
+It needs one CUDA device, and four for --slice10 and --slice12. Without
+one, or when any phase fails, it exits non-zero and prints no result.
 """
 
 import ctypes
@@ -3876,9 +3927,10 @@ def run_dp_gloo(dev, work):
                       "fused_bottleneck": 0},
                 f"gloo rank {r}: launches {n} over {steps} train steps and "
                 f"{steps} eval batches")
-    step_ms = [[n_pairs // 2 / pps * 1e3
+    # the history's throughput counts the global batch's pairs
+    step_ms = [[n_pairs / pps * 1e3
                 for pps in g["history"]["train_pairs_per_sec"]] for g in got]
-    timed_step_ms = [[n_pairs // 2 / pps * 1e3 for pps in
+    timed_step_ms = [[n_pairs / pps * 1e3 for pps in
                       g["timed_history"]["train_pairs_per_sec"]]
                      for g in got]
     parts = []
@@ -5252,8 +5304,9 @@ def s10_timed_steps(step, state, b):
 
 def s10_loop(job, spec, inp, work):
     """b / c: loop_cdr.run on the job's (D, M) mesh (M = job["m"]) into
-    the shared weights root without overwrite, cuDNN deterministic: the
-    history, launches, collectives, epoch seconds, peak memory and a
+    the shared weights root without overwrite, cuDNN deterministic, with
+    the job's keywords (job["kw"]: the path flags): the history, the
+    logged path, launches, collectives, epoch seconds, peak memory and a
     digest of the final weights."""
     import hashlib
     from fast3dhpe_tpu_torch.config import load_config
@@ -5274,9 +5327,10 @@ def s10_loop(job, spec, inp, work):
                 torch.cuda.reset_peak_memory_stats()
             COUNTS.clear()
             counters = reset_counts()
-            with EpochTimes() as et:
+            with EpochTimes() as et, PathLog() as pl:
                 hist = loop_cdr.run(load_config(job["cfg"]), mesh=mesh,
-                                    seed=SEED, weights_root=job["root"])
+                                    seed=SEED, weights_root=job["root"],
+                                    **job.get("kw", {}))
             launches = read_counts(counters)
     finally:
         loop_cdr._init_model = init
@@ -5286,6 +5340,7 @@ def s10_loop(job, spec, inp, work):
             torch.uint8).numpy().tobytes())
     return {"history": hist, "launches": launches, "counts": dict(COUNTS),
             "epoch_s": et.seconds, "digest": digest.hexdigest(),
+            "path": pl.lines,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
             if torch.cuda.is_available() else 0.0,
             "mesh": (mesh.rank, mesh.size, mesh.model_rank, mesh.model_size),
@@ -5705,21 +5760,25 @@ def s10_check_loops(outs, ref, what, name, shared, epochs):
             "history": h0}
 
 
-def s10_cli(work, mads, world, device):
+def s10_cli(work, mads, world, device, cfg=None, name="cli"):
     """b: `torchrun --nproc_per_node <world> -m
     fast3dhpe_tpu_torch.apps.train_cdr` (python -m torch.distributed.run)
-    for one epoch on the tree, each rank importing S10_AUDIT first, which
-    logs the rank's writes under the weights root: exit 0, one checkpoint
-    set, every write rank 0's."""
+    for one epoch on the tree (cfg, by default phase 12's augmentation-off
+    config without a device cache; MODEL.NAME `name`), each rank importing
+    S10_AUDIT first, which logs the rank's writes under the weights root:
+    exit 0, one checkpoint set, every write rank 0's; the path the loop
+    logged."""
     import os
-    root = os.path.join(work, "w_cli")
-    audit, site = (os.path.join(work, d) for d in ("cli_audit", "cli_site"))
+    root = os.path.join(work, f"w_{name}")
+    audit, site = (os.path.join(work, f"{name}_{d}")
+                   for d in ("audit", "site"))
     os.makedirs(audit)
     os.makedirs(site)
     with open(os.path.join(site, "sitecustomize.py"), "w") as f:
         f.write(S10_AUDIT)
     import fast3dhpe_tpu_torch
-    cfg = s7_cfg(work, mads, S10_STEP_PAIRS // world, "cli", epochs=1)
+    if cfg is None:
+        cfg = s7_cfg(work, mads, S10_STEP_PAIRS // world, name, epochs=1)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(
         fast3dhpe_tpu_torch.__file__)))
     env = dict(os.environ, S10_AUDIT_ROOT=root + os.sep,
@@ -5747,8 +5806,9 @@ def s10_cli(work, mads, world, device):
         path = os.path.join(audit, f"rank{r}.txt")
         writes[r] = open(path).read().split("\n")[:-1] \
             if os.path.exists(path) else []
-    name = "cli"
-    files = sorted(os.listdir(os.path.join(root, name)))
+    from fast3dhpe_tpu_torch.config import load_config
+    files = sorted(os.listdir(os.path.join(root,
+                                           load_config(cfg).MODEL.NAME)))
     renamed = sorted(os.path.basename(w.split(" ", 1)[1]) for w in writes[0]
                      if w.startswith("os.rename"))
     print(f"# slice 10 b, torchrun --nproc_per_node {world} -m "
@@ -5763,7 +5823,8 @@ def s10_cli(work, mads, world, device):
             f"place; writes by the other ranks "
             f"{ {r: writes[r] for r in range(1, world)} }")
     return {"seconds": secs, "files": files,
-            "writes_by_rank": {r: len(w) for r, w in writes.items()}}
+            "writes_by_rank": {r: len(w) for r, w in writes.items()},
+            "path": s17_plan_line(done.stdout + done.stderr)}
 
 
 def run_slice10(inf, cfg, dev, smi):
@@ -6051,10 +6112,15 @@ def s16_stacked(loader, steps, pad):
     return xs
 
 
-def s16_state(cfg, dev, dtype, steps_per_epoch):
+def s16_state(cfg, dev, dtype, steps_per_epoch, mesh=None):
+    """The seeded CDRNet's TrainState on dev; under a mesh replicated
+    (rank 0's weights, the data group on every BN)."""
+    from fast3dhpe_tpu_torch.parallel import replicate
     from fast3dhpe_tpu_torch.train.state import TrainState
     model = seeded_train_model(cfg).to(dev)
     model.dtype = dtype
+    if mesh is not None:
+        replicate(mesh, model, spatial=False)
     return TrainState.create(model, cfg, steps_per_epoch)
 
 
@@ -6082,9 +6148,11 @@ def s16_recorder(graphs):
 
 
 def s16_profile(fn, steps):
-    """One fn() (`steps` steps) under torch.profiler: device busy ms, kernels
-    and host launches (the CUDA calls that put work on the device) a step;
-    busy None where the profile holds no device time."""
+    """One fn() (`steps` steps) under torch.profiler: device busy ms (the
+    union of the kernels' spans, so that NCCL's stream beside the compute
+    counts once), the NCCL kernels' summed ms (which hold the wait for the
+    peers), kernels and host launches (the CUDA calls that put work on the
+    device) a step; busy None where the profile holds no device time."""
     from collections import Counter
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -6095,11 +6163,20 @@ def s16_profile(fn, steps):
         torch.cuda.synchronize()
     ev = prof.events()
     ks = [e for e in ev if e.device_type == DeviceType.CUDA
-          and not getattr(e, "is_user_annotation", False)]
-    busy = sum((e.time_range.end - e.time_range.start) / 1e3 for e in ks)
+          and not getattr(e, "is_user_annotation", False)
+          and not e.name.startswith("nccl:")]
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in ks):
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    nccl = sum(e.time_range.end - e.time_range.start for e in ks
+               if "nccl" in e.name.lower())
     calls = Counter(e.name for e in ev if e.device_type == DeviceType.CPU
                     and e.name in S16_LAUNCH_CALLS)
-    return {"busy_ms": busy / steps if busy > 0 else None,
+    return {"busy_ms": busy / 1e3 / steps if busy > 0 else None,
+            "nccl_ms": nccl / 1e3 / steps,
             "kernels": len(ks) / steps,
             "host_launches": sum(calls.values()) / steps,
             "calls": {k: v / steps for k, v in sorted(calls.items())}}
@@ -6151,51 +6228,67 @@ def s16_masks(frames, xs, cfg, dev):
     return hidden
 
 
-def s16_epoch_pair(cfg, frames, xs, dev, dtype, loss, kw):
+def s16_epoch_run(cfg, frames, xs, dev, dtype, loss, kw, graphed,
+                  timed=True, what="phase 16 a", use_3d=True):
+    """One train epoch (use_3d) of the rows of xs, graphed or eager, from
+    the seeded weights (replicated under kw["mesh"]): its sums, per-step
+    metrics, final state, launches, collectives by kind (mesh.COUNTS),
+    capture seconds and memory; with `timed`, one more epoch timed (wall
+    ms a step) and one profiled (s16_profile), and the idle share."""
+    from fast3dhpe_tpu_torch.parallel.mesh import COUNTS
+    from fast3dhpe_tpu_torch.train import steps
+    n = len(xs["idx_l"])
+    state = s16_state(cfg, dev, dtype, n, kw.get("mesh"))
+    epoch = steps.make_train_epoch_cdr(
+        loss, cfg.MODEL.IMAGE_SIZE, occlusion=cfg.DATASET.OCCLUSION,
+        graphed=graphed, **kw)
+    rec = s16_recorder(epoch.graphs)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    COUNTS.clear()
+    counters = reset_counts()
+    sums = epoch(state, frames, xs, SEED, use_3d)
+    launches = read_counts(counters)
+    run = {"sums": {k: v.clone() for k, v in sums.items()},
+           "steps": rec[:], "snap": s16_snapshot(state),
+           "launches": launches, "collectives": dict(COUNTS),
+           "capture_s": epoch.graphs.capture_s,
+           "graphed_by_backend": epoch.graphs.graphed,
+           "variants": len(epoch.graphs._graphs),
+           "reserved_gib": (torch.cuda.memory_reserved() - reserved)
+           / 2 ** 30,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    epoch.graphs.on_step = None
+    if timed:
+        run["wall_ms"] = s16_wall_ms(
+            lambda: epoch(state, frames, xs, SEED + 1, use_3d), n)
+        run.update(s16_profile(
+            lambda: epoch(state, frames, xs, SEED + 2, use_3d), n))
+        run["idle"] = (None if run["busy_ms"] is None
+                       else 1 - run["busy_ms"] / run["wall_ms"])
+    require(len(rec) == n and all(
+        np.isfinite(float(v)) for m in rec for v in m.values()),
+        f"{what}: non-finite metrics {rec}")
+    require_counts(launches, n, 1, 1, 0,
+                   f"{what}, {'graphed' if graphed else 'eager'}")
+    del state, epoch
+    torch.cuda.empty_cache()
+    return run
+
+
+def s16_epoch_pair(cfg, frames, xs, dev, dtype, loss, kw,
+                   what="phase 16 a"):
     """a. One train epoch (use_3d) of S16_STEPS steps, eager and graphed,
     from the same seeded weights with the same (capturable) optimizer:
     per-step metrics, weights, BN statistics and Adam's state bit-equal,
     1 K1 + 1 K2 a step; then each way one timed epoch and one profiled."""
-    from fast3dhpe_tpu_torch.train import steps
-    n = len(xs["idx_l"])
-    runs = {}
-    for graphed in (False, True):
-        state = s16_state(cfg, dev, dtype, n)
-        epoch = steps.make_train_epoch_cdr(
-            loss, cfg.MODEL.IMAGE_SIZE, occlusion=cfg.DATASET.OCCLUSION,
-            graphed=graphed, **kw)
-        rec = s16_recorder(epoch.graphs)
-        torch.cuda.synchronize()
-        reserved = torch.cuda.memory_reserved()
-        torch.cuda.reset_peak_memory_stats()
-        counters = reset_counts()
-        sums = epoch(state, frames, xs, SEED, True)
-        launches = read_counts(counters)
-        run = {"sums": {k: v.clone() for k, v in sums.items()},
-               "steps": rec[:], "snap": s16_snapshot(state),
-               "launches": launches, "capture_s": epoch.graphs.capture_s,
-               "variants": len(epoch.graphs._graphs),
-               "reserved_gib": (torch.cuda.memory_reserved() - reserved)
-               / 2 ** 30,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        epoch.graphs.on_step = None
-        run["wall_ms"] = s16_wall_ms(
-            lambda: epoch(state, frames, xs, SEED + 1, True), n)
-        run.update(s16_profile(
-            lambda: epoch(state, frames, xs, SEED + 2, True), n))
-        run["idle"] = (None if run["busy_ms"] is None
-                       else 1 - run["busy_ms"] / run["wall_ms"])
-        require(len(rec) == n and all(
-            np.isfinite(float(v)) for m in rec for v in m.values()),
-            f"phase 16 a: non-finite metrics {rec}")
-        require_counts(launches, n, 1, 1, 0,
-                       f"phase 16 a, {'graphed' if graphed else 'eager'}")
-        runs["graphed" if graphed else "eager"] = run
-        del state, epoch
-        torch.cuda.empty_cache()
+    runs = {w: s16_epoch_run(cfg, frames, xs, dev, dtype, loss, kw,
+                             w == "graphed", what=what)
+            for w in ("eager", "graphed")}
     e, g = runs["eager"], runs["graphed"]
     require(g["variants"] == (dev.type == "cuda") and e["variants"] == 0,
-            f"phase 16 a: {g['variants']} graphed variants, {e['variants']} "
+            f"{what}: {g['variants']} graphed variants, {e['variants']} "
             f"eager")
     step_gaps = [s16_gaps(a, b) for a, b in zip(e["steps"], g["steps"])]
     state_gaps = s16_gaps(e["snap"], g["snap"])
@@ -6219,17 +6312,20 @@ def s16_bounds(gaps, e, g, what):
           f"{gaps}")
 
 
-def s16_segment(cfg, tl, vl, dev, loss, kw):
+def s16_segment(cfg, tl, vl, dev, loss, kw, pad=S16_PAD,
+                what="phase 16 b"):
     """b. make_segment_cdr over E_full = S16_SEG_E epochs, S16_SEG_VALID
     valid and the rest padding, WARMUP 1 and the LR / 10 from epoch
     S16_LR_STEP + 1, against the same epochs on the epoch path with the
-    best chosen on the host: bit-equal."""
+    best chosen on the host: bit-equal. Under kw["mesh"] the loaders are
+    the rank's and every step the global batch's."""
     from fast3dhpe_tpu_torch.train import loop2d, steps
+    mesh = kw.get("mesh")
     cfg.TRAIN.LR_STEP = [S16_LR_STEP]
     warmup = cfg.TRAIN.WARMUP
     tframes = tl.ensure_device_cache().frames
     vframes = vl.ensure_device_cache().frames
-    epochs = [s16_stacked(tl, S16_SEG_STEPS, S16_PAD)
+    epochs = [s16_stacked(tl, S16_SEG_STEPS, pad)
               for _ in range(S16_SEG_VALID)]
     seq, epoch_valid, _ = loop2d._stack_segment(epochs, S16_SEG_E)
     vxs = vl.stacked_epoch()[1]
@@ -6237,7 +6333,7 @@ def s16_segment(cfg, tl, vl, dev, loss, kw):
     occl = cfg.DATASET.OCCLUSION
 
     n = len(epochs[0]["idx_l"])             # steps an epoch
-    seg_state = s16_state(cfg, dev, torch.float32, n)
+    seg_state = s16_state(cfg, dev, torch.float32, n, mesh)
     segment = steps.make_segment_cdr(loss, size, occlusion=occl,
                                      warmup=warmup, seed=SEED, **kw)
     best = loop2d._best_snapshot(seg_state)
@@ -6251,7 +6347,7 @@ def s16_segment(cfg, tl, vl, dev, loss, kw):
     lr_got = seg_state.optimizer.param_groups[0]["lr"]
     lr_want = seg_state.schedule(seg_state.step - 1)
 
-    ep_state = s16_state(cfg, dev, torch.float32, n)
+    ep_state = s16_state(cfg, dev, torch.float32, n, mesh)
     train = steps.make_train_epoch_cdr(loss, size, occlusion=occl, **kw)
     evaluate = steps.make_eval_epoch_cdr(loss, size, **kw)
     rows, berr, best_ep = [], float("inf"), None
@@ -6289,13 +6385,13 @@ def s16_segment(cfg, tl, vl, dev, loss, kw):
            "lr_schedule": lr_want, "steps": seg_state.step,
            "metric_gaps": metric_gaps[:6], "best_gaps": len(best_gaps),
            "final_gaps": len(final_gaps)}
-    print(f"# phase 16 b, segment E_full {S16_SEG_E} ({S16_SEG_VALID} valid) "
+    print(f"# {what}, segment E_full {S16_SEG_E} ({S16_SEG_VALID} valid) "
           f"against {S16_SEG_VALID} epochs: {out}")
     require(improved == want_improved and float(best_err) == berr,
-            f"phase 16 b: improved {improved} / {want_improved}, best "
+            f"{what}: improved {improved} / {want_improved}, best "
             f"{float(best_err)} / {berr}")
     require(not metric_gaps and not best_gaps and not final_gaps,
-            f"phase 16 b: the segment differs from the epochs: metrics "
+            f"{what}: the segment differs from the epochs: metrics "
             f"{metric_gaps[:6]}, best {list(best_gaps.items())[:4]}, final "
             f"{list(final_gaps.items())[:4]}")
     require(seg_state.step == S16_SEG_VALID * n
@@ -6303,12 +6399,12 @@ def s16_segment(cfg, tl, vl, dev, loss, kw):
             and float(lr_got) == (float(torch.tensor(lr_want,
                                                      dtype=lr_got.dtype))
                                   if torch.is_tensor(lr_got) else lr_want),
-            f"phase 16 b: after the segment step {seg_state.step}, LR "
+            f"{what}: after the segment step {seg_state.step}, LR "
             f"{float(lr_got)} (schedule {lr_want})")
     # a train step K1 + K2, an eval batch K1, S16_SEG_VALID epochs
     n_eval = len(vxs["idx_l"])
     require_counts(seg_launches, 1, S16_SEG_VALID * (n + n_eval),
-                   S16_SEG_VALID * n, 0, "phase 16 b")
+                   S16_SEG_VALID * n, 0, what)
     return out
 
 
@@ -6516,6 +6612,705 @@ def run_slice11(dev, smi):
           f"{out['seconds']:.1f} s ({out['part_s']})")
     return out
 
+
+# ----------------------------------------------------------------- slice 12
+
+S17_CHILD_TIMEOUT = 600           # s: a gloo rank's whole run in b
+
+
+def s17_plan_line(log):
+    """The loop's 'Training path: ...' line from a log's text."""
+    return next((ln.split("Training path: ", 1)[1] for ln in
+                 log.splitlines() if "Training path: " in ln), None)
+
+
+class PathLog:
+    """A logging handler that keeps the paths that the training loops log
+    ('Training path: <path>')."""
+
+    def __init__(self):
+        import logging
+        self.handler = logging.Handler()
+        self.handler.emit = self._emit
+        self.lines = []
+        self.logger = logging.getLogger("fast3dhpe_tpu_torch")
+
+    def _emit(self, rec):
+        if str(rec.msg).startswith("Training path: "):
+            self.lines.append(rec.getMessage().split(": ", 1)[1])
+
+    def __enter__(self):
+        from fast3dhpe_tpu_torch.utils.logging import setup_logger
+        setup_logger()      # its level, before a handler makes it skip
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def s17_capture_refused(mesh, dev):
+    """A step whose capture fails on this rank (and runs an all_reduce of
+    the mesh first, as every step does): GraphCaptureError naming the
+    failing rank(s), raised after the ranks have agreed on it."""
+    from fast3dhpe_tpu_torch.parallel.mesh import all_reduce
+    from fast3dhpe_tpu_torch.train.graphs import GraphCaptureError, StepGraphs
+    import torch.distributed as dist
+    fail_on = {dist.get_world_size() - 1}
+
+    def fn(x, gen, update):
+        y = all_reduce(mesh.group, [x["v"] * 2.0], "metrics")[0]
+        if dev.type == "cuda" and dist.get_rank() in fail_on and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a step that cannot be captured")
+        return {"y": y.sum()}
+
+    graphs = StepGraphs(mesh=mesh)
+    try:
+        graphs.epoch(("refused",), mesh, {"v": torch.ones(3, 4, device=dev)},
+                     fn)
+    except GraphCaptureError as e:
+        return str(e)
+    return None
+
+
+def s17_world1(work, mads, dev, smi):
+    """a. NCCL at world size 1 in this process: the stacked fp32 epoch of
+    phase 16 a (6 steps of 32 pairs, CUTOUT, use_3d) under make_mesh(),
+    graphed, against the same epoch eager under the mesh and against the
+    graphed epoch without a mesh: bit for bit; the collectives a replay
+    by kind, host launches a step, times; a capture that fails raises
+    GraphCaptureError naming the rank."""
+    import os
+    import torch.distributed as dist
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.data.loader import load_data
+    from fast3dhpe_tpu_torch.models.losses import make_loss
+    from fast3dhpe_tpu_torch.parallel import (destroy_distributed,
+                                              init_distributed, make_mesh)
+    env = rank_env(0, 1, free_port())
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        require(init_distributed(), "init_distributed made no group")
+        mesh = make_mesh()
+        require(dist.get_backend() == "nccl" and mesh.size == 1,
+                f"phase 17 a: backend {dist.get_backend()}, mesh {mesh}")
+        cfg = load_config(s16_cfg(work, mads, "s17"))
+        tl, vl = load_data(cfg, mesh=mesh, seed=SEED)
+        try:
+            cache = tl.ensure_device_cache()
+            require(cache is not None and not cache.partial,
+                    "phase 17 a: the tree is not whole on the card")
+            xs = s16_stacked(tl, S16_STEPS, S16_PAD)
+        finally:
+            tl.close()
+            vl.close()
+        loss = make_loss(cfg.LOSS.TYPE, cfg.LOSS.USE_TARGET_WEIGHT)
+        kw = dict(loss_3d_weight=cfg.TRAIN.LOSS_3D_WEIGHT,
+                  num_joints=cfg.MODEL.NUM_JOINTS)
+        with _Deterministic():
+            runs, equal, gaps = s16_epoch_pair(
+                cfg, cache.frames, xs, dev, torch.float32, loss,
+                dict(kw, mesh=mesh), what="phase 17 a")
+            plain = s16_epoch_run(cfg, cache.frames, xs, dev, torch.float32,
+                                  loss, kw, True, what="phase 17 a, no mesh")
+        refused = s17_capture_refused(mesh, dev)
+    finally:
+        destroy_distributed()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    e, g = runs["eager"], runs["graphed"]
+    vs_plain = {"steps": [s16_gaps(a, b) for a, b in
+                          zip(g["steps"], plain["steps"])],
+                "state": len(s16_gaps(g["snap"], plain["snap"])),
+                "sums": s16_gaps(g["sums"], plain["sums"])}
+    plain_equal = not any(vs_plain["steps"]) and not vs_plain["state"] \
+        and not vs_plain["sums"]
+    n = len(xs["idx_l"])
+    per_replay = {k: v / n for k, v in g["collectives"].items()
+                  if k != "capture"}
+    out = {"bit_equal_eager": equal, "gaps_eager": gaps,
+           "bit_equal_no_mesh": plain_equal, "gaps_no_mesh": vs_plain,
+           "collectives_a_step": per_replay,
+           "capture_checks": g["collectives"].get("capture", 0),
+           "refused": refused,
+           **{w: {k: v for k, v in r.items()
+                  if k not in ("sums", "steps", "snap")}
+              for w, r in (("graphed", g), ("eager", e),
+                           ("graphed_no_mesh", plain))}}
+    print(f"# phase 17 a, NCCL world 1, stacked fp32 epoch of {n} steps of "
+          f"{S16_BATCH} pairs (CUTOUT) under make_mesh() ({smi}): graphed "
+          f"bit-equal to eager under the mesh {equal}, to the graphed epoch "
+          f"without a mesh {plain_equal}; collectives a step {per_replay} "
+          f"(capture checks {out['capture_checks']}); wall "
+          f"{g['wall_ms']:.1f} graphed / {e['wall_ms']:.1f} eager / "
+          f"{plain['wall_ms']:.1f} no mesh ms a step, busy {g['busy_ms']} / "
+          f"{e['busy_ms']} / {plain['busy_ms']} ms, NCCL {g['nccl_ms']:.2f} /"
+          f" {e['nccl_ms']:.2f} ms, idle {g['idle']} / {e['idle']} / "
+          f"{plain['idle']}, host launches {g['host_launches']:.1f} / "
+          f"{e['host_launches']:.1f} / {plain['host_launches']:.1f} a step, "
+          f"capture {g['capture_s']:.2f} s, reserved {g['reserved_gib']:.2f}"
+          f" / {e['reserved_gib']:.2f} GiB, peak {g['peak_gib']:.2f} / "
+          f"{e['peak_gib']:.2f} GiB; a failed capture: {refused}")
+    if not equal:
+        s16_bounds(gaps, e, g, "a (17) graphed vs eager under the mesh")
+    require(plain_equal, f"phase 17 a: the graphed epoch under the world-1 "
+                         f"mesh differs from the one without: {vs_plain}")
+    n_bn = sum(1 for k in g["snap"] if k.endswith("running_mean"))
+    want = {"rows": 1, "bn forward": n_bn, "bn backward": n_bn,
+            "gradients": 1, "metrics": 1}
+    require(per_replay == want and out["capture_checks"] == 1,
+            f"phase 17 a: collectives a step {g['collectives']}, not {want} "
+            f"and one capture check")
+    require(g["graphed_by_backend"] and not e["graphed_by_backend"]
+            and g["variants"] == 1,
+            f"phase 17 a: graphed {g['graphed_by_backend']}, variants "
+            f"{g['variants']}")
+    require(g["host_launches"] < 10,
+            f"phase 17 a: {g['host_launches']} host launches a step")
+    require(refused is not None and "rank(s) [0]" in refused,
+            f"phase 17 a: a capture that fails raised {refused!r}")
+    return out
+
+
+def s17_child(rank, world, port, cfg_path, roots, out):
+    """One gloo rank of b, on cuda:0 beside the other: loop_cdr.run through
+    make_mesh() by segments (the default: both caches hold the rank's
+    shard), then with scan_epochs=False (--per_batch), each into a root of
+    its own; the histories, the logged path, launches, collectives and
+    epoch seconds."""
+    import os
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.parallel import (destroy_distributed,
+                                              init_distributed, make_mesh)
+    from fast3dhpe_tpu_torch.parallel.mesh import COUNTS
+    from fast3dhpe_tpu_torch.train import loop_cdr
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ.update(rank_env(rank, world, port))
+    require(init_distributed(backend="gloo", device="cuda:0"),
+            "init_distributed made no group")
+    res = {}
+    try:
+        mesh = make_mesh()
+        for (path, kw), root in zip((("segments", {}),
+                                     ("per_batch", {"scan_epochs": False})),
+                                    roots.split(os.pathsep)):
+            COUNTS.clear()
+            counters = reset_counts()
+            with _Deterministic(), EpochTimes() as et, PathLog() as pl:
+                hist = loop_cdr.run(load_config(cfg_path), mesh=mesh,
+                                    overwrite=True, seed=SEED,
+                                    weights_root=root, **kw)
+            res[path] = {"history": hist, "launches": read_counts(counters),
+                         "counts": dict(COUNTS), "epoch_s": et.seconds,
+                         "path": pl.lines}
+    finally:
+        destroy_distributed()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def s17_gloo(work, mads, dev):
+    """b. Two gloo ranks sharing cuda:0, loop_cdr.run at 16 pairs a rank by
+    segments (their steps eager, as gloo decides) against the same ranks'
+    per-batch path and one process at 32 pairs by segments (graphed), on
+    phase 12's tree whole in each rank's cache, augmentation off."""
+    import os
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.train import loop_cdr
+    n_pairs = len(S7_MOVEMENTS) * S7_FRAMES
+    rank_cfg = s7_cfg(work, mads, n_pairs // 2, "s17dp",
+                      cache_bytes=S9_CACHE_BYTES)
+    one_cfg = s7_cfg(work, mads, n_pairs, "s17one",
+                     cache_bytes=S9_CACHE_BYTES)
+    roots = [[os.path.join(work, f"w17_{p}_{r}") for p in ("seg", "pb")]
+             for r in range(2)]
+    outs = [os.path.join(work, f"s17_rank{r}.json") for r in range(2)]
+    t = time.perf_counter()
+    port = free_port()
+    done = _finish([_spawn_self("--s17-child", r, 2, port, rank_cfg,
+                                os.pathsep.join(roots[r]), outs[r])
+                    for r in range(2)], S17_CHILD_TIMEOUT)
+    ranks_s = time.perf_counter() - t
+    for r, (rc, log) in enumerate(done):
+        require(rc == 0, f"phase 17 b: gloo rank {r} exited {rc}:\n"
+                         f"{log[-3000:]}")
+    got = []
+    for out in outs:
+        with open(out) as f:
+            got.append(json.load(f))
+    counters = reset_counts()
+    t = time.perf_counter()
+    with _Deterministic(), PathLog() as pl:
+        ref = loop_cdr.run(load_config(one_cfg), overwrite=True, seed=SEED,
+                           weights_root=os.path.join(work, "w17_one"),
+                           device=dev.type)
+    one_launches = read_counts(counters)
+    one_s = time.perf_counter() - t
+    keys = [k for k in ref if not k.endswith("_per_sec")]
+    for path in ("segments", "per_batch"):
+        for k in keys:
+            require(got[0][path]["history"][k] == got[1][path]["history"][k],
+                    f"phase 17 b: the ranks' {path} {k} differ")
+    seg, pb = got[0]["segments"], got[0]["per_batch"]
+    bit_equal = all(seg["history"][k] == pb["history"][k] for k in keys)
+    gaps = {k: float(np.max(np.abs(np.asarray(seg["history"][k])
+                                   - np.asarray(pb["history"][k]))
+                            / np.abs(np.asarray(pb["history"][k]))))
+            for k in keys if seg["history"][k] != pb["history"][k]}
+    errs, decades = _vs_one_process(seg["history"], ref,
+                                    "phase 17 b segments")
+    name = load_config(rank_cfg).MODEL.NAME
+    written = {r: {p: sorted(os.listdir(os.path.join(root, name)))
+                   if os.path.isdir(os.path.join(root, name)) else []
+                   for p, root in zip(("segments", "per_batch"), roots[r])}
+               for r in range(2)}
+    out = {"ranks_s": ranks_s, "one_process_s": one_s,
+           "path_logged": [g["segments"]["path"] for g in got],
+           "one_process_path": pl.lines,
+           "segments_bit_equal_per_batch": bit_equal, "gaps": gaps,
+           "vs_one_process": errs, "decades": decades,
+           "epoch_s_by_rank": {p: [g[p]["epoch_s"] for g in got]
+                               for p in ("segments", "per_batch")},
+           "collectives_rank0": {p: got[0][p]["counts"]
+                                 for p in ("segments", "per_batch")},
+           "launches_by_rank": [g["segments"]["launches"] for g in got],
+           "per_batch_launches_by_rank": [g["per_batch"]["launches"]
+                                          for g in got],
+           "one_process_launches": one_launches, "written": written,
+           "history": seg["history"]}
+    print(f"# phase 17 b, 2 gloo ranks x {n_pairs // 2} pairs by segments: "
+          f"logged {out['path_logged'][0]}; bit-equal to their per-batch "
+          f"path {bit_equal} (gaps {gaps}); against 1 process x {n_pairs} "
+          f"by segments ({pl.lines}): relative {errs}, decades {decades}; "
+          f"epochs {out['epoch_s_by_rank']} s; collectives rank 0 "
+          f"{out['collectives_rank0']}; written {written}")
+    require(all(p == ["segments under a 2 x 1 mesh (gloo: the steps run "
+                      "eagerly); eval stacked"] for p in out["path_logged"])
+            and pl.lines == ["segments; eval stacked"],
+            f"phase 17 b: the ranks logged {out['path_logged']}, one "
+            f"process {pl.lines}")
+    if not bit_equal:
+        # where the two paths round apart: within S7_*
+        _vs_one_process(seg["history"], pb["history"],
+                        "phase 17 b segments vs per-batch")
+    files = {"latest.opt.pt", "latest.pth"}
+    require(all(files <= set(w) for w in written[0].values())
+            and not any(written[1].values()),
+            f"phase 17 b: checkpoints {written}")
+    for r in range(2):
+        for launches in (out["launches_by_rank"][r],
+                         out["per_batch_launches_by_rank"][r]):
+            # an epoch: one train step (K1 + K2) and one eval batch (K1)
+            require_counts(launches, S7_EPOCHS, 2, 1, 0,
+                           f"phase 17 b rank {r}")
+    require_counts(one_launches, S7_EPOCHS, 2, 1, 0, "phase 17 b, 1 process")
+    return out
+
+
+def run_slice12_card(dev, smi):
+    """Phase 17: the stacked epochs under a mesh on one card (a: NCCL at
+    world 1, graphed; b: two gloo ranks sharing the card, eager)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        mads = s7_tree(work)
+        out = {"a": s17_world1(work, mads, dev, smi)}
+        torch.cuda.empty_cache()
+        out["b"] = s17_gloo(work, mads, dev)
+    out["launches"] = {
+        "a graphed": out["a"]["graphed"]["launches"],
+        "a eager": out["a"]["eager"]["launches"],
+        "a no mesh": out["a"]["graphed_no_mesh"]["launches"],
+        **{f"b gloo rank {r}, segments": n for r, n in
+           enumerate(out["b"]["launches_by_rank"])},
+        **{f"b gloo rank {r}, per batch": n for r, n in
+           enumerate(out["b"]["per_batch_launches_by_rank"])},
+        "b 1 process": out["b"]["one_process_launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"# slice 12, one card ({smi}): phase 17 {out['seconds']:.1f} s")
+    return out
+
+S18_WORLDS = (4, 2)               # one NCCL rank a card: world 4, then 2
+S18_LOOP_PATHS = (("segments", {}), ("epochs", {"segments": False}),
+                  ("per_batch", {"scan_epochs": False}))
+
+
+def s18_cfg(work, mads, pairs, name, epochs=S7_EPOCHS):
+    """configs/mads_3d.yaml (CUTOUT) on phase 12's tree, whole in each
+    rank's device cache, `pairs` a rank a batch, WARMUP 1."""
+    import os
+    return app_config(
+        "configs/mads_3d.yaml", os.path.join(work, f"{name}.yaml"), mads,
+        MODEL={"PRETRAINED": "", "NAME": name},
+        DATASET={"DEVICE_CACHE_BYTES": S9_CACHE_BYTES},
+        TRAIN={"BATCH_SIZE": pairs, "EPOCH": epochs, "WARMUP": 1},
+        TEST={"BATCH_SIZE": pairs})
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cpu(v) for v in tree]
+    return tree.detach().cpu() if torch.is_tensor(tree) else tree
+
+
+def _strip(run):
+    return {k: v for k, v in run.items() if k not in ("sums", "steps",
+                                                      "snap")}
+
+
+def s18_epoch(job, spec, inp, work):
+    """a: the global stacked epoch of this process's parent (6 steps of
+    32 pairs), this rank's shard_stacked block, with the tree's frames
+    whole on the rank's card: the CUTOUT epoch graphed and eager
+    (s16_epoch_pair: per-step metrics, weights, BN statistics and Adam's
+    state, with each way's times and profile), then one graphed epoch
+    without occlusion and without the 3D loss, which the parent holds
+    against one card's on the whole batch."""
+    from concurrent.futures import ThreadPoolExecutor
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.data.device_cache import DeviceFrameCache
+    from fast3dhpe_tpu_torch.data.loader import _BatchDecoder
+    from fast3dhpe_tpu_torch.models.losses import make_loss
+    from fast3dhpe_tpu_torch.parallel import make_mesh, shard_stacked
+    mesh = make_mesh()
+    cfg = load_config(spec["epoch_cfg"])
+    with ThreadPoolExecutor(4) as pool:
+        cache = DeviceFrameCache.build(inp["paths"], _BatchDecoder(pool),
+                                       S9_CACHE_BYTES, mesh=mesh)
+    xs = shard_stacked(mesh, inp["xs"])
+    loss = make_loss(cfg.LOSS.TYPE, cfg.LOSS.USE_TARGET_WEIGHT)
+    kw = dict(loss_3d_weight=cfg.TRAIN.LOSS_3D_WEIGHT,
+              num_joints=cfg.MODEL.NUM_JOINTS, mesh=mesh)
+    what = f"phase 18 a, world {mesh.size}"
+    with _Deterministic():
+        runs, equal, gaps = s16_epoch_pair(cfg, cache.frames, xs,
+                                           mesh.device, torch.float32, loss,
+                                           kw, what=what)
+        cfg.DATASET.OCCLUSION = "None"
+        off = s16_epoch_run(cfg, cache.frames, xs, mesh.device,
+                            torch.float32, loss, kw, True, timed=False,
+                            what=what + ", no occlusion", use_3d=False)
+    return {"bit_equal": equal, "gaps": gaps,
+            "graphed": _strip(runs["graphed"]),
+            "eager": _strip(runs["eager"]),
+            "graphed_steps": _cpu(runs["graphed"]["steps"]),
+            "eager_steps": _cpu(runs["eager"]["steps"]),
+            "off_steps": _cpu(off["steps"]), "pairs": len(xs["idx_l"][0])}
+
+
+def s18_segment(job, spec, inp, work):
+    """a: s16_segment on this rank's own loaders (its record shard, whole
+    in its cache): a segment of E_full 4 (3 valid) against its 3 epochs,
+    bit for bit, every step the global batch's."""
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.data.loader import load_data
+    from fast3dhpe_tpu_torch.models.losses import make_loss
+    from fast3dhpe_tpu_torch.parallel import make_mesh
+    mesh = make_mesh()
+    cfg = load_config(job["cfg"])
+    loss = make_loss(cfg.LOSS.TYPE, cfg.LOSS.USE_TARGET_WEIGHT)
+    kw = dict(loss_3d_weight=cfg.TRAIN.LOSS_3D_WEIGHT,
+              num_joints=cfg.MODEL.NUM_JOINTS, mesh=mesh)
+    tl, vl = load_data(cfg, mesh=mesh, seed=SEED)
+    try:
+        with _Deterministic():
+            return s16_segment(cfg, tl, vl, mesh.device, loss, kw,
+                               pad=max(1, S16_PAD // mesh.size),
+                               what=f"phase 18 b, world {mesh.size}")
+    finally:
+        tl.close()
+        vl.close()
+
+
+S10_JOBS.update({"s18 epoch": s18_epoch, "s18 segment": s18_segment})
+
+
+def s18_shapes_checked(size, joints):
+    """Every K1 and K2 input of phase 18 is one that step 2 checks: a
+    rank's whole heatmaps at 32 / w pairs (w = 1, 2, 4; the 2 x 2 mesh's
+    data ranks hold 16), train steps and eval batches alike."""
+    k1 = {shape for _, shape in SOFTARGMAX_SHAPES}
+    for w in (1,) + S18_WORLDS:
+        shape = (2 * S16_BATCH // w, size // 4, size // 4, joints)
+        require(shape in k1, f"phase 18 gives K1 and K2 {shape}, which "
+                             f"step 2 does not check")
+
+
+def s18_timing_line(world, one, outs):
+    """One card's graphed step beside the ranks' graphed and eager steps:
+    wall ms, device busy ms, NCCL ms, idle share, host launches, capture
+    s, reserved and peak GiB."""
+    def row(r):
+        return (f"wall {r['wall_ms']:.1f} ms, busy {r['busy_ms']} ms, NCCL "
+                f"{r['nccl_ms']:.2f} ms, idle {r['idle']}, host launches "
+                f"{r['host_launches']:.1f}, capture {r['capture_s']:.2f} s, "
+                f"reserved {r['reserved_gib']:.2f} GiB, peak "
+                f"{r['peak_gib']:.2f} GiB")
+    lines = [f"# phase 18, world {world} ({S16_BATCH // world} pairs a rank "
+             f"of {S16_BATCH}): one card graphed: {row(one)}"]
+    for r, o in enumerate(outs):
+        lines.append(f"#   rank {r} graphed: {row(o['graphed'])}")
+        lines.append(f"#   rank {r} eager:   {row(o['eager'])}")
+    print("\n".join(lines))
+
+
+def s18_check_epochs(world, outs, one_off, n_bn):
+    """a: every rank's per-step metrics equal (the global batch's); graphed
+    against eager bit-equal (or within S7_*, the gaps printed); the
+    collectives a step by kind and one capture check, counted through the
+    replays; fewer than 10 host launches a step; 1 K1 + 1 K2 a step; the
+    epoch without occlusion against one card's: step 0 (the same weights)
+    loss within S7_WARMUP_RTOL and grad_norm within S7_2D_RTOL, the later
+    steps' losses within S7_POST_RTOL."""
+    what = f"phase 18 a, world {world}"
+    for r, o in enumerate(outs[1:], 1):
+        for key in ("graphed_steps", "off_steps"):
+            for i, (a, b) in enumerate(zip(o[key], outs[0][key])):
+                require(all(torch.equal(a[k], b[k]) for k in a),
+                        f"{what}: rank {r}'s {key} step {i} differs from "
+                        f"rank 0's")
+    o = outs[0]
+    if not o["bit_equal"]:
+        s16_bounds(o["gaps"], {"steps": o["eager_steps"]},
+                   {"steps": o["graphed_steps"]}, f"18 a, world {world}")
+    want = {"rows": 1, "bn forward": n_bn, "bn backward": n_bn,
+            "gradients": 1, "metrics": 1}
+    n = len(o["graphed_steps"])
+    for r, x in enumerate(outs):
+        g = x["graphed"]
+        per = {k: v / n for k, v in g["collectives"].items()
+               if k != "capture"}
+        require(per == want and g["collectives"].get("capture") == 1,
+                f"{what} rank {r}: collectives {g['collectives']}")
+        require(g["graphed_by_backend"] and g["variants"] == 1
+                and g["host_launches"] < 10,
+                f"{what} rank {r}: graphed {g['graphed_by_backend']}, "
+                f"variants {g['variants']}, host launches "
+                f"{g['host_launches']}")
+    rel = []
+    for i, (a, b) in enumerate(zip(o["off_steps"], one_off)):
+        rel.append({k: float((a[k].cpu() - b[k].cpu()).abs()
+                             / b[k].cpu().abs().clamp_min(1e-30))
+                    for k in ("loss", "loss_2d", "grad_norm")})
+    print(f"# {what}: graphed bit-equal to eager {o['bit_equal']} (gaps "
+          f"{o['gaps'] if not o['bit_equal'] else {}}); collectives a step "
+          f"{want}; without occlusion against one card, relative by step "
+          f"{rel}")
+    require(rel[0]["loss"] <= S7_WARMUP_RTOL
+            and rel[0]["grad_norm"] <= S7_2D_RTOL
+            and all(x["loss"] <= S7_POST_RTOL for x in rel),
+            f"{what}: against one card {rel}")
+    return {"bit_equal": o["bit_equal"], "gaps": o["gaps"],
+            "vs_one_card": rel,
+            "graphed_by_rank": [x["graphed"] for x in outs],
+            "eager_by_rank": [x["eager"] for x in outs]}
+
+
+def s18_check_loops(world, outs, roots, name):
+    """c: by segments, stacked epochs and batch by batch: every rank's
+    history equal; segments bit-equal to stacked epochs and to the
+    per-batch path (or within S7_* of it, the gaps printed); the segment
+    path logged with its graphs; one checkpoint set in each shared root;
+    2 K1 + 1 K2 an epoch a rank."""
+    import os
+    what = f"phase 18 c, world {world}"
+    hists = {}
+    for path, _ in S18_LOOP_PATHS:
+        runs = [o[f"loop {path}"] for o in outs]
+        h0 = runs[0]["history"]
+        keys = [k for k in h0 if not k.endswith("_per_sec")]
+        for r, x in enumerate(runs):
+            require(all(x["history"][k] == h0[k] for k in keys),
+                    f"{what} {path}: rank {r}'s history differs")
+            require_counts(x["launches"], S7_EPOCHS, 2, 1, 0,
+                           f"{what} {path} rank {r}")
+        files = sorted(os.listdir(os.path.join(roots[path], name)))
+        require(os.listdir(roots[path]) == [name]
+                and {"latest.opt.pt", "latest.pth"} <= set(files),
+                f"{what} {path}: the shared root holds {files}")
+        hists[path] = h0
+    logged = [o["loop segments"]["path"] for o in outs]
+    want_path = (f"segments under a {world} x 1 mesh (nccl: each step "
+                 f"replays a CUDA graph with its collectives); eval stacked")
+    require(all(p == [want_path] for p in logged),
+            f"{what}: the ranks logged {logged}")
+    seg = hists["segments"]
+    keys = [k for k in seg if not k.endswith("_per_sec")]
+    eq_ep = all(seg[k] == hists["epochs"][k] for k in keys)
+    eq_pb = all(seg[k] == hists["per_batch"][k] for k in keys)
+    require(eq_ep, f"{what}: segments {seg} / stacked epochs "
+                   f"{hists['epochs']}")
+    errs = None
+    if not eq_pb:
+        errs, _ = _vs_one_process(seg, hists["per_batch"],
+                                  f"{what} segments vs per-batch")
+    print(f"# {what}: loop_cdr.run by segments bit-equal to stacked epochs "
+          f"{eq_ep}, to the per-batch path {eq_pb} ({errs}); logged "
+          f"{logged[0]}; epochs "
+          + "; ".join(f"{p} " + ", ".join(f"{s:.2f}" for s in
+                                          outs[0][f'loop {p}']['epoch_s'])
+                      for p, _ in S18_LOOP_PATHS) + " s (rank 0)")
+    return {"segments_equal_epochs": eq_ep, "segments_equal_per_batch": eq_pb,
+            "vs_per_batch": errs, "history": seg,
+            "epoch_s": {p: [o[f"loop {p}"]["epoch_s"] for o in outs]
+                        for p, _ in S18_LOOP_PATHS},
+            "collectives_rank0": {p: outs[0][f"loop {p}"]["counts"]
+                                  for p, _ in S18_LOOP_PATHS},
+            "launches_by_rank": {p: [o[f"loop {p}"]["launches"] for o in outs]
+                                 for p, _ in S18_LOOP_PATHS}}
+
+
+def run_slice12(dev, smi):
+    """Phase 18: the stacked epochs, segments and loops under NCCL across
+    cards, one rank a card: world 4, then world 2 on cards 0-1, then
+    torchrun's train_cdr over 4 ranks by segments. This process builds
+    the global stacked epoch and runs one card's references on cuda:0
+    while the first launch's ranks start; the ranks begin at `go`."""
+    import os
+    from fast3dhpe_tpu_torch.config import load_config
+    from fast3dhpe_tpu_torch.data.loader import load_data
+    from fast3dhpe_tpu_torch.models.losses import make_loss
+    t0 = time.perf_counter()
+    out = {"seconds": {}}
+    with tempfile.TemporaryDirectory() as work:
+        mads = s7_tree(work)
+        epoch_cfg = s16_cfg(work, mads, "s18")
+        cfg = load_config(epoch_cfg)
+        s18_shapes_checked(cfg.MODEL.IMAGE_SIZE[0], cfg.MODEL.NUM_JOINTS)
+        tl, vl = load_data(cfg, seed=SEED, device=dev)
+        try:
+            cache = tl.ensure_device_cache()
+            require(cache is not None and not cache.partial,
+                    "phase 18: the tree is not whole on the card")
+            xs = s16_stacked(tl, S16_STEPS, S16_PAD)
+            paths = sorted(cache._row_of, key=cache._row_of.get)
+        finally:
+            tl.close()
+            vl.close()
+        torch.save({"xs": xs, "paths": paths},
+                   os.path.join(work, "inputs.pt"))
+        jobs, roots = {}, {}
+        for w in S18_WORLDS:
+            pairs = S16_BATCH // w
+            jobs[w] = [{"name": "epoch", "kind": "s18 epoch"},
+                       {"name": "segment", "kind": "s18 segment",
+                        "cfg": s18_cfg(work, mads, pairs, f"seg{w}")}]
+            for path, kw in S18_LOOP_PATHS:
+                roots[w, path] = os.path.join(work, f"w18_{w}_{path}")
+                jobs[w].append({"name": f"loop {path}", "kind": "loop",
+                                "m": 1, "kw": kw, "root": roots[w, path],
+                                "cfg": s18_cfg(work, mads, pairs,
+                                               f"loop{w}")})
+        roots["2x2"] = os.path.join(work, "w18_2x2")
+        jobs[4].append({"name": "loop 2x2", "kind": "loop", "m": 2,
+                        "root": roots["2x2"],
+                        "cfg": s18_cfg(work, mads, S16_BATCH // 2,
+                                       "loop2x2")})
+        cpu = dev.type == "cpu"     # a rehearsal: gloo ranks on the CPU
+        spec = {"backend": "gloo" if cpu else "nccl",
+                "device": "cpu" if cpu else "cuda", "exchange": None,
+                "epoch_cfg": epoch_cfg}
+        procs = s10_launch(work, "s18w4", 4, dict(spec, jobs=jobs[4]))
+        try:
+            t = time.perf_counter()
+            loss = make_loss(cfg.LOSS.TYPE, cfg.LOSS.USE_TARGET_WEIGHT)
+            kw = dict(loss_3d_weight=cfg.TRAIN.LOSS_3D_WEIGHT,
+                      num_joints=cfg.MODEL.NUM_JOINTS)
+            with _Deterministic():
+                one = s16_epoch_run(cfg, cache.frames, xs, dev,
+                                    torch.float32, loss, kw, True,
+                                    what="phase 18, one card")
+                cfg.DATASET.OCCLUSION = "None"
+                one_off = s16_epoch_run(cfg, cache.frames, xs, dev,
+                                        torch.float32, loss, kw, True,
+                                        timed=False, use_3d=False,
+                                        what="phase 18, one card")["steps"]
+            del cache
+            torch.cuda.empty_cache()
+            out["seconds"]["one card"] = time.perf_counter() - t
+        except BaseException:
+            for p, _ in procs:
+                p.kill()
+            raise
+        open(os.path.join(work, "go"), "w").close()
+        outs = {}
+        for w in S18_WORLDS:
+            t = time.perf_counter()
+            if w != 4:      # `go` stands: these ranks start at once
+                procs = s10_launch(work, f"s18w{w}", w,
+                                   dict(spec, jobs=jobs[w]))
+            s10_finish(procs, f"phase 18 world {w}")
+            outs[w] = [torch.load(os.path.join(work, f"out_s18w{w}_{r}.pt"),
+                                  weights_only=False) for r in range(w)]
+            out["seconds"][f"world {w}"] = time.perf_counter() - t
+        t = time.perf_counter()
+        cli_cfg = s18_cfg(work, mads, S16_BATCH // 4, "cli12", epochs=1)
+        cli = s10_cli(work, mads, 4, dev.type, cfg=cli_cfg, name="cli12")
+        out["seconds"]["cli"] = time.perf_counter() - t
+        n_bn = sum(1 for k in one["snap"] if k.endswith("running_mean"))
+        out["one card"] = _strip(one)
+        for w in S18_WORLDS:
+            ranks = outs[w]
+            s18_timing_line(w, one, [o["epoch"] for o in ranks])
+            out[f"world {w}"] = {
+                "epoch": s18_check_epochs(w, [o["epoch"] for o in ranks],
+                                          one_off, n_bn),
+                "segment": [o["segment"] for o in ranks],
+                "loops": s18_check_loops(
+                    w, ranks, {p: roots[w, p] for p, _ in S18_LOOP_PATHS},
+                    f"loop{w}"),
+                "init_s": [o["init_s"] for o in ranks]}
+        loops = [o["loop 2x2"] for o in outs[4]]
+        h0 = loops[0]["history"]
+        same = [loops[2 * d]["digest"] == loops[2 * d + 1]["digest"]
+                for d in (0, 1)]
+        want_path = ("segments under a 2 x 2 mesh (nccl: each step replays "
+                     "a CUDA graph with its collectives); eval stacked")
+        for r, o in enumerate(loops):
+            require(o["mesh"] == (r // 2, 2, r % 2, 2) and not o["spatial"]
+                    and all(o["history"][k] == h0[k] for k in h0
+                            if not k.endswith("_per_sec"))
+                    and o["path"] == [want_path],
+                    f"phase 18 d, 2 x 2 rank {r}: mesh {o['mesh']}, path "
+                    f"{o['path']}, history {o['history']} / {h0}")
+            require_counts(o["launches"], S7_EPOCHS, 2, 1, 0,
+                           f"phase 18 d, 2 x 2 rank {r}")
+        require(all(same), f"phase 18 d: the model ranks' final weights "
+                           f"differ (by data group {same})")
+        print(f"# phase 18 d, loop_cdr.run on a 2 x 2 mesh by segments: the "
+              f"model ranks' final weights bit-equal by data group {same}; "
+              f"logged {loops[0]['path']}; history {h0}")
+        out["2x2"] = {"model_ranks_bit_equal": same, "history": h0,
+                      "path": loops[0]["path"],
+                      "launches_by_rank": [o["launches"] for o in loops]}
+        want_cli = ("segments under a 4 x 1 mesh (nccl: each step replays a "
+                    "CUDA graph with its collectives); eval stacked")
+        print(f"# phase 18 e, torchrun train_cdr over 4 ranks: logged "
+              f"{cli['path']}")
+        require(cli["path"] == want_cli,
+                f"phase 18 e: torchrun's train_cdr logged {cli['path']}")
+        out["cli"] = cli
+    out["launches"] = {
+        "one card": one["launches"],
+        **{f"world {w} rank {r}, {job}": o[job]["launches"]
+           for w in S18_WORLDS for r, o in enumerate(outs[w])
+           for job in ("segment",) + tuple(f"loop {p}" for p, _ in
+                                           S18_LOOP_PATHS)},
+        **{f"world {w} rank {r}, epoch {way}":
+           o["epoch"][way]["launches"] for w in S18_WORLDS
+           for r, o in enumerate(outs[w]) for way in ("graphed", "eager")},
+        **{f"2 x 2 rank {r}": n
+           for r, n in enumerate(out["2x2"]["launches_by_rank"])}}
+    out["seconds"]["phase"] = time.perf_counter() - t0
+    print(f"# slice 12 across cards ({smi}): {out['seconds']}")
+    return out
 
 # ------------------------------------------------------------------ timing
 
@@ -6873,6 +7668,32 @@ def profile_train(train, wall_ms):
             "conv_tflop": conv_flop / 1e12}
 
 
+def kernel_lines(errs, times, paths):
+    """The {"kernels": [...]} entries of K1, K2 and K3: each kernel's
+    error against its plain version (step 2), its timings (step 4) and its
+    launches by path, {path: {counter: launches}}, summed."""
+    meta = (("soft_argmax_fwd", "fast3dhpe_tpu_torch/csrc/softargmax.cu",
+             "fast3dhpe_tpu/ops/pallas_softargmax.py:64", "soft_argmax", {}),
+            ("soft_argmax_bwd", "fast3dhpe_tpu_torch/csrc/softargmax.cu",
+             "fast3dhpe_tpu/ops/pallas_softargmax.py:79", "soft_argmax_bwd",
+             {}),
+            ("fused_bottleneck",
+             "fast3dhpe_tpu_torch/csrc/fused_bottleneck.cu",
+             "fast3dhpe_tpu/ops/pallas_bottleneck.py:191",
+             "fused_bottleneck",
+             {"shape": f"one forward's launches at {2 * TIMING_PAIRS} "
+                       f"images: layer1.0 + 3 x layer2.x"}))
+    out = []
+    for (name, source, replaces, key, extra), err, t in zip(meta, errs,
+                                                            times):
+        by_path = {p: n[key] for p, n in paths.items()}
+        out.append(dict(name=name, route="cuda", source=source,
+                        replaces=replaces, max_abs_err=err, **extra,
+                        launches=sum(by_path.values()),
+                        launches_by_path=by_path, **t))
+    return out
+
+
 def main():
     args = sys.argv[1:]
     # the processes that slice 7 starts (not in the usage text)
@@ -6892,19 +7713,27 @@ def main():
     if args[:1] == ["--s10-child"]:
         rank, world, port, work, launch = args[1:]
         return s10_child(int(rank), int(world), int(port), work, launch)
+    if args[:1] == ["--s17-child"]:
+        rank, world, port, cfg_path, roots, out = args[1:]
+        return s17_child(int(rank), int(world), int(port), cfg_path, roots,
+                         out)
     if args not in ([], ["--kernels"], ["--slice6"], ["--slice7"],
                     ["--slice8"], ["--slice9"], ["--slice10"],
-                    ["--slice11"]):
+                    ["--slice11"], ["--slice12"], ["--phase17"]):
         sys.exit("usage: python3 chip_smoke.py [--kernels | --slice6 | "
-                 "--slice7 | --slice8 | --slice9 | --slice10 | --slice11]")
+                 "--slice7 | --slice8 | --slice9 | --slice10 | --slice11 | "
+                 "--slice12 | --phase17]")
     kernels_only = args == ["--kernels"]
+    many = args in (["--slice10"], ["--slice12"])
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs a CUDA device")
-    if args == ["--slice10"] and torch.cuda.device_count() < S10_CARDS:
-        sys.exit(f"chip_smoke --slice10: phase 15 needs {S10_CARDS} CUDA "
-                 f"devices, one NCCL rank a card (NCCL refuses two ranks on "
-                 f"one card); this host has {torch.cuda.device_count()}")
+    if many and torch.cuda.device_count() < S10_CARDS:
+        sys.exit(f"chip_smoke {args[0]}: it needs {S10_CARDS} CUDA devices, "
+                 f"one NCCL rank a card (NCCL refuses two ranks on one "
+                 f"card); this host has {torch.cuda.device_count()}: "
+                 + "; ".join(torch.cuda.get_device_name(i) for i in
+                             range(torch.cuda.device_count())))
     check_apis()
     from fast3dhpe_tpu_torch.config import load_config
     from fast3dhpe_tpu_torch.ops._build import build
@@ -6915,9 +7744,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()
     smi = cards[0]
-    if args == ["--slice10"]:
+    if many:
         smi = "; ".join(cards)
-    print("\n".join(cards if args == ["--slice10"] else cards[:1]))
+    print("\n".join(cards if many else cards[:1]))
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     # fp32 references and the fp32 train step run in full fp32
@@ -6953,6 +7782,29 @@ def main():
         print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
                                            for k, v in phases.items()))
         print(json.dumps({"kernel_times": times}))
+        return
+    if args == ["--slice12"]:
+        k1 = phase("K1 timing", time_softargmax, dev, gen)
+        k2 = phase("K2 timing", time_softargmax_bwd, dev, gen)
+        k3 = phase("K3 timing", time_bottleneck, dev, gen)
+        s12 = phase("slice 12 across cards", run_slice12, dev, smi)
+        print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in phases.items()))
+        print(f"# total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"slice12": s12}))
+        print(json.dumps({"kernels": kernel_lines(
+            (err_k1, err_k2, err_k3), (k1, k2, k3),
+            {f"slice 12, {k}": n for k, n in s12["launches"].items()})}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    if args == ["--phase17"]:
+        s12 = phase("slice 12, one card", run_slice12_card, dev, smi)
+        print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in phases.items()))
+        print(f"# total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"slice12": s12}))
         return
 
     cfg = load_config("configs/mads_3d.yaml")
@@ -7052,6 +7904,8 @@ def main():
     s9 = phase("slice 9", run_slice9, dev, smi)
     torch.cuda.empty_cache()
     s11 = phase("slice 11", run_slice11, dev, smi)
+    torch.cuda.empty_cache()
+    s12 = phase("slice 12, one card", run_slice12_card, dev, smi)
 
     def launch_counts(key):
         by_path = {"serving": serve_launches[key],
@@ -7081,26 +7935,14 @@ def main():
         by_path["slice 9, 1 process"] = s9["one_process_launches"][key]
         by_path.update({f"slice 11, {k}": n[key]
                         for k, n in s11["launches"].items()})
-        return {"launches": sum(by_path.values()),
-                "launches_by_path": by_path}
+        return by_path
 
-    kernels = [
-        dict(name="soft_argmax_fwd", route="cuda",
-             source="fast3dhpe_tpu_torch/csrc/softargmax.cu",
-             replaces="fast3dhpe_tpu/ops/pallas_softargmax.py:64",
-             max_abs_err=err_k1, **launch_counts("soft_argmax"), **k1),
-        dict(name="soft_argmax_bwd", route="cuda",
-             source="fast3dhpe_tpu_torch/csrc/softargmax.cu",
-             replaces="fast3dhpe_tpu/ops/pallas_softargmax.py:79",
-             max_abs_err=err_k2, **launch_counts("soft_argmax_bwd"), **k2),
-        dict(name="fused_bottleneck", route="cuda",
-             source="fast3dhpe_tpu_torch/csrc/fused_bottleneck.cu",
-             replaces="fast3dhpe_tpu/ops/pallas_bottleneck.py:191",
-             max_abs_err=err_k3,
-             shape=(f"one forward's launches at {2 * TIMING_PAIRS} images: "
-                    f"layer1.0 + 3 x layer2.x"),
-             **launch_counts("fused_bottleneck"), **k3),
-    ]
+    paths = {}
+    for key in ("soft_argmax", "soft_argmax_bwd", "fused_bottleneck"):
+        for path, n in launch_counts(key).items():
+            paths.setdefault(path, {})[key] = n
+    paths.update({f"slice 12, {k}": n for k, n in s12["launches"].items()})
+    kernels = kernel_lines((err_k1, err_k2, err_k3), (k1, k2, k3), paths)
     print(json.dumps({"serving": {str(k): v for k, v in serving.items()},
                       "profile": prof}))
     print(json.dumps({"train": train_summary, "train_profile": train_prof,
@@ -7118,6 +7960,7 @@ def main():
     print(json.dumps({"slice8": s8}))
     print(json.dumps({"slice9": s9}))
     print(json.dumps({"slice11": s11}))
+    print(json.dumps({"slice12": s12}))
     print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phases.items()))
     print(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -4,7 +4,11 @@ train_cdr.py), and the call into a loop through run_with_retries.
 Under torchrun (`torchrun --nproc_per_node N -m
 fast3dhpe_tpu_torch.apps.train_cdr ...`) each process joins the process
 group (NCCL on cuda:LOCAL_RANK; gloo with --device cpu), trains on its
-shard through the mesh, and leaves the group on exit."""
+shard through the mesh, and leaves the group on exit. The path flags
+(--no_segments, --per_batch) choose the path there as in one process:
+with DEVICE_CACHE_BYTES holding every rank's shard, segments by default,
+each step a CUDA graph with its collectives under NCCL; the loop logs
+the path it takes."""
 
 from __future__ import annotations
 
@@ -59,12 +63,13 @@ def parse_and_run(run_fn, default_config: str, description: str,
                         help="keep stacked epochs (one train and one eval "
                              "call an epoch) instead of segments of "
                              "epochs with the best state selected on the "
-                             "device; --retries reaches this on the "
-                             "second retry")
+                             "device, in one process or under torchrun; "
+                             "--retries reaches this on the second retry")
     parser.add_argument("--per_batch", action="store_true",
                         help="iterate the loader batch by batch even when "
-                             "the device cache holds the dataset "
-                             "(scan_epochs=False, no segments)")
+                             "the device cache holds the dataset (every "
+                             "rank's shard under torchrun; "
+                             "scan_epochs=False, no segments)")
     parser.add_argument("--segment_epochs", type=int, default=None,
                         help="epochs a segment at most (default and upper "
                              "bound: --checkpoint_every); checkpoints "

@@ -32,9 +32,9 @@ with row_valid 0. The shard is the data index under `mesh=`
 (parallel/mesh.py, the JAX API's argument: mesh.rank of mesh.size), so
 that the M model ranks of a data group load the same rows, and the
 process group's rank of its world without a mesh, as the JAX loaders'
-follows jax.process_count(). The device frame cache is off when there are
-several data shards, whose frames differ; `mesh=` puts the batches on the
-mesh's device in place of `device` and keeps the device cache whole.
+follows jax.process_count(). Under several data shards each rank's
+device frame cache holds its own shard's frames, whole or not at all;
+`mesh=` puts the batches on the mesh's device in place of `device`.
 """
 
 from __future__ import annotations
@@ -377,26 +377,36 @@ class _LoaderBase:
                                   self.batch_size, rng, self.train)
 
     def _build_cache(self, paths, pair_stride):
-        """DeviceFrameCache of `paths` on the loader's device, partial when
-        over budget and there is no mesh; None (recorded) when there is no
-        budget, the frames have mixed sizes, or several data shards hold
-        other records (logged)."""
+        """DeviceFrameCache of `paths` (this rank's records) on the
+        loader's device, partial when over budget in a single process;
+        None (recorded) when there is no budget, the frames have mixed
+        sizes, or, under several processes or a mesh, they do not all fit.
+
+        Under D > 1 data shards each rank caches its own shard's frames,
+        1/D of them: the JAX package replicates one global cache over its
+        devices, which a process that holds only its own records cannot
+        assemble, so it turns the cache off there; a rank's cache here is
+        its own tensor. The decision is logged once, with the frames and
+        bytes. A partial cache's lanes are a single-process schedule, as
+        in the JAX package (loader.py:400-405)."""
         if self._device_cache is not None or self._device_cache_failed:
             return self._device_cache
         cache = None
-        shards = _data_shard(self.mesh)[1]
-        if self._device_cache_budget and shards > 1:
-            setup_logger().info(
-                "%s: device frame cache off under %d data shards: each "
-                "holds other frames, so the batches are made from the host",
-                self.image_set, shards)
-        elif self._device_cache_budget:
-            # a partial cache's lanes are a single-process schedule, as in
-            # the JAX package (loader.py:400-405)
+        index, shards = _data_shard(self.mesh)
+        if self._device_cache_budget:
             cache = DeviceFrameCache.build(
                 paths, self._decode_paths, self._device_cache_budget,
-                allow_partial=self.mesh is None, pair_stride=pair_stride,
-                device=self.device, mesh=self.mesh)
+                allow_partial=self.mesh is None and shards == 1,
+                pair_stride=pair_stride, device=self.device, mesh=self.mesh)
+            if shards > 1:
+                n = len(dict.fromkeys(paths))
+                setup_logger().info(
+                    "%s: data shard %d of %d caches its own %d frames on "
+                    "%s: %s", self.image_set, index, shards, n, self.device,
+                    "none (they exceed DEVICE_CACHE_BYTES, have mixed "
+                    "sizes, or the shard is empty)" if cache is None else
+                    f"{cache.frames.shape[0]} rows, "
+                    f"{cache.nbytes / 2 ** 20:.1f} MiB")
         self._device_cache = cache
         self._device_cache_failed = cache is None
         return cache

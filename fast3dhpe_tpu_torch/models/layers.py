@@ -107,7 +107,9 @@ class _MaskedBatchNorm(torch.autograd.Function):
             s1, s2 = xm.sum(dims), (xm * xf).sum(dims)
         if group is not None:
             if mask is None:
-                count = torch.tensor(float(count), device=x.device)
+                # a fill: a CUDA graph of the step captures it
+                count = torch.full((), float(count), dtype=torch.float32,
+                                   device=x.device)
             s1, s2, count = all_reduce(group, [s1, s2, count.reshape(1)],
                                        "bn forward")
             count = count.reshape(())

@@ -17,6 +17,7 @@ from .mesh import (  # noqa: F401
     replicate,
     shard_batch,
     shard_batch_spatial,
+    shard_stacked,
     spatial_sharding,
 )
 from .spatial import (  # noqa: F401

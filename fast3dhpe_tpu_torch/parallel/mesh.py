@@ -17,7 +17,10 @@ exactly what the global program reduces:
 
 Every reduction is one `all_reduce` of one packed tensor (per dtype);
 replication is a `broadcast`, and the loops order their writes by a
-`barrier`. A spatial mesh exchanges rows between its model ranks in one
+`barrier`. A collective may be captured into a CUDA graph
+(train/graphs.py) only on a group that has already run one eagerly, so
+that its NCCL communicator exists: a captured collective on any other
+group raises. A spatial mesh exchanges rows between its model ranks in one
 of two forms, recorded once, when make_mesh builds it, as
 `Mesh.exchange` (parallel/spatial.py does the exchanges):
 
@@ -46,9 +49,13 @@ JAX names and what they are here:
     counterpart. PyTorch has no sharding annotations: a rank's tensors are
     its shard by construction, replication is `replicate`, and a process
     drives one device (Mesh.device), not a list of them.
-  shard_stacked: not yet ported (ROADMAP A18). It feeds the JAX scan
-    epochs and segments under a mesh; under a process group the port's
-    loops take the per-batch path.
+  shard_stacked: below. JAX places one global (S, B, ...) stack on the
+    mesh with the batch axis sharded over "data"; here it cuts this
+    rank's block of rows from such a stack. The loops need no cut: a
+    rank's loader stacks its own record shard, which is that block
+    (data/loader.py), so the stacked epochs and segments run under a
+    mesh as they run alone (train/steps.py), each step's collectives
+    captured in its CUDA graph under NCCL (train/graphs.py).
   make_mesh(model_parallel=M), spatial_sharding, shard_batch_spatial:
     spatial partitioning, the image height split over a "model" axis of M
     ranks (below, and parallel/spatial.py for the exchanges). The D*M
@@ -72,6 +79,7 @@ from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -80,8 +88,9 @@ from . import distributed
 
 #: collectives issued since a caller last cleared it, by kind ("bn
 #: forward", "bn backward", "rows", "gradients", "metrics", "broadcast",
-#: "barrier"; on a spatial mesh "halo", "keypoints", "gather"), as the
-#: kernel wrappers count their launches
+#: "barrier", "plan", "capture"; on a spatial mesh "halo", "keypoints",
+#: "gather"), as the kernel wrappers count their launches; a CUDA graph
+#: adds its step's at each replay (train/graphs.py)
 COUNTS: Counter = Counter()
 #: the bytes this rank hands to those collectives, by the same kinds: an
 #: all_reduce's or broadcast's whole packed tensor, what a neighbour
@@ -91,6 +100,26 @@ COUNTS_BYTES: Counter = Counter()
 #: Mesh.exchange: the spatial exchanges' form by the process group's
 #: backend (parallel/spatial.py)
 EXCHANGES = {"nccl": "neighbours", "gloo": "slots"}
+
+# id -> group of every process group that has run a collective eagerly
+# (the group is held, so that its id is not reused by another)
+_FORMED: Dict[int, object] = {}
+
+
+def _issue(group) -> None:
+    """Record an eager collective on `group`; inside a CUDA graph capture
+    refuse a group that has run none, whose NCCL communicator may not
+    exist yet (forming one allocates and synchronises, which a capture
+    cannot hold)."""
+    g = dist.group.WORLD if group is None else group
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        if id(g) not in _FORMED:
+            raise RuntimeError(
+                "a collective captured into a CUDA graph on a process group "
+                "that has run no collective eagerly: its communicator must "
+                "be formed before the capture (run the step once eagerly)")
+    else:
+        _FORMED[id(g)] = g
 
 
 @dataclass(frozen=True)
@@ -198,6 +227,7 @@ def all_reduce(group, tensors: Sequence[torch.Tensor], kind: str
     flat = _pack(tensors)
     COUNTS[kind] += 1
     COUNTS_BYTES[kind] += flat.numel() * flat.element_size()
+    _issue(group)
     dist.all_reduce(flat, group=group)
     return _unpack(flat, tensors)
 
@@ -217,6 +247,7 @@ def all_gather(group, tensor: torch.Tensor, kind: str) -> torch.Tensor:
                       device=tensor.device)
     COUNTS[kind] += 1
     COUNTS_BYTES[kind] += mine.numel()
+    _issue(group)
     _all_gather_single(out, mine, group=group)
     return out.view(tensor.dtype).view(n, *tensor.shape)
 
@@ -230,9 +261,26 @@ def broadcast_(group, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
         flat = _pack(ts)
         COUNTS["broadcast"] += 1
         COUNTS_BYTES["broadcast"] += flat.numel() * flat.element_size()
+        _issue(group)
         dist.broadcast(flat, src=src, group=group)
         for t, s in zip(ts, _unpack(flat, ts)):
             t.copy_(s)
+
+
+def world_rows(mesh: Mesh, values: Sequence[int], kind: str) -> np.ndarray:
+    """Every rank's `values` (the same count of ints on every rank), as a
+    (world size, k) int64 array in global rank order: one all_reduce of
+    zeroed slots over the whole world, each rank's row its own. The loops
+    agree a run's path and counts by it, the graphs a capture's outcome;
+    the caller derives a MIN, a MAX or a SUM from the rows."""
+    rows = torch.zeros((dist.get_world_size(), len(values)),
+                       dtype=torch.int64, device=mesh.device)
+    rows[dist.get_rank()] = torch.as_tensor(list(values), dtype=torch.int64)
+    COUNTS[kind] += 1
+    COUNTS_BYTES[kind] += rows.numel() * rows.element_size()
+    _issue(None)
+    dist.all_reduce(rows)
+    return rows.cpu().numpy()
 
 
 def barrier(mesh: Optional[Mesh]) -> None:
@@ -278,15 +326,41 @@ def shard_batch(mesh: Mesh, batch) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(mesh.device) for k, v in batch.items()}
 
 
+def shard_stacked(mesh: Mesh, tree, lead: int = 1):
+    """This rank's block of the batch axis of stacked-epoch arrays, on its
+    device: JAX's shard_stacked, which shards axis `lead` (after `lead`
+    scan axes: 1 for an epoch's (S, B, ...), 2 for a segment's
+    (E, S, B, ...)) over "data", so that device i of D holds rows
+    [i * B / D, (i + 1) * B / D). Here D is mesh.size and i the data index
+    mesh.rank, so the M model ranks of a data group get the same rows.
+    tree: a dict of arrays or tensors (nested dicts too). A batch axis
+    that D does not divide raises ValueError, as JAX's device_put does."""
+
+    def block(v):
+        t = torch.as_tensor(v)
+        n = t.shape[lead]
+        if n % mesh.size:
+            raise ValueError(f"shard_stacked: the batch axis (axis {lead}) "
+                             f"holds {n} rows, which {mesh.size} data "
+                             f"shards do not divide")
+        per = n // mesh.size
+        return t.narrow(lead, mesh.rank * per, per).contiguous().to(
+            mesh.device)
+
+    return {k: shard_stacked(mesh, v, lead) if isinstance(v, dict)
+            else block(v) for k, v in tree.items()}
+
+
 def row_counts(mesh: Optional[Mesh], row_valid, n_rows: int, device):
     """(valid rows, rows) of the global batch as 0-d fp32 tensors, one
     all_reduce; None without a mesh (the local batch is the global one)."""
     if mesh is None:
         return None
+    # fills, not tensors from host data: a CUDA graph captures the step
+    total = torch.full((), float(n_rows), dtype=torch.float32, device=device)
     valid = (torch.as_tensor(row_valid, device=device).float().sum()
-             if row_valid is not None
-             else torch.tensor(float(n_rows), device=device))
-    counts = torch.stack([valid, torch.tensor(float(n_rows), device=device)])
+             if row_valid is not None else total)
+    counts = torch.stack([valid, total])
     valid, total = all_reduce(mesh.group, [counts], "rows")[0]
     return valid, total
 

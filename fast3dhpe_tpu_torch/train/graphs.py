@@ -39,6 +39,21 @@ What the capture holds, and what the host does around a replay:
 - outputs: the step's metrics, static tensors, added into the epoch's
   sums after each replay (one foreach launch).
 
+Under a process group (`mesh=`, parallel/mesh.py) the choice is the
+backend's, made once when the epoch function is built and exposed as
+`graphed`: under NCCL the steps are captured with their collectives (the
+row counts, every BN's forward and backward reduction, the gradient and
+the metrics), which each replay runs; under gloo, which runs its
+collectives through the host (ranks sharing a card, or the CPU), a step
+cannot be captured and every step runs eagerly. The eager first step
+forms the communicators of the groups the step uses, which a capture
+needs (parallel/mesh.py refuses a captured collective on a group that
+ran none eagerly). The collective counters (mesh.COUNTS, COUNTS_BYTES)
+are treated as the launch counters are. After each capture every rank
+reports its outcome in one eager collective over the world, so that a
+capture that failed on one rank raises GraphCaptureError on all of
+them, naming it, instead of leaving the others to replay into a wait.
+
 All graphs of a device share one memory pool. A graph's outputs are read
 right after its replay, before any other graph of the pool replays,
 since their temporaries may share memory. A variant is captured anew for
@@ -52,8 +67,12 @@ train/resilience.py does not retry.
 from __future__ import annotations
 
 import time
+from collections import Counter
 
 import torch
+import torch.distributed as dist
+
+from ..parallel import mesh as pmesh
 
 
 class GraphCaptureError(RuntimeError):
@@ -126,22 +145,31 @@ def _same(a, b):
 
 
 class _Graph:
-    def __init__(self, graph, outs, feed, gen, counts, owner):
+    def __init__(self, graph, outs, feed, gen, counts, collectives, owner):
         self.graph, self.outs, self.feed, self.gen = graph, outs, feed, gen
         self.counts, self.owner = counts, owner
+        # the collectives (by kind) and their bytes that a replay runs
+        self.collectives = collectives
 
     def replay(self):
         self.graph.replay()
         for c, n in zip(_counters(), self.counts):
             c.launches += n
+        for total, n in zip((pmesh.COUNTS, pmesh.COUNTS_BYTES),
+                            self.collectives):
+            total.update(n)
 
 
 class StepGraphs:
     """The captured variants of one epoch function (module docstring).
-    graphed=False runs every step eagerly on CUDA too."""
+    graphed=False runs every step eagerly on CUDA too; under a mesh
+    whose backend is not NCCL the steps run eagerly whatever graphed
+    says (`graphed` then reads False, and `backend` names it)."""
 
-    def __init__(self, graphed: bool = True):
-        self.graphed = graphed
+    def __init__(self, graphed: bool = True, mesh=None):
+        self.mesh = mesh
+        self.backend = None if mesh is None else dist.get_backend(mesh.group)
+        self.graphed = graphed and self.backend in (None, "nccl")
         self._graphs = {}
         self._warmed = {}          # variant -> the owner it warmed up for
         self._stream = None
@@ -242,19 +270,36 @@ class StepGraphs:
             graph.register_generator_state(gen)
         counters = _counters()
         before = [c.launches for c in counters]
+        totals = (pmesh.COUNTS, pmesh.COUNTS_BYTES)
+        kept = [Counter(t) for t in totals]
+        err = None
         try:
+            # thread_local: NCCL's watchdog thread queries its events
+            # while this thread captures
             with torch.cuda.graph(graph, pool=_pool(dev), stream=self._stream,
                                   capture_error_mode="thread_local"):
                 m = fn(feed.row(), gen,
                        None if state is None else state.optimizer.step)
                 feed.counter.add_(1)
         except Exception as e:
-            raise GraphCaptureError(
-                f"capturing the step {full[0]} into a CUDA graph failed: "
-                f"{type(e).__name__}: {e}") from e
+            err = e
         finally:
             counts = [c.launches - b for c, b in zip(counters, before)]
             for c, b in zip(counters, before):
                 c.launches = b
+            collectives = [t - k for t, k in zip(totals, kept)]
+            for t, k in zip(totals, kept):
+                t.clear()
+                t.update(k)
+        failed = [0] if err is not None else []
+        if self.mesh is not None:
+            rows = pmesh.world_rows(self.mesh, [err is not None], "capture")
+            failed = [r for r, (f,) in enumerate(rows.tolist()) if f]
+        if failed:
+            where = "" if self.mesh is None else f" on rank(s) {failed}"
+            said = "" if err is None else f": {type(err).__name__}: {err}"
+            raise GraphCaptureError(
+                f"capturing the step {full[0]} into a CUDA graph failed"
+                f"{where}{said}") from err
         self.capture_s += time.perf_counter() - t0
-        return _Graph(graph, dict(m), feed, gen, counts, owner)
+        return _Graph(graph, dict(m), feed, gen, counts, collectives, owner)

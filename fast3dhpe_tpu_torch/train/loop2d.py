@@ -34,9 +34,19 @@ batch's (train/steps.py), so the history and the best decisions are the
 same on every rank. A (D, M) mesh with M > 1 means what the JAX loop makes
 of it: D data shards of whole images, each replicated over its M model
 ranks, which load the same records and run the same steps (their
-histories and weights agree bit for bit). Epochs then run batch by
-batch, and segments are off: the stacked epochs and segments are
-single-process (ROADMAP A18). Only rank 0 deletes or creates the model directory and
+histories and weights agree bit for bit). The stacked epochs and
+segments run under a mesh as alone: a rank's loader caches its own
+shard's frames and stacks its own rows of each step (data/loader.py),
+which are its block of the global stack that the JAX loops shard over
+the mesh (parallel/mesh.py shard_stacked), and every step is the global
+batch's. Under NCCL each step replays a CUDA graph that holds its
+collectives; under gloo the steps run eagerly (train/graphs.py). The
+ranks agree the path once a run (_plan): one collective over the world
+says whether every rank's caches hold its shard whole, so that all take
+the same path (a rank that took another would wait in its first
+collective for ever), and gives the global valid rows of an epoch, which
+the history's throughput counts; the throughput counts the global batch
+on every path. Only rank 0 deletes or creates the model directory and
 writes checkpoints (checkpoint.NullCheckpointWriter elsewhere); the
 directory is assumed shared by every host.
 """
@@ -57,7 +67,7 @@ from ..models.losses import make_loss
 from ..models.metrics import pck_from_counts
 from ..models.poseresnet import PoseResNet
 from ..parallel.distributed import process_index
-from ..parallel.mesh import barrier, mesh_device, replicate
+from ..parallel.mesh import barrier, mesh_device, replicate, world_rows
 from ..utils.interrupt import interruptible
 from ..utils.logging import setup_logger
 from ..utils.profiling import StepTracer, ThroughputMeter
@@ -230,20 +240,76 @@ def _load_pretrained(model, config, logger) -> None:
             strict=True)
 
 
-def _try_stacked(loader, epoch_fn, max_steps_per_epoch):
-    """(cache, xs, n_steps, n_valid_rows, epoch_index) when the device
-    cache holds the loader's whole dataset, else None (the per-batch loop,
-    which still uses a partial cache through its upload lane)."""
-    if epoch_fn is None:
-        return None
-    probe = loader.ensure_device_cache()
-    if probe is None or probe.partial:
+def _try_stacked(loader, whole, max_steps_per_epoch):
+    """(cache, xs, n_steps, epoch_index) of the loader's next stacked
+    epoch when the run stacks its epochs (`whole`: _plan's agreed word
+    that the device cache holds the loader's records), else None (the
+    per-batch loop, which still uses a partial cache through its upload
+    lane)."""
+    if not whole:
         return None
     cache, xs, ep_idx = loader.stacked_epoch()
     if max_steps_per_epoch is not None:
         xs = {k: v[:max_steps_per_epoch] for k, v in xs.items()}
-    return (cache, xs, xs["row_valid"].shape[0], int(xs["row_valid"].sum()),
-            ep_idx)
+    return cache, xs, xs["row_valid"].shape[0], ep_idx
+
+
+def _plan(mesh, loaders, stacking: bool, max_steps_per_epoch):
+    """Once a run, for the train and the valid loader: whether its device
+    cache holds its records whole (False for both when the run does not
+    stack its epochs), and the valid rows of one of its epochs, of the
+    global batch under a mesh (read only where the run stacks).
+
+    An epoch's valid rows are a prefix of its rows (the loaders pad the
+    last batch), so a rank holds min(its records, S * B) of them. Under a
+    mesh the ranks agree both in one collective over the world
+    (world_rows): whole only where every rank's cache is whole, so that
+    every rank takes the same path, and the rows summed over the data
+    shards (the M model ranks of a data index hold the same rows). It
+    raises ValueError, naming both, where two ranks' stacked epochs would
+    have different step counts, which would leave one waiting in its
+    collectives for ever."""
+    whole, steps, rows = [], [], []
+    for loader in loaders:
+        probe = loader.ensure_device_cache() if stacking else None
+        whole.append(probe is not None and not probe.partial)
+        n = len(loader)
+        if max_steps_per_epoch is not None:
+            n = min(n, max_steps_per_epoch)
+        steps.append(n)
+        rows.append(min(len(loader.records), n * loader.batch_size))
+    if mesh is None or not stacking:
+        return whole, rows
+    mine = rows if mesh.model_rank == 0 else [0] * len(rows)
+    got = world_rows(mesh, whole + steps + mine, "plan")
+    k = len(loaders)
+    for i, loader in enumerate(loaders):
+        lo, hi = int(got[:, k + i].min()), int(got[:, k + i].max())
+        if lo != hi:
+            raise ValueError(f"{loader.image_set}: the ranks' stacked "
+                             f"epochs hold {lo} and {hi} steps")
+    return ([bool(got[:, i].min()) for i in range(k)],
+            [int(got[:, 2 * k + i].sum()) for i in range(k)])
+
+
+def _log_path(logger, mesh, segment_fn, epoch_fn, whole) -> None:
+    """Name the run's path once: segments, stacked epochs or batches,
+    and under a mesh whether its steps replay CUDA graphs."""
+    if segment_fn is not None:
+        path, graphs = "segments", segment_fn.graphs
+    elif epoch_fn is not None and whole[0]:
+        path, graphs = "stacked epochs", epoch_fn.graphs
+    else:
+        path, graphs = "batch by batch", None
+    under = ""
+    if mesh is not None:
+        under = f" under a {mesh.size} x {mesh.model_size} mesh"
+        if graphs is not None:
+            under += (f" ({graphs.backend}: each step replays a CUDA graph "
+                      f"with its collectives)" if graphs.graphed else
+                      f" ({graphs.backend}: the steps run eagerly)")
+    logger.info("Training path: %s%s; eval %s", path, under,
+                "stacked" if whole[1] else "batch by batch")
 
 
 def run(config, mesh=None, overwrite: bool = False,
@@ -314,28 +380,25 @@ def run(config, mesh=None, overwrite: bool = False,
         valid_loader.close()
 
 
-def _scan_allowed(logger, scan_epochs, segments, log_every, trace_dir,
-                  mesh) -> bool:
+def _scan_allowed(logger, scan_epochs, segments, log_every,
+                  trace_dir) -> bool:
     """Whether stacked epochs (and so segments) may run: not for per-step
-    hooks, and not under a process group (ROADMAP A18)."""
+    hooks. Under a mesh too, every rank alike (_plan)."""
     allowed = (scan_epochs is not False and log_every is None
-               and trace_dir is None and mesh is None)
+               and trace_dir is None)
     if (scan_epochs or segments) and not allowed:
-        logger.info("scan_epochs=%s, segments=%s ignored: log_every, "
-                    "trace_dir and mesh need the per-batch loop",
-                    scan_epochs, segments)
+        logger.info("scan_epochs=%s, segments=%s ignored: log_every and "
+                    "trace_dir need the per-batch loop", scan_epochs,
+                    segments)
     return allowed
 
 
-def _segments_on(segments, train_epoch_fn, train_loader,
-                 valid_loader) -> bool:
+def _segments_on(segments, train_epoch_fn, whole) -> bool:
     """Segments run where stacked epochs do and both caches hold their
-    whole datasets, unless segments is False (the JAX loops' rule)."""
-    if segments is False or train_epoch_fn is None:
-        return False
-    probes = [loader.ensure_device_cache()
-              for loader in (train_loader, valid_loader)]
-    return all(p is not None and not p.partial for p in probes)
+    whole datasets (_plan's agreed `whole`), unless segments is False (the
+    JAX loops' rule)."""
+    return segments is not False and train_epoch_fn is not None and \
+        all(whole)
 
 
 def _train(config, train_loader, valid_loader, model_path, dev, logger,
@@ -370,15 +433,21 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
     eval_step = make_eval_step_2d(loss_fn, **mesh_kw)
 
     scan_allowed = _scan_allowed(logger, scan_epochs, segments, log_every,
-                                 trace_dir, mesh)
+                                 trace_dir)
     train_epoch_fn = eval_epoch_fn = segment_fn = None
     args = (loss_fn, config.MODEL.IMAGE_SIZE,
             config.MODEL.EXTRA.HEATMAP_SIZE, config.MODEL.EXTRA.SIGMA)
     if scan_allowed and (scan_epochs or config.DATASET.DEVICE_CACHE_BYTES):
-        train_epoch_fn = make_train_epoch_2d(*args)
-        eval_epoch_fn = make_eval_epoch_2d(*args)
-    if _segments_on(segments, train_epoch_fn, train_loader, valid_loader):
-        segment_fn = make_segment_2d(*args)
+        train_epoch_fn = make_train_epoch_2d(*args, **mesh_kw)
+        eval_epoch_fn = make_eval_epoch_2d(*args, **mesh_kw)
+    whole, epoch_rows = _plan(mesh, (train_loader, valid_loader),
+                              train_epoch_fn is not None,
+                              max_steps_per_epoch)
+    if _segments_on(segments, train_epoch_fn, whole):
+        segment_fn = make_segment_2d(*args, **mesh_kw)
+    _log_path(logger, mesh, segment_fn, train_epoch_fn, whole)
+    # the pairs or images of the global batch a local one counts
+    shards = 1 if mesh is None else mesh.size
 
     n_epochs = max_epochs if max_epochs is not None else config.TRAIN.EPOCH
     best_state, best_dirty = None, False
@@ -418,7 +487,8 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
             for _ in range(boundary - epoch):
                 tcache, xs, _ = train_loader.stacked_epoch()
                 xs_list.append(epoch_slice(xs))
-            seq, epoch_valid, n_imgs = _stack_segment(xs_list, E_full)
+            seq, epoch_valid, _ = _stack_segment(xs_list, E_full)
+            n_imgs = (boundary - epoch) * epoch_rows[0]
             S = seq["idx"].shape[1]
             step0 = state.step
             _, _, best_dev, ms = segment_fn(
@@ -481,13 +551,13 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
                 t0 = time.time()
                 meter.reset()
                 meter.start()
-                stacked = _try_stacked(train_loader, train_epoch_fn,
+                stacked = _try_stacked(train_loader, whole[0],
                                        max_steps_per_epoch)
                 if stacked is not None:
-                    cache, xs, n, pending, _ = stacked
+                    cache, xs, n, _ = stacked
                     tr = _fetch(train_epoch_fn(state, cache.frames, xs))
                     global_step += n
-                    meter.step(pending)
+                    meter.step(epoch_rows[0])
                 else:
                     acc, n, pending, m = None, 0, 0, None
                     for i, batch in enumerate(train_loader):
@@ -498,7 +568,7 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
                         acc = m if acc is None else _tree_add(acc, m)
                         n += 1
                         global_step += 1
-                        pending += batch["image"].shape[0]
+                        pending += batch["image"].shape[0] * shards
                         tracer.maybe(i, m)
                         if log_every and (i + 1) % log_every == 0:
                             mm = _fetch(m)   # the window's one sync
@@ -521,7 +591,7 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
 
                 # eval metadata is the same every epoch: stacked once
                 if ev_stacked is None:
-                    ev_stacked = _try_stacked(valid_loader, eval_epoch_fn,
+                    ev_stacked = _try_stacked(valid_loader, whole[1],
                                               max_steps_per_epoch)
                 if ev_stacked is not None:
                     vcache, vxs = ev_stacked[:2]

@@ -13,13 +13,13 @@ The epochs run as loop2d describes: segments (make_segment_cdr, the
 best selected on the device only after the warmup) when both caches
 hold their datasets, else stacked epochs through make_train_epoch_cdr /
 make_eval_epoch_cdr when the train cache does, else the loader's
-batches. Under a mesh it is data-parallel, batch by batch, as loop2d
-describes. A segment keys an epoch's occlusion by its global index,
-seed * 10007 + epoch, so a resumed run goes on with the draws where it
-stopped, as the JAX package's default (segment) path does. Stacked
-epochs and batches key it by the loader's epoch counter, which starts at
-0 in every new loader, so there a resumed run replays epoch 0's draws,
-as the JAX epoch path does.
+batches, and under a mesh on every path, as loop2d describes (each
+rank's loaders cache and stack its own shard). A segment keys an epoch's
+occlusion by its global index, seed * 10007 + epoch, so a resumed run
+goes on with the draws where it stopped, as the JAX package's default
+(segment) path does. Stacked epochs and batches key it by the loader's
+epoch counter, which starts at 0 in every new loader, so there a resumed
+run replays epoch 0's draws, as the JAX epoch path does.
 """
 
 from __future__ import annotations
@@ -40,9 +40,10 @@ from ..utils.logging import setup_logger
 from ..utils.profiling import StepTracer, ThroughputMeter
 from .checkpoint import make_checkpoint_writer
 from .loop2d import (_best_snapshot, _compute_dtype, _fetch, _fetch_arrays,
-                     _load_pretrained, _prepare_model_dir, _restore_state,
-                     _save_latest, _scan_allowed, _segments_on,
-                     _stack_segment, _tree_add, _try_stacked, segment_plan)
+                     _load_pretrained, _log_path, _plan, _prepare_model_dir,
+                     _restore_state, _save_latest, _scan_allowed,
+                     _segments_on, _stack_segment, _tree_add, _try_stacked,
+                     segment_plan)
 from .state import TrainState
 from .steps import (make_eval_epoch_cdr, make_eval_step_cdr,
                     make_segment_cdr, make_train_epoch_cdr,
@@ -132,17 +133,25 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
     eval_step = make_eval_step_cdr(loss_fn, **kw, **mesh_kw)
 
     scan_allowed = _scan_allowed(logger, scan_epochs, segments, log_every,
-                                 trace_dir, mesh)
+                                 trace_dir)
     train_epoch_fn = eval_epoch_fn = segment_fn = None
     image_size = tuple(config.MODEL.IMAGE_SIZE)
     if scan_allowed and (scan_epochs or config.DATASET.DEVICE_CACHE_BYTES):
         train_epoch_fn = make_train_epoch_cdr(
-            loss_fn, image_size, occlusion=config.DATASET.OCCLUSION, **kw)
-        eval_epoch_fn = make_eval_epoch_cdr(loss_fn, image_size, **kw)
-    if _segments_on(segments, train_epoch_fn, train_loader, valid_loader):
+            loss_fn, image_size, occlusion=config.DATASET.OCCLUSION, **kw,
+            **mesh_kw)
+        eval_epoch_fn = make_eval_epoch_cdr(loss_fn, image_size, **kw,
+                                            **mesh_kw)
+    whole, epoch_rows = _plan(mesh, (train_loader, valid_loader),
+                              train_epoch_fn is not None,
+                              max_steps_per_epoch)
+    if _segments_on(segments, train_epoch_fn, whole):
         segment_fn = make_segment_cdr(
             loss_fn, image_size, occlusion=config.DATASET.OCCLUSION,
-            warmup=config.TRAIN.WARMUP, seed=seed, **kw)
+            warmup=config.TRAIN.WARMUP, seed=seed, **kw, **mesh_kw)
+    _log_path(logger, mesh, segment_fn, train_epoch_fn, whole)
+    # the pairs of the global batch a local one counts
+    shards = 1 if mesh is None else mesh.size
 
     n_epochs = max_epochs if max_epochs is not None else config.TRAIN.EPOCH
     warmup = config.TRAIN.WARMUP
@@ -187,7 +196,8 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
             for _ in range(boundary - epoch):
                 tcache, xs, _ = train_loader.stacked_epoch()
                 xs_list.append(epoch_slice(xs))
-            seq, epoch_valid, n_pairs = _stack_segment(xs_list, E_full)
+            seq, epoch_valid, _ = _stack_segment(xs_list, E_full)
+            n_pairs = (boundary - epoch) * epoch_rows[0]
             S = seq["idx_l"].shape[1]
             step0 = state.step
             _, _, best_dev, ms = segment_fn(
@@ -256,15 +266,15 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
                 use_3d = epoch >= warmup
                 meter.reset()
                 meter.start()
-                stacked = _try_stacked(train_loader, train_epoch_fn,
+                stacked = _try_stacked(train_loader, whole[0],
                                        max_steps_per_epoch)
                 if stacked is not None:
-                    cache, xs, n, pending, ep_idx = stacked
+                    cache, xs, n, ep_idx = stacked
                     tr = _fetch(train_epoch_fn(
                         state, cache.frames, xs, seed * 10007 + ep_idx,
                         use_3d))
                     global_step += n
-                    meter.step(pending)
+                    meter.step(epoch_rows[0])
                 else:
                     acc, n, pending, m = None, 0, 0, None
                     for i, batch in enumerate(train_loader):
@@ -275,7 +285,7 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
                         acc = m if acc is None else _tree_add(acc, m)
                         n += 1
                         global_step += 1
-                        pending += batch["image"].shape[0]
+                        pending += batch["image"].shape[0] * shards
                         tracer.maybe(i, m)
                         if log_every and (i + 1) % log_every == 0:
                             mm = _fetch(m)   # the window's one sync
@@ -299,7 +309,7 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
 
                 # eval metadata is the same every epoch: stacked once
                 if ev_stacked is None:
-                    ev_stacked = _try_stacked(valid_loader, eval_epoch_fn,
+                    ev_stacked = _try_stacked(valid_loader, whole[1],
                                               max_steps_per_epoch)
                 if ev_stacked is not None:
                     vcache, vxs = ev_stacked[:2]

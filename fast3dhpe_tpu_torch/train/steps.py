@@ -72,7 +72,9 @@ def _device_of(model) -> torch.device:
 
 def _masked_count(mask, batch_size, device):
     if mask is None:
-        return torch.tensor(float(batch_size), device=device)
+        # a fill, not a tensor from host data: a CUDA graph captures it
+        return torch.full((), float(batch_size), dtype=torch.float32,
+                          device=device)
     return mask.float().sum()
 
 
@@ -366,11 +368,15 @@ def make_train_epoch_cdr(loss_fn, image_size, occlusion=None,
     The state is updated in place. On CUDA the steps replay a CUDA graph
     of the step (train/graphs.py), one a value of use_3d; graphed=False
     runs them eagerly (the reference that chip_smoke.py holds the graphs
-    against). `epoch.graphs` holds the graphs.
+    against). `epoch.graphs` holds the graphs. Under a mesh
+    (step_kwargs["mesh"]) xs holds this rank's rows of the global batch
+    (its loader's stacked epoch, or parallel.mesh.shard_stacked of a
+    global stack), the steps are the global batch's, and their
+    collectives are captured with them under NCCL (graphs.py).
     """
     core = _train_core_cdr(loss_fn, **step_kwargs)
     image_size = tuple(image_size)
-    graphs = StepGraphs(graphed)
+    graphs = StepGraphs(graphed, step_kwargs.get("mesh"))
 
     def epoch(state: TrainState, frames, xs, epoch_seed: int, use_3d: bool):
         xs = _stacked_on_device(state, frames, xs)
@@ -396,11 +402,11 @@ def make_train_epoch_cdr(loss_fn, image_size, occlusion=None,
 def make_eval_epoch_cdr(loss_fn, image_size, **step_kwargs) -> Callable:
     """CDR evaluation over an epoch of cached batches (steps.py:302-330):
     epoch(state, frames, xs, use_3d) -> loss_sum, e2_sum, e3_sum and n
-    summed over the S batches, no augmentation; replayed as
-    make_train_epoch_cdr's steps are."""
+    summed over the S batches (of the global batch under a mesh), no
+    augmentation; replayed as make_train_epoch_cdr's steps are."""
     step_fn = make_eval_step_cdr(loss_fn, **step_kwargs)
     image_size = tuple(image_size)
-    graphs = StepGraphs()
+    graphs = StepGraphs(mesh=step_kwargs.get("mesh"))
 
     def epoch(state: TrainState, frames, xs, use_3d: bool):
         xs = _stacked_on_device(state, frames, xs)
@@ -416,6 +422,7 @@ def make_eval_epoch_cdr(loss_fn, image_size, **step_kwargs) -> Callable:
         return graphs.epoch(("eval", use_3d, _frames_key(frames)), state, xs,
                             step, sum_keys=_EVAL_KEYS_CDR)
 
+    epoch.graphs = graphs
     return epoch
 
 
@@ -428,16 +435,17 @@ def _mono_batch(frames, x, image_size, heatmap_size, sigma):
 
 
 def make_train_epoch_2d(loss_fn, image_size, heatmap_size,
-                        sigma: int = 3) -> Callable:
+                        sigma: int = 3, mesh=None) -> Callable:
     """PoseResNet training over an epoch of cached batches
     (steps.py:103-131): epoch(state, frames, xs) -> summed loss, acc and
     grad_norm. xs as Mono2DLoader.stacked_epoch stacks them: idx (S, B),
     flip (S, B) bool, trans (S, B, 2, 3), joints (S, B, J, 2), vis
     (S, B, J), row_valid (S, B). The state is updated in place; on CUDA
-    the steps replay a CUDA graph (make_train_epoch_cdr)."""
-    core = _train_core_2d(loss_fn)
+    the steps replay a CUDA graph, and under a mesh they are the global
+    batch's (make_train_epoch_cdr)."""
+    core = _train_core_2d(loss_fn, mesh)
     image_size, heatmap_size = tuple(image_size), tuple(heatmap_size)
-    graphs = StepGraphs()
+    graphs = StepGraphs(mesh=mesh)
 
     def epoch(state: TrainState, frames, xs):
         xs = _stacked_on_device(state, frames, xs)
@@ -449,17 +457,20 @@ def make_train_epoch_2d(loss_fn, image_size, heatmap_size,
         return graphs.epoch(("train", _frames_key(frames)), state, xs, step,
                             state=state)
 
+    epoch.graphs = graphs
     return epoch
 
 
 def make_eval_epoch_2d(loss_fn, image_size, heatmap_size,
-                       sigma: int = 3) -> Callable:
+                       sigma: int = 3, mesh=None) -> Callable:
     """PoseResNet evaluation over an epoch of cached batches
     (steps.py:134-159): epoch(state, frames, xs) -> loss_sum, hits, cnt
-    and n summed over the S batches."""
-    step_fn = make_eval_step_2d(loss_fn)
+    and n summed over the S batches (of the global batch under a
+    mesh)."""
+    step_fn = make_eval_step_2d(loss_fn, **({} if mesh is None
+                                            else {"mesh": mesh}))
     image_size, heatmap_size = tuple(image_size), tuple(heatmap_size)
-    graphs = StepGraphs()
+    graphs = StepGraphs(mesh=mesh)
 
     def epoch(state: TrainState, frames, xs):
         xs = _stacked_on_device(state, frames, xs)
@@ -471,6 +482,7 @@ def make_eval_epoch_2d(loss_fn, image_size, heatmap_size,
         return graphs.epoch(("eval", _frames_key(frames)), state, xs, step,
                             sum_keys=_EVAL_KEYS_2D)
 
+    epoch.graphs = graphs
     return epoch
 
 
@@ -526,7 +538,7 @@ def make_segment_cdr(loss_fn, image_size, occlusion=None,
                      warmup: int = 0, seed: int = 0,
                      loss_3d_weight: float = 4.0, scale_3d: float = 0.1,
                      base_joint: int = 1, num_joints: int = 19,
-                     clip_norm: float = 100.0) -> Callable:
+                     clip_norm: float = 100.0, mesh=None) -> Callable:
     """A SEGMENT of E epochs, each a train epoch then an eval epoch, with
     the best state selected on the device (steps.py:333-453).
 
@@ -553,10 +565,16 @@ def make_segment_cdr(loss_fn, image_size, occlusion=None,
     epochs run through make_train_epoch_cdr / make_eval_epoch_cdr, so
     on CUDA every step is a replay of their graphs, and the best state's
     masked copy one more graph an epoch; nothing waits for the host
-    inside the segment.
+    inside the segment. Under a mesh xs_seq and vxs hold this rank's rows
+    (shard_stacked(mesh, ..., lead=2) of a global stack, or the rank's
+    own loaders'), and the best is chosen from the global eval sums, so
+    every rank takes the same `improved` and the same best state.
+    `segment.graphs` is the train epoch's StepGraphs.
     """
     kw = dict(loss_3d_weight=loss_3d_weight, scale_3d=scale_3d,
               base_joint=base_joint, num_joints=num_joints)
+    if mesh is not None:
+        kw["mesh"] = mesh
     train_epoch = make_train_epoch_cdr(loss_fn, image_size,
                                        occlusion=occlusion,
                                        clip_norm=clip_norm, **kw)
@@ -582,11 +600,12 @@ def make_segment_cdr(loss_fn, image_size, occlusion=None,
             rows.append({"train": tsum, "eval": esum, "improved": improved})
         return state, best_state, best_err, _stack_epochs(rows)
 
+    segment.graphs = train_epoch.graphs
     return segment
 
 
 def make_segment_2d(loss_fn, image_size, heatmap_size,
-                    sigma: int = 3) -> Callable:
+                    sigma: int = 3, mesh=None) -> Callable:
     """2D counterpart of make_segment_cdr (steps.py:456-534): E epochs
     (train then eval each), the best selected on the device by val PCK
     (maximised, no warmup gate [ref: train.py:150-155]).
@@ -596,8 +615,9 @@ def make_segment_2d(loss_fn, image_size, heatmap_size,
       epoch_valid: (E,) bools, padding rows skipped (zero metrics,
         improved False); ms per epoch: {"train": sums, "eval": {loss_sum,
         hits, cnt, n}, "val_acc": (E,), "improved": (E,) bool}.
+    Under a mesh as make_segment_cdr: the best from the global PCK.
     """
-    args = (loss_fn, image_size, heatmap_size, sigma)
+    args = (loss_fn, image_size, heatmap_size, sigma, mesh)
     train_epoch = make_train_epoch_2d(*args)
     eval_epoch = make_eval_epoch_2d(*args)
     select = _make_select()
@@ -619,4 +639,5 @@ def make_segment_2d(loss_fn, image_size, heatmap_size,
                          "improved": improved})
         return state, best_state, best_acc, _stack_epochs(rows)
 
+    segment.graphs = train_epoch.graphs
     return segment

@@ -19,7 +19,7 @@ runs in the test process:
 - "cdr_d2m2": loop_cdr.run on D = 2 x M = 2 (4 ranks, 4 pairs a rank);
 - "cdr_d2m1": the same loop on the 2 data ranks at M = 1;
 - "2d_d1m2": loop2d.run on D = 1 x M = 2, the tree whole in the device
-  frame cache (the cache is on: there is one data shard);
+  frame cache, so by segments;
 - "2d_d1m1": the same loop on one rank at M = 1.
 
 Tolerances (each test names its own):
@@ -230,8 +230,9 @@ def test_records_sharded_by_data_index(runs):
     (rank r of D x M: data index r // M), the same records on the M model
     ranks of a data group and the same as the M = 1 rank of that index;
     every rank runs the lockstep batches of the largest shard. At D = 1
-    the whole index, with the device frame cache on; at D > 1 it is off
-    (the shards hold other frames)."""
+    the whole index, with the device frame cache on; the D = 2 CDR
+    config sets no cache budget, so its loaders make their batches from
+    the host."""
     from fast3dhpe_tpu_torch.data.mads import (build_mads_index,
                                                build_mads_stereo_index)
     root = runs["root"]
