@@ -22,7 +22,12 @@
    and K2 also at batch 1 pair, on a ragged plane, with one chunk's logits
    120 above the rest, and (K1) at J = 2, and shows that their wrappers
    refuse strided or misaligned logits; K3 also at batch 1 pair, at
-   layer1.1 and on a plane that is not a multiple of its tile. K1 and K2
+   layer1.1, on a plane that is not a multiple of its tile, and at P = 128
+   with a downsample, so that every variant of its launch plan runs (8x16
+   and 8x8 tiles, P = 64 and 128, with and without a downsample); each
+   K3 launch's plan is held against the kernel's own, and its SASS must
+   hold wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA) or
+   cp.async (LDGSTS). K1 and K2
    also at a 1-pair heatmap's rows under M = 2 and M = 4 ((2, 32, 64, 19),
    (2, 16, 64, 19)) and at the whole 192 px heatmap ((2, 48, 48, 19),
    (8, 48, 48, 19)), K3 on every haloed tile phase 13 gives it (layer1.0
@@ -46,8 +51,10 @@
    with L2 cold (a 128 MiB read between launches; `ms` in the kernels
    line) and warm, and `call_ms`, CUDA events around one wrapper call
    (host plus device). K1 at 2 and 64 images bf16 and 64 fp32, K2 at 64
-   images fp32 and bf16, K3 also at batch 1 pair and at layer1.1, which
-   the gate leaves unfused, with its TFLOP/s and share of the bound (it
+   images fp32 and bf16, K3 at 64 images and at batch 1 pair, each
+   summed to one forward, and at layer1.1, which the gate leaves
+   unfused, with its TFLOP/s, share of the bound and weight bytes read
+   from L2 a launch (it
    fails if a K3 call is not faster than the unfused cuDNN block's at the
    main path's shapes),
    predict_batch at batch 1-64 and the geometry's share, and splits a
@@ -380,6 +387,7 @@ one, or when any phase fails, it exits non-zero and prints no result.
 
 import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -766,20 +774,56 @@ HALOED = {"layer1.0": (64, 64, True, ((33, 64), (17, 64), (18, 64),
           "layer2.x": (512, 128, False, ((17, 32), (9, 32), (10, 32)))}
 
 
+# K3 with P = 128 and a downsample: no stride-1 encoder block has one, but
+# check_launch takes it, so both tiles run it in step 2
+P128_DOWN = (256, 128, True, 32)
+# the variants of K3's launch: (tile, P, downsample)
+K3_VARIANTS = {(tile, planes, ds) for tile in ("8x16", "8x8")
+               for planes in (64, 128) for ds in (False, True)}
+
+
+def check_k3_sass():
+    """The built K3 library holds wgmma (HGMMA) and TMA loads and stores
+    (UTMALDG, UTMASTG), and no mma.sync (HMMA) or cp.async (LDGSTS): the
+    kernel that runs is the Hopper design. cuobjdump comes from nvcc's own
+    directory; a missing tool fails."""
+    from fast3dhpe_tpu_torch.ops._build import _nvcc, library_path
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass",
+                           str(library_path("fused_bottleneck"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG",
+                                            "HMMA", "LDGSTS")}
+    print(f"# K3 SASS: {counts}")
+    require(counts["HGMMA"] and counts["UTMALDG"] and counts["UTMASTG"],
+            f"K3's SASS lacks wgmma or TMA: {counts}")
+    require(not counts["HMMA"] and not counts["LDGSTS"],
+            f"K3's SASS still holds mma.sync or cp.async: {counts}")
+    return counts
+
+
 def check_bottleneck(dev, gen):
     """K3 against its plain version (same rounding points) at the two block
     shapes that fuse at 256 px, at 2, 8 and 64 images; at layer1.1; on a
-    ragged plane; on phase 13's haloed tiles (HALOED) at 2 and 8 images,
-    through the entry the model serves and the timing runs (weights packed
-    once). Also holds ops/bottleneck.py's shared-memory formula against
-    the kernel's own."""
+    ragged plane; at P = 128 with a downsample at 2 and 64 images; on
+    phase 13's haloed tiles (HALOED) at 2 and 8 images, through the entry
+    the model serves and the timing runs (weights packed once); fails
+    unless the cases ran every variant of the launch plan. Also holds
+    ops/bottleneck.py's shared-memory formula and launch plan against the
+    kernel's own, and reads the kernel's SASS (check_k3_sass)."""
     from fast3dhpe_tpu_torch.ops._build import load_library
     from fast3dhpe_tpu_torch.ops.bottleneck import (bottleneck_plain,
                                                     fused_bottleneck_packed,
+                                                    launch_plan,
                                                     pack_weights, smem_bytes)
-    kernel_smem = load_library("fused_bottleneck").fused_bottleneck_smem_bytes
+    lib = load_library("fused_bottleneck")
+    kernel_smem = lib.fused_bottleneck_smem_bytes
     kernel_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     kernel_smem.restype = ctypes.c_int
+    kernel_plan = lib.fused_bottleneck_plan
+    kernel_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    kernel_plan.restype = ctypes.c_int
+    check_k3_sass()
     for planes in (64, 128, 256):
         for ds in (False, True):
             got = kernel_smem(planes, int(ds))
@@ -796,12 +840,24 @@ def check_bottleneck(dev, gen):
     cases = [(name, n, shape) for name, shape in BLOCK_SHAPES.items()
              for n in (2, 2 * PAIRS, 2 * TIMING_PAIRS)]
     cases += [("layer1.1", 2 * PAIRS, LAYER11), ("ragged 36x44", 2, RAGGED)]
+    cases += [("P 128 downsample", n, P128_DOWN)
+              for n in (2, 2 * TIMING_PAIRS)]
     cases += [(f"{name} haloed {h}x{w}", 2 * pairs, (cin, planes, ds, (h, w)))
               for name, (cin, planes, ds, hws) in HALOED.items()
               for h, w in hws for pairs in S8_PAIRS]
     err = 0.0
+    variants = set()
     for name, n, (cin, planes, ds, hw) in cases:
         x, args = bottleneck_case(gen, dev, n, cin, planes, ds, hw)
+        h, w = x.shape[2:]
+        plan = launch_plan(n, h, w)
+        got_plan = (ctypes.c_int * 5)()
+        kernel_plan(n, h, w, got_plan)
+        require(tuple(got_plan) == (plan.ctas, plan.cluster, plan.items,
+                                    *plan.tile),
+                f"K3 {name} (n={n}): the kernel's launch {tuple(got_plan)}, "
+                f"ops/bottleneck.py launch_plan {plan}")
+        variants.add((plan.variant, planes, ds))
         got = fused_bottleneck_packed(x, pack_weights(*args)).float()
         ref = bottleneck_plain(x, *args).float()
         torch.cuda.synchronize()
@@ -809,7 +865,8 @@ def check_bottleneck(dev, gen):
         d = (got - ref).abs()
         border = torch.cat([d[:, :, 0].flatten(), d[:, :, -1].flatten(),
                             d[:, :, :, 0].flatten(), d[:, :, :, -1].flatten()])
-        print(f"# K3 {name} n={n}: max|d| {d.max().item():.4g}, "
+        print(f"# K3 {name} n={n} ({plan.variant}, {plan.ctas} CTAs): "
+              f"max|d| {d.max().item():.4g}, "
               f"mean|d| {d.mean().item():.3g}, border mean "
               f"{border.mean().item():.3g}, max|ref| {scale:.4g}")
         require(d.max().item() <= max_rel * scale
@@ -819,6 +876,9 @@ def check_bottleneck(dev, gen):
                 f"version beyond max {max_rel} / mean {mean_rel} of "
                 f"max|ref|")
         err = max(err, d.max().item())
+    require(variants == K3_VARIANTS,
+            f"K3's checks ran the variants {sorted(variants)}, not every "
+            f"one of {sorted(K3_VARIANTS)}")
     print(f"# K3 fused bottleneck: max |kernel - plain| = {err:.4g}")
     return err
 
@@ -7421,51 +7481,79 @@ def _time_block(dev, gen, n, cin, planes, ds, hw, plain=False):
     return out
 
 
-def time_bottleneck(dev, gen):
-    """K3 at the forward's launches at 64 images (layer1.0 + 3 x
-    layer2.x), at batch 1 pair (2 images), and at layer1.1, which the gate
-    leaves unfused."""
-    n = 2 * TIMING_PAIRS
-    per_forward = {"layer1.0": 1, "layer2.x": 3}
-    parts, total = [], {"ms": 0.0, "device_ms_cold": 0.0,
-                        "device_ms_warm": 0.0, "call_ms": 0.0,
-                        "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    bytes_t = ops_t = 0.0
-    extra = {}
+_K3_SUMS = ("ms", "device_ms_cold", "device_ms_warm", "call_ms", "bound_ms",
+            "library_ms")
 
-    def show(name, t):
-        print(f"# K3 {name} at {t['n']} images: device {t['ms']:.4f} ms L2 "
-              f"cold, {t['device_ms_warm']:.4f} ms warm ({t['tflops']:.1f} "
+
+def k3_launch_model(n, cin, planes, ds, hw):
+    """K3's launch plan at a block's shape, and the weight bytes (MB) the
+    launch asks of the L2 as the plan counts them: one stream of the
+    block's weights for each work item (a pair of tiles, one a CTA of a
+    cluster, which share it by TMA multicast). A model of the traffic,
+    not a measurement."""
+    from fast3dhpe_tpu_torch.ops.bottleneck import launch_plan
+    plan = launch_plan(n, hw, hw)
+    wbytes = 2 * (cin * planes + 9 * planes * planes + 4 * planes * planes
+                  + (4 * cin * planes if ds else 0))
+    return plan, plan.items * wbytes / 1e6
+
+
+def time_bottleneck(dev, gen):
+    """K3 at the forward's launches (layer1.0 + 3 x layer2.x) at 64 images
+    and at batch 1 pair (2 images), each batch summed to one forward, and
+    at layer1.1, which the gate leaves unfused. Returns the 64-image
+    forward (the kernels line's numbers) with its parts, the 2-image
+    forward under "batch_1_pair", and layer1.1 under "measured_only"."""
+    per_forward = {"layer1.0": 1, "layer2.x": 3}
+
+    def show(name, t, shape):
+        plan, l2_mb = k3_launch_model(t["n"], *shape)
+        print(f"# K3 {name} at {t['n']} images ({plan.variant}, {plan.ctas} "
+              f"CTAs): device {t['ms']:.4f} ms L2 cold, "
+              f"{t['device_ms_warm']:.4f} ms warm ({t['tflops']:.1f} "
               f"TFLOP/s, {100 * t['share_of_bound']:.1f}% of the bound cold);"
               f" call {t['call_ms']:.4f} ms, unfused cuDNN block call "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}; {t['gflop']:.2f} GFLOP, "
-              f"{t['mbytes']:.1f} MB)"
+              f"{t['mbytes']:.1f} MB); weights from L2 {l2_mb:.1f} MB a "
+              f"launch (modelled from the launch plan, not measured)"
               + (f", plain {t['plain_ms']:.4f} ms" if "plain_ms" in t
                  else ""))
 
-    for name, (cin, planes, ds, hw) in BLOCK_SHAPES.items():
-        t = _time_block(dev, gen, n, cin, planes, ds, hw, plain=True)
-        show(name, t)
-        # like for like: both by CUDA events around one call
-        require(t["call_ms"] < t["library_ms"],
-                f"K3 {name} at {n} images takes {t['call_ms']:.4f} ms a "
-                f"call, the unfused cuDNN block {t['library_ms']:.4f} ms")
-        k = per_forward[name]
-        bytes_t += k * t["mbytes"] * 1e6 / HBM_BPS * 1e3
-        ops_t += k * t["gflop"] * 1e9 / BF16_FLOPS * 1e3
-        for key in total:
-            total[key] += k * t[key]
-        parts.append(dict(block=name, per_forward=k, **t))
-        t1 = _time_block(dev, gen, 2, cin, planes, ds, hw)
-        show(name, t1)
-        extra[f"{name} batch 1 pair"] = t1
-    t = _time_block(dev, gen, n, *LAYER11)
-    show("layer1.1 (unfused by the gate)", t)
-    extra["layer1.1"] = t
-    total["bound_by"] = "bytes" if bytes_t >= ops_t else "operations"
-    total["parts"] = parts
-    total["measured_only"] = extra
+    forwards = {}
+    for n in (2 * TIMING_PAIRS, 2):
+        total = dict.fromkeys(_K3_SUMS + ("plain_ms",), 0.0)
+        parts, bytes_t, ops_t = [], 0.0, 0.0
+        for name, (cin, planes, ds, hw) in BLOCK_SHAPES.items():
+            t = _time_block(dev, gen, n, cin, planes, ds, hw, plain=n > 2)
+            show(name, t, (cin, planes, ds, hw))
+            if n > 2:
+                # like for like: both by CUDA events around one call
+                require(t["call_ms"] < t["library_ms"],
+                        f"K3 {name} at {n} images takes {t['call_ms']:.4f} "
+                        f"ms a call, the unfused cuDNN block "
+                        f"{t['library_ms']:.4f} ms")
+            k = per_forward[name]
+            bytes_t += k * t["mbytes"] * 1e6 / HBM_BPS * 1e3
+            ops_t += k * t["gflop"] * 1e9 / BF16_FLOPS * 1e3
+            for key in total:
+                total[key] += k * t.get(key, 0.0)
+            parts.append(dict(block=name, per_forward=k, **t))
+        total["bound_by"] = "bytes" if bytes_t >= ops_t else "operations"
+        total["share_of_bound"] = total["bound_ms"] / total["ms"]
+        total["parts"] = parts
+        print(f"# K3 one forward at {n} images: device {total['ms']:.4f} ms "
+              f"cold, {total['device_ms_warm']:.4f} warm, call "
+              f"{total['call_ms']:.4f}, bound {total['bound_ms']:.4f} "
+              f"({100 * total['share_of_bound']:.1f}%), unfused cuDNN "
+              f"blocks {total['library_ms']:.4f} ms")
+        forwards[n] = total
+    total = forwards[2 * TIMING_PAIRS]
+    total["batch_1_pair"] = {k: v for k, v in forwards[2].items()
+                             if k != "plain_ms"}
+    t = _time_block(dev, gen, 2 * TIMING_PAIRS, *LAYER11)
+    show("layer1.1 (unfused by the gate)", t, LAYER11)
+    total["measured_only"] = {"layer1.1": t}
     return total
 
 

@@ -7,10 +7,12 @@ replaces `_bottleneck_kernel` (pallas_call at pallas_bottleneck.py:191).
 The TPU kernel's `conv2_mode` and `samples_per_cell` choose between VMEM
 layouts of the same function, so the port has neither.
 
-Weights keep the JAX package's layouts: w1 (Cin, P), w2 (3, 3, P, P) HWIO,
-w3 (P, 4P), wd (Cin, 4P). The kernel reads them packed into one bf16
-buffer and the folded BNs into one fp32 buffer (`pack_weights`, index map
-`weight_layout`); `models/resnet.py` packs once per weight version.
+Weights come in the JAX package's layouts: w1 (Cin, P), w2 (3, 3, P, P)
+HWIO, w3 (P, 4P), wd (Cin, 4P). The kernel reads them packed into one bf16
+buffer, each transposed to K-major (N, K) as wgmma's B operand, and the
+folded BNs into one fp32 buffer (`pack_weights`, index map
+`weight_layout`; `PackedBottleneck.unpack` reads the JAX layouts back as
+views); `models/resnet.py` packs once per weight version.
 Activations are NCHW tensors in channels_last memory, i.e. NHWC bytes, as
 the kernel reads them.
 """
@@ -29,13 +31,24 @@ from ._build import load_library
 
 _SMEM_LIMIT = 232448          # bytes of shared memory one H100 block may use
 # the kernel's tiling (the constants of csrc/fused_bottleneck.cu, which a
-# CPU test holds these against): an 8x16 output tile and its 10x18 halo,
-# conv1 in passes of 96 halo rows, K in chunks of 32 through a 3-stage
-# ring, the residual and conv3 in passes of 128 channels, shared-memory
-# rows padded by 8 bf16
-_TILE_PIX, _HALO_PIX, _ROWS1, _KC, _STAGES, _N3, _PAD = (128, 180, 96, 32, 3,
-                                                        128, 8)
-_RULES = ("Cin % 32 == 0", "P == 64 or P % 128 == 0", "Cout % 128 == 0",
+# CPU test holds these against): 8x16 output tiles (8x8 for small
+# launches) in clusters of 2 that share one weight stream; K in chunks of
+# 64 (one 128-byte swizzled row), through a ring of 3 x chunks of 192 halo
+# rows and a ring of 4 weight chunks; the residual and conv3 in passes of
+# 128 channels; regions aligned to the swizzle's 1024-byte period
+_TH, _TW_BIG, _TW_SMALL, _KC, _N3 = 8, 16, 8, 64, 128
+_CLUSTER, _X_STAGES, _W_STAGES, _ALIGN = 2, 3, 4, 1024
+_HALO_BIG = (_TH + 2) * (_TW_BIG + 2)                # 180
+_TILE_PIX_BIG = _TH * _TW_BIG                        # 128
+_X_STAGE = (_HALO_BIG + 63) // 64 * 64 * _KC * 2     # 192 rows of 128 bytes
+_OUT_TILE = _TILE_PIX_BIG * _N3 * 2
+_SMS = 132                    # H100 SXM
+_SMALL_CTAS = _SMS // 2       # an 8x16 launch this small takes 8x8 tiles
+_CLUSTERS = _SMS // 2         # resident clusters of 2, one CTA an SM
+# TMA's own limits follow from these rules: Cin % 64 and Cout % 128 give
+# 16-byte global strides, and P <= 128 keeps every box within 256 rows
+# (a weight box is P / 2 or 64 rows, an x box at most 18 pixels)
+_RULES = ("Cin % 64 == 0", "P == 64 or P == 128", "Cout % 128 == 0",
           "Cin == Cout without a downsample", "1 <= B <= 65535",
           f"shared memory <= {_SMEM_LIMIT} bytes")
 
@@ -79,27 +92,67 @@ def bottleneck_plain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
     return torch.relu(h3 + r)
 
 
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, b: int) -> int:
+    return _ceil_div(a, b) * b
+
+
 def smem_bytes(planes: int, downsample: bool) -> int:
-    """Dynamic shared memory of one launch (the kernel's `smem_bytes`):
-    the h1 tile, or later the output tile and the downsample's ring of x
-    chunks; conv1's ring of x chunks, or later the h2 tile; the ring of
-    weight chunks."""
-    ldp = planes + _PAD
-    a_stage, b_stage = _TILE_PIX * (_KC + _PAD), _KC * (_N3 + _PAD)
-    r1 = max(_HALO_PIX * ldp, _TILE_PIX * (_N3 + _PAD)
-             + (_STAGES * a_stage if downsample else 0))
-    r2 = max(_TILE_PIX * ldp, _STAGES * _ROWS1 * (_KC + _PAD))
-    return 2 * (r1 + r2 + _STAGES * b_stage)
+    """Dynamic shared memory of one launch (the kernel's `smem_bytes`), the
+    same for both tiles and with or without a downsample: h1 (or, once it
+    is dead, the output tile), h2, the ring of x chunks, the ring of weight
+    chunks, one 1024-byte block of mbarriers and one for aligning the
+    base."""
+    region1 = _round_up(max(_HALO_BIG * planes * 2, _OUT_TILE), _ALIGN)
+    w_stage = max(planes, _N3) * _KC * 2
+    return (_ALIGN + region1 + _TILE_PIX_BIG * planes * 2
+            + _X_STAGES * _X_STAGE + _W_STAGES * w_stage + _ALIGN)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """One K3 launch (the kernel's `plan_of`). Each image's plane is cut
+    into `tile`s of output pixels (rows, columns), numbered row-major and
+    padded to whole clusters with tiles that lie past the image; the work
+    is `items` pairs of neighbouring tiles over the images, in order. The
+    launch has `ctas` CTAs in clusters of `cluster`, at most one cluster
+    for every two SMs: cluster c takes items c, c + ctas / cluster, ...,
+    and its CTA of rank r the item's tile r."""
+    ctas: int
+    cluster: int
+    items: int
+    tile: Tuple[int, int]
+    variant: str          # "8x16", or "8x8" for launches that are small
+
+
+def launch_plan(batch: int, height: int, width: int) -> LaunchPlan:
+    """The kernel's launch for `batch` images of height x width: 8x16
+    tiles, unless those would make at most half as many CTAs as the H100
+    has SMs; then 8x8 tiles, twice the CTAs. The channels do not enter."""
+    def tiles(tw):
+        return _round_up(_ceil_div(height, _TH) * _ceil_div(width, tw),
+                         _CLUSTER)
+    tw = _TW_SMALL if tiles(_TW_BIG) * batch <= _SMALL_CTAS else _TW_BIG
+    items = tiles(tw) // _CLUSTER * batch
+    return LaunchPlan(_CLUSTER * min(items, _CLUSTERS), _CLUSTER, items,
+                      (_TH, tw), f"{_TH}x{tw}")
 
 
 def check_launch(batch: int, cin: int, planes: int, cout: int,
                  downsample: bool) -> int:
     """The kernel's rules on a block's sizes. Returns the launch's dynamic
     shared memory in bytes; raises ValueError naming every rule and the
-    ones broken."""
+    ones broken. Narrower than the earlier mma.sync kernel's (Cin % 32,
+    P % 128) only where no gate reaches: `Bottleneck.fusable` admits
+    stride-1 blocks of P = 64 (Cin 64 or 256) and P = 128 (Cin 512); at
+    P = 256 (Cin 1024) its VMEM estimate is 13 MiB or more for every plane
+    of 1024 pixels or more, so no P = 256 block fuses."""
     smem = smem_bytes(planes, downsample)
-    ok = (cin % _KC == 0, planes == 64 or (planes > 0 and planes % 128 == 0),
-          cout % _N3 == 0, downsample or cin == cout, 1 <= batch <= 65535,
+    ok = (cin % _KC == 0, planes in (64, 128), cout % _N3 == 0,
+          downsample or cin == cout, 1 <= batch <= 65535,
           smem <= _SMEM_LIMIT)
     if not all(ok):
         broken = [r for r, good in zip(_RULES, ok) if not good]
@@ -111,13 +164,19 @@ def check_launch(batch: int, cin: int, planes: int, cout: int,
     return smem
 
 
+# how each weight is stored: its JAX layout permuted to K-major (N, K)
+_STORED = {"w1": (1, 0), "w2": (3, 0, 1, 2), "w3": (1, 0), "wd": (1, 0)}
+
+
 def weight_layout(cin: int, planes: int, cout: int, downsample: bool
                   ) -> Tuple[Dict[str, Tuple[int, tuple]],
                              Dict[str, Tuple[int, int]]]:
     """The packed buffers' index map: name -> (offset, JAX shape) in the
     bf16 weight buffer, and name -> (offset, length) in the fp32 buffer of
-    folded BNs. w2 (3, 3, P, P) HWIO is the kernel's (9 P, P) with rows
-    (ky, kx, cin)."""
+    folded BNs. Each weight is stored K-major, its JAX layout permuted by
+    `_STORED`: w1 as (P, Cin), w2 (3, 3, P, P) HWIO as (P, 3, 3, P), i.e.
+    the kernel's (P, 9 P) with columns (ky, kx, cin), w3 as (Cout, P), wd
+    as (Cout, Cin)."""
     shapes = {"w1": (cin, planes), "w2": (3, 3, planes, planes),
               "w3": (planes, cout)}
     lengths = {"s1": planes, "b1": planes, "s2": planes, "b2": planes,
@@ -136,6 +195,10 @@ def weight_layout(cin: int, planes: int, cout: int, downsample: bool
     return weights, vectors
 
 
+def _inverse(perm):
+    return tuple(perm.index(i) for i in range(len(perm)))
+
+
 @dataclass(frozen=True)
 class PackedBottleneck:
     """A block's weights as the kernel reads them: `w` bf16 and `sb` fp32,
@@ -152,8 +215,11 @@ class PackedBottleneck:
         back through the index map."""
         weights, vectors = weight_layout(self.cin, self.planes, self.cout,
                                          self.downsample)
-        out = {name: self.w[off:off + torch.Size(shape).numel()].view(shape)
-               for name, (off, shape) in weights.items()}
+        out = {}
+        for name, (off, shape) in weights.items():
+            stored = tuple(shape[i] for i in _STORED[name])
+            out[name] = self.w[off:off + torch.Size(shape).numel()].view(
+                stored).permute(_inverse(_STORED[name]))
         out.update({name: self.sb[off:off + n]
                     for name, (off, n) in vectors.items()})
         return out
@@ -173,10 +239,13 @@ def pack_weights(w1, s1, b1, w2, s2, b2, w3, s3, b3, wd=None, sd=None,
     device = w1.device if device is None else device
     cin, planes = w1.shape
     cout = w3.shape[1]
-    ws = [w1, w2, w3] + ([wd] if wd is not None else [])
+    ws = {"w1": w1, "w2": w2, "w3": w3}
+    if wd is not None:
+        ws["wd"] = wd
     vs = [s1, b1, s2, b2, s3, b3] + ([sd, bd] if wd is not None else [])
-    w = torch.cat([t.detach().to(device, torch.bfloat16).reshape(-1)
-                   for t in ws])
+    w = torch.cat([t.detach().to(device, torch.bfloat16)
+                   .permute(_STORED[name]).reshape(-1)
+                   for name, t in ws.items()])
     sb = torch.cat([t.detach().to(device, torch.float32).reshape(-1)
                     for t in vs])
     return PackedBottleneck(w, sb, int(cin), int(planes), int(cout),

@@ -18,8 +18,8 @@ from fast3dhpe_tpu_torch.ops.bottleneck import (bottleneck_plain,
                                                 check_launch, fold_bn,
                                                 fused_bottleneck,
                                                 fused_bottleneck_packed,
-                                                pack_weights, smem_bytes,
-                                                weight_layout)
+                                                launch_plan, pack_weights,
+                                                smem_bytes, weight_layout)
 
 torch.set_num_threads(2)
 
@@ -207,14 +207,18 @@ def test_packed_layout_reads_back_the_jax_layouts(ds):
                                    rtol=1e-6)
         np.testing.assert_allclose(got["b" + k].numpy(), np.asarray(jb),
                                    rtol=1e-6, atol=1e-7)
-    # the flat buffer through the index map: w2 row (ky * 3 + kx) * P + cin
+    # the flat buffer through the index map, K-major: w2 is the kernel's
+    # (P, 9 P), row cout, column (ky * 3 + kx) * P + cin; w1 is (P, Cin)
     weights, vectors = weight_layout(packed.cin, P, packed.cout, ds)
     off = weights["w2"][0]
     flat = packed.w.float().numpy()
     r = np.random.RandomState(0)
     for ky, kx, ci, co in r.randint(0, [3, 3, P, P], (20, 4)):
-        assert flat[off + ((ky * 3 + kx) * P + ci) * P + co] == \
+        assert flat[off + co * 9 * P + (ky * 3 + kx) * P + ci] == \
             got["w2"][ky, kx, ci, co].float().item()
+    for ci, co in r.randint(0, [packed.cin, P], (20, 2)):
+        assert flat[weights["w1"][0] + co * packed.cin + ci] == \
+            got["w1"][ci, co].float().item()
     assert packed.w.numel() == sum(int(np.prod(s)) for _, s in
                                    weights.values())
     assert packed.sb.numel() == sum(n for _, n in vectors.values())
@@ -289,12 +293,18 @@ def test_python_tiling_matches_the_kernel_source():
     for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src,
                                  re.M):
         ns[name] = eval(expr.replace("/", "//"), {}, dict(ns))
-    assert (ns["kTilePix"], ns["kHaloPix"], ns["kRows1"], ns["kKC"],
-            ns["kStages"], ns["kN3"], ns["kPad"], ns["kSmemLimit"]) == (
-        bn._TILE_PIX, bn._HALO_PIX, bn._ROWS1, bn._KC, bn._STAGES, bn._N3,
-        bn._PAD, bn._SMEM_LIMIT)
+    assert (ns["kTH"], ns["kTWBig"], ns["kTWSmall"], ns["kKC"], ns["kN3"],
+            ns["kCluster"], ns["kXStages"], ns["kWStages"], ns["kAlign"],
+            ns["kHaloBig"], ns["kTilePixBig"], ns["kXStage"], ns["kOutTile"],
+            ns["kSMs"], ns["kSmallCtas"], ns["kClusters"],
+            ns["kSmemLimit"]) == (
+        bn._TH, bn._TW_BIG, bn._TW_SMALL, bn._KC, bn._N3, bn._CLUSTER,
+        bn._X_STAGES, bn._W_STAGES, bn._ALIGN, bn._HALO_BIG,
+        bn._TILE_PIX_BIG, bn._X_STAGE, bn._OUT_TILE, bn._SMS, bn._SMALL_CTAS,
+        bn._CLUSTERS, bn._SMEM_LIMIT)
     # the C entry's rules name the same constants
     assert "Cin % kKC != 0" in src and "Cout % kN3 != 0" in src
+    assert "!(P == 64 || P == 128)" in src
 
 
 def test_packed_cpu_path_is_plain_on_the_packed_weights():
@@ -310,9 +320,10 @@ def test_packed_cpu_path_is_plain_on_the_packed_weights():
 
 
 # (Cin, P, Cout, downsample) -> dynamic shared memory: the main path's two
-# shapes, layer1.1, and stage 3's widths
-LAUNCHES = {(64, 64, 256, True): 114688, (512, 128, 512, False): 109888,
-            (256, 64, 256, False): 83968, (1024, 256, 1024, False): 188736}
+# shapes, layer1.1, and P = 128 with a downsample, which the kernel takes
+# though no stride-1 encoder block has one
+LAUNCHES = {(64, 64, 256, True): 190464, (512, 128, 512, False): 220160,
+            (256, 64, 256, False): 190464, (512, 128, 512, True): 220160}
 
 
 @pytest.mark.parametrize("shape", sorted(LAUNCHES))
@@ -320,26 +331,121 @@ def test_check_launch_takes_the_encoder_blocks(shape):
     cin, planes, cout, ds = shape
     assert check_launch(64, cin, planes, cout, ds) == LAUNCHES[shape]
     assert smem_bytes(planes, ds) == LAUNCHES[shape]
-    # two CTAs of P <= 128 fit the SM's 228 KB (1 KB reserved a CTA)
-    if planes <= 128:
-        assert 2 * (LAUNCHES[shape] + 1024) <= 228 * 1024
+    # one CTA an SM: it fits the SM's 228 KB (1 KB reserved a CTA)
+    assert LAUNCHES[shape] + 1024 <= 228 * 1024
+
+
+_ALL_RULES = ("Cin % 64 == 0", "P == 64 or P == 128", "Cout % 128 == 0",
+              "Cin == Cout without a downsample", "1 <= B <= 65535",
+              "shared memory <= 232448 bytes")
 
 
 @pytest.mark.parametrize("case,broken", [
-    ((8, 48, 64, 256, True), "Cin % 32 == 0"),
-    ((8, 64, 96, 384, True), "P == 64 or P % 128 == 0"),
+    ((8, 48, 64, 256, True), "Cin % 64 == 0"),
+    ((8, 64, 96, 384, True), "P == 64 or P == 128"),
     ((8, 64, 64, 192, True), "Cout % 128 == 0"),
     ((8, 64, 64, 256, False), "Cin == Cout without a downsample"),
     ((0, 256, 64, 256, False), "1 <= B <= 65535"),
     ((70000, 256, 64, 256, False), "1 <= B <= 65535"),
-    ((8, 2048, 512, 2048, False), "shared memory <= 232448 bytes"),
+    ((8, 2048, 512, 2048, False),
+     "P == 64 or P == 128, shared memory <= 232448 bytes"),
+    # stage 3's widths, which no gate fuses (see check_launch)
+    ((8, 1024, 256, 1024, False),
+     "P == 64 or P == 128, shared memory <= 232448 bytes"),
+    # channel counts that TMA cannot stride (72 and 520 bytes a pixel):
+    # the channel rules refuse them
+    ((8, 36, 64, 256, True), "Cin % 64 == 0"),
+    ((8, 64, 64, 260, True), "Cout % 128 == 0"),
+    # a weight box of P / 2 = 512 rows, past TMA's 256: the P rule
+    ((8, 1024, 1024, 4096, True),
+     "P == 64 or P == 128, shared memory <= 232448 bytes"),
 ])
 def test_check_launch_names_every_rule(case, broken):
     with pytest.raises(ValueError) as err:
         check_launch(*case)
     msg = str(err.value)
-    for rule in ("Cin % 32 == 0", "P == 64 or P % 128 == 0",
-                 "Cout % 128 == 0", "Cin == Cout without a downsample",
-                 "1 <= B <= 65535", "shared memory <= 232448 bytes"):
+    for rule in _ALL_RULES:
         assert rule in msg
     assert msg.split("broken: ")[1] == broken
+
+
+@pytest.mark.parametrize("depth", [50, 101, 152])
+def test_check_launch_takes_every_block_the_gate_fuses(depth):
+    """Every block that `Bottleneck.fusable` admits, at any input size, is
+    one the kernel takes: P is 64 or 128 and Cin a multiple of 64."""
+    enc = ResNetEncoder(depth, fused_inference=True).eval()
+    blocks = dict(enc.blocks())
+    seen = set()
+    for size in range(64, 769, 32):
+        for name in enc.fused_blocks((size, size), torch.bfloat16):
+            blk = blocks[name]
+            shape = (blk.conv1.in_channels, blk.planes, 4 * blk.planes,
+                     blk.downsample is not None)
+            check_launch(64, *shape)
+            seen.add(shape)
+    assert seen == {(64, 64, 256, True), (256, 64, 256, False),
+                    (512, 128, 512, False)}
+
+
+# planes the kernel runs at: the main path at 256 px (64x64, 32x32), a
+# ragged plane, the split ranks' haloed tiles (chip_smoke.py HALOED) and
+# stage 1 at 192 px
+PLANES = [(64, 64), (32, 32), (36, 44), (33, 64), (17, 64), (18, 64),
+          (13, 48), (14, 48), (48, 48), (17, 32), (9, 32), (10, 32)]
+
+
+def _tiles_of(plan, cta, height, width):
+    """(image, first row, first column) of each tile CTA `cta` takes, by
+    the kernel's walk (csrc/fused_bottleneck.cu `tile_of`)."""
+    th, tw = plan.tile
+    tiles_x = -(-width // tw)
+    tiles_img = -(-(-(-height // th) * tiles_x) // plan.cluster) * plan.cluster
+    out = []
+    for item in range(cta // plan.cluster, plan.items,
+                      plan.ctas // plan.cluster):
+        t = item * plan.cluster + cta % plan.cluster
+        i = t % tiles_img
+        out.append((t // tiles_img, i // tiles_x * th, i % tiles_x * tw))
+    return out
+
+
+@pytest.mark.parametrize("hw", PLANES)
+@pytest.mark.parametrize("batch", [2, 8, 64])
+def test_launch_plan_covers_every_pixel_once(hw, batch):
+    """The tiles the CTAs walk cover each output pixel of each image
+    exactly once; a tile past the image is only an image's last, padding
+    its tiles to a whole cluster; both CTAs of a cluster walk as many
+    tiles; at most one cluster for every two SMs."""
+    H, W = hw
+    plan = launch_plan(batch, H, W)
+    th, tw = plan.tile
+    real = -(-H // th) * -(-W // tw)
+    assert plan.ctas % plan.cluster == 0 and plan.ctas <= 132
+    assert plan.items * plan.cluster == batch * (real + real % plan.cluster)
+    count = np.zeros((batch, H, W), np.int64)
+    walked = [_tiles_of(plan, c, H, W) for c in range(plan.ctas)]
+    for c, tiles in enumerate(walked):
+        assert len(tiles) == len(walked[c - c % plan.cluster])
+        for img, y0, x0 in tiles:
+            if y0 >= H:
+                assert (y0 // th) * -(-W // tw) + x0 // tw == real
+                continue
+            count[img, y0:y0 + th, x0:x0 + tw] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("batch,hw,ctas,items,variant", [
+    (64, (64, 64), 132, 1024, "8x16"), (64, (32, 32), 132, 256, "8x16"),
+    (8, (64, 64), 132, 128, "8x16"), (8, (32, 32), 128, 64, "8x8"),
+    (2, (64, 64), 128, 64, "8x8"), (2, (32, 32), 32, 16, "8x8"),
+    (2, (36, 44), 60, 30, "8x8"), (1, (36, 44), 30, 15, "8x8"),
+    (8, (33, 64), 132, 80, "8x16"), (2, (33, 64), 80, 40, "8x8"),
+    (8, (9, 32), 64, 32, "8x8"), (16, (17, 32), 96, 48, "8x16"),
+])
+def test_launch_plan_picks_the_tile_by_shape(batch, hw, ctas, items,
+                                             variant):
+    """8x16 tiles unless they would fill at most half the H100's 132 SMs
+    (66 CTAs); then 8x8. At most 66 clusters of 2, one CTA an SM."""
+    plan = launch_plan(batch, *hw)
+    assert (plan.ctas, plan.items, plan.variant) == (ctas, items, variant)
+    assert plan.tile == (8, int(variant.split("x")[1]))
