@@ -57,7 +57,9 @@
    from L2 a launch (it
    fails if a K3 call is not faster than the unfused cuDNN block's at the
    main path's shapes),
-   predict_batch at batch 1-64 and the geometry's share, and splits a
+   predict_batch at batch 1-64 with its geometry graphed and eager (their
+   answers bit-equal), the geometry's graph counts and its eager share,
+   and splits a
    request's device time by kernel group (torch.profiler).
 5. Training path: four CDR train steps (two warmup, two with the 3D loss)
    of CDRNet-101 at full width, fp32, on a synthetic batch of 32 pairs with
@@ -7558,6 +7560,11 @@ def time_bottleneck(dev, gen):
 
 
 def time_serving(inf, dev):
+    """predict_batch's wall at 1-64 pairs, its geometry graphed (the
+    default: geometry/graphed.py) and eager (engagement patched off), the
+    two answers bit for bit, the geometry's counts over the graphed calls,
+    and the eager geometry alone."""
+    from fast3dhpe_tpu_torch.geometry import graphed
     from fast3dhpe_tpu_torch.geometry.triangulation import (dlt_triangulate,
                                                             pinv_projection)
     torch.cuda.reset_peak_memory_stats()
@@ -7568,8 +7575,26 @@ def time_serving(inf, dev):
         args = (torch.as_tensor(img_l, device=dev),
                 torch.as_tensor(img_r, device=dev),
                 torch.as_tensor(proj, device=dev))
-        ms = host_ms(lambda: inf.predict_batch(*args),
-                     iters=20 if pairs == 1 else 10)
+        iters = 20 if pairs == 1 else 10
+        before = dict(graphed.COUNTS)
+        ms = host_ms(lambda: inf.predict_batch(*args), iters=iters)
+        counts = {k: graphed.COUNTS[k] - before.get(k, 0)
+                  for k in ("eager", "captures", "replays")}
+        # host_ms's two warm-up calls run the geometry eagerly and capture
+        # it (for a new batch size); every timed call replays both graphs
+        require(counts["replays"] >= 2 * iters,
+                f"predict_batch at {pairs} pairs: geometry counts {counts}")
+        got = inf.predict_batch(*args)
+        engages = graphed.engages
+        graphed.engages = lambda capturable, tensors: False
+        try:
+            eager_ms = host_ms(lambda: inf.predict_batch(*args), iters=iters)
+            want = inf.predict_batch(*args)
+        finally:
+            graphed.engages = engages
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"predict_batch at {pairs} pairs: the graphed geometry's "
+                f"answer differs from the eager one")
         proj_t = args[2]
         kp = torch.rand((pairs, 19, 2, 2), device=dev) * 256
 
@@ -7579,10 +7604,13 @@ def time_serving(inf, dev):
 
         geo = host_ms(geometry, iters=10)
         serving[pairs] = {"ms": ms, "pairs_per_s": pairs / ms * 1e3,
-                          "geometry_ms": geo}
+                          "eager_geometry_ms": eager_ms,
+                          "geometry_counts": counts, "geometry_ms": geo}
         print(f"# predict_batch batch {pairs}: {ms:.3f} ms, "
-              f"{pairs / ms * 1e3:.1f} pairs/s; pinv + Jacobi DLT alone "
-              f"{geo:.3f} ms ({100 * geo / ms:.0f}%)")
+              f"{pairs / ms * 1e3:.1f} pairs/s, geometry graphed "
+              f"({counts}); {eager_ms:.3f} ms with the geometry eager; pinv "
+              f"+ Jacobi DLT alone eagerly {geo:.3f} ms "
+              f"({100 * geo / eager_ms:.0f}% of that)")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"# peak device memory while serving {peak:.2f} GiB")
     return serving

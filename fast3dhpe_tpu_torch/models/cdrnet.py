@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..geometry.graphed import GraphedGeometry
 from ..geometry.triangulation import dlt_triangulate, pinv_projection
 from ..parallel.spatial import spatial_of, split_after, split_soft_argmax
 from .decoder import PoseDecoder
@@ -96,7 +97,9 @@ class CDRNet(nn.Module):
     Parameters are fp32; `dtype` is the compute dtype of the encoder,
     fusion and decoder. The decode and the geometry run in fp32. In train
     mode (`.train()`) every BN takes batch statistics over the valid rows
-    of `row_valid`, in fp32 whatever the compute dtype. remat and
+    of `row_valid`, in fp32 whatever the compute dtype. In eval mode on
+    CUDA without autograd, the pinv and the Jacobi DLT replay CUDA graphs
+    of the instance's own `geometry` (geometry/graphed.py). remat and
     remat_policy rematerialise the encoder's blocks in the backward
     (models/resnet.py). On a spatial mesh (`spatial`, set by
     parallel/mesh.py replicate) the images are this model rank's rows, in
@@ -117,6 +120,7 @@ class CDRNet(nn.Module):
         in_dim = self.encoder.out_channels
         self.CF = CanonicalFusion(in_dim)
         self.decoder = PoseDecoder(in_dim, num_joints)
+        self.geometry = GraphedGeometry()
 
     @classmethod
     def from_config(cls, cfg, dtype=torch.float32, fused_inference=False):
@@ -151,7 +155,11 @@ class CDRNet(nn.Module):
         x = x.contiguous(memory_format=torch.channels_last)
         z = self.encoder(x, mask_bv, mesh)
         split = split_after(mesh, H, self.encoder.ops)
-        fused = self.CF(z, projs, pinv_projection(projs), mask)
+        # the functions are looked up here, as an eager call would, and
+        # captured as they stand at a shape's capture
+        proj_inv = self.geometry.run("pinv", pinv_projection, (projs,),
+                                     not self.training)
+        fused = self.CF(z, projs, proj_inv, mask)
         h = self.decoder(fused, mask_bv, split)        # (B*V, J, hh, hw)
         # (B*V, hh, hw, J): a view of the channels_last output, which K1
         # takes as it is; contiguous() is a no-op then, and keeps an
@@ -161,9 +169,16 @@ class CDRNet(nn.Module):
             H *= mesh.model_size           # gathered: the whole image's
         kp = split_soft_argmax(hm, split) * (H / hm.shape[1])
         kp = kp.reshape(B, V, self.num_joints, 2)
-        proj_j = projs[:, None].expand(B, self.num_joints, V, 3, 4)
-        pred_3d = dlt_triangulate(proj_j, kp.transpose(1, 2),
-                                  method=self.dlt_method)
+
+        def triangulate(projs, kp):
+            proj_j = projs[:, None].expand(B, self.num_joints, V, 3, 4)
+            return dlt_triangulate(proj_j, kp.transpose(1, 2),
+                                   method=self.dlt_method)
+
+        # svd and sii sync with the host, which a capture cannot hold
+        pred_3d = self.geometry.run(
+            "dlt", triangulate, (projs, kp),
+            not self.training and self.dlt_method == "jacobi")
         if return_heatmaps:
             return kp, pred_3d, hm.reshape(B, V, *hm.shape[1:])
         return kp, pred_3d
