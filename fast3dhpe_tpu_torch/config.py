@@ -1,8 +1,8 @@
 """The part of the YAML config (the reference schema, as read by
 fast3dhpe_tpu/config.py) that the model, the inferencer, the input
-pipeline, the loaders, the train steps and loops read: MODEL.NAME /
+pipeline, the loaders, the train steps and loops read: MODEL.NAME / TYPE /
 PRETRAINED / IMAGE_SIZE / NUM_JOINTS / NUM_LAYERS, MODEL.EXTRA.SIGMA /
-HEATMAP_SIZE / DLT_METHOD,
+HEATMAP_SIZE / DLT_METHOD / VOLUME_SIZE,
 DATASET.TYPE / ROOT / TRAIN_SET / TEST_SET / FLIP / ROT_FACTOR /
 SCALE_FACTOR / OCCLUSION / CACHE_BYTES / DEVICE_CACHE_BYTES,
 TRAIN.BATCH_SIZE / WARMUP / EPOCH / LR / LR_STEP / LR_FACTOR /
@@ -24,11 +24,13 @@ class ExtraConfig:
     SIGMA: int = 3           # gaussian target sigma, in heatmap pixels
     HEATMAP_SIZE: List[int] = field(default_factory=lambda: [64, 64])
     DLT_METHOD: str = "jacobi"
+    VOLUME_SIZE: int = 64    # the volumetric model's voxels a side
 
 
 @dataclass
 class ModelConfig:
     NAME: str = "model"
+    TYPE: str = "cdrnet"     # the stereo model: "cdrnet" | "volumetric"
     PRETRAINED: str = ""     # a .pth whose encoder the training loops take
     IMAGE_SIZE: List[int] = field(default_factory=lambda: [256, 256])
     NUM_JOINTS: int = 19
@@ -104,6 +106,8 @@ def config_from_dict(data: dict) -> Config:
     if cfg.MODEL.EXTRA.DLT_METHOD not in ("jacobi", "svd", "sii"):
         raise ValueError(f"Unknown MODEL.EXTRA.DLT_METHOD "
                          f"{cfg.MODEL.EXTRA.DLT_METHOD!r}")
+    if cfg.MODEL.TYPE not in ("cdrnet", "volumetric"):
+        raise ValueError(f"Unknown MODEL.TYPE {cfg.MODEL.TYPE!r}")
     if cfg.DATASET.OCCLUSION not in (None, "None", "CUTOUT", "HNS"):
         raise ValueError(f"Unknown DATASET.OCCLUSION "
                          f"{cfg.DATASET.OCCLUSION!r}")

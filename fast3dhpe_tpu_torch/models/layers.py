@@ -65,9 +65,18 @@ def bn_row_mask(row_valid, valid_rows=None):
     return (m | ~any_valid).float()
 
 
+def _bn_axes(x):
+    """The reduced dims of an (N, C, ...) tensor, and the view shapes of a
+    per-channel and of a per-row vector."""
+    lead = (1,) * (x.dim() - 2)
+    return ((0,) + tuple(range(2, x.dim())), (1, x.shape[1]) + lead,
+            (x.shape[0], 1) + lead)
+
+
 class _MaskedBatchNorm(torch.autograd.Function):
-    """Train-mode BN over NCHW with batch statistics from the masked rows,
-    as flax's BatchNorm computes them with `mask=` (flax 0.12.3
+    """Train-mode BN over NCHW (NCDHW for BatchNorm3d) with batch
+    statistics from the masked rows, as flax's BatchNorm computes them
+    with `mask=` (flax 0.12.3
     `_compute_stats`, `_normalize`): fp32 mean and E[x^2] over the valid
     rows x H x W, var = max(E[x^2] - E[x]^2, 0), then
     y = (x - mean) * (rsqrt(var + eps) * weight) + bias over every row.
@@ -95,15 +104,15 @@ class _MaskedBatchNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, mask, eps, group):
-        B, C, H, W = x.shape
-        dims = (0, 2, 3)
+        B, C = x.shape[:2]
+        dims, ch, rows = _bn_axes(x)
         xf = x.float()
         if mask is None:
-            count = B * H * W
+            count = x.numel() // C
             s1, s2 = xf.sum(dims), (xf * xf).sum(dims)
         else:
-            xm = xf * mask.view(B, 1, 1, 1)
-            count = mask.sum() * (H * W)
+            xm = xf * mask.view(rows)
+            count = mask.sum() * (x.numel() // (B * C))
             s1, s2 = xm.sum(dims), (xm * xf).sum(dims)
         if group is not None:
             if mask is None:
@@ -118,8 +127,7 @@ class _MaskedBatchNorm(torch.autograd.Function):
         var_raw = mu2 - mean * mean
         var = var_raw.clamp_min(0.0)
         r = torch.rsqrt(var + eps)
-        y = ((xf - mean.view(1, C, 1, 1)) * (r * weight).view(1, C, 1, 1)
-             + bias.view(1, C, 1, 1))
+        y = ((xf - mean.view(ch)) * (r * weight).view(ch) + bias.view(ch))
         ctx.save_for_backward(x, weight, mean, r, var_raw > 0, mask)
         ctx.count = count
         ctx.group = group
@@ -129,12 +137,11 @@ class _MaskedBatchNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, r, var_pos, mask = ctx.saved_tensors
-        B, C, H, W = x.shape
-        dims = (0, 2, 3)
+        dims, shape, rows = _bn_axes(x)
         xf, dy = x.float(), dy.float()
 
         def ch(v):
-            return v.view(1, C, 1, 1)
+            return v.view(shape)
 
         s = (dy * (xf - ch(mean))).sum(dims)
         dbias = dy.sum(dims)
@@ -149,7 +156,7 @@ class _MaskedBatchNorm(torch.autograd.Function):
         dmean = -dbias * g - 2.0 * mean * dvar
         stat = ch(dmean / ctx.count) + xf * ch(2.0 * dvar / ctx.count)
         if mask is not None:
-            stat = stat * mask.view(B, 1, 1, 1)
+            stat = stat * mask.view(rows)
         direct = dy * ch(g)
         if x.dtype == torch.float32:
             dx = direct + stat
@@ -201,6 +208,13 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+class BatchNorm3d(BatchNorm2d):
+    """BatchNorm2d's arithmetic over (N, C, D, H, W) volumes (the V2V of
+    models/volumetric.py). A subclass, so that whatever sets up a
+    BatchNorm2d (run_seq's row mask, replicate's process group, remat's
+    flag) sets this up too."""
+
+
 def run_seq(seq: nn.Sequential, x, mask=None, mesh=None):
     """Apply an nn.Sequential, handing the BN row mask to its BatchNorm2d
     children and the spatial mesh (or None) to its convolutions
@@ -245,10 +259,15 @@ def max_pool(x, mesh=None):
 def init_weights(module: nn.Module, generator: torch.Generator):
     """Seeded init after the JAX package's initialisers: He-normal (fan-in)
     convs, N(0, 0.001) transposed convs and heatmap head (`final_layer`),
-    zero biases, identity BN. The generator lives on the CPU, so call this
-    before moving the module to a device."""
+    zero biases, identity BN; Xavier-normal 3D convolutions. The generator
+    lives on the CPU, so call this before moving the module to a device."""
     for name, m in module.named_modules():
-        if isinstance(m, nn.ConvTranspose2d):
+        if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
+            # Xavier-normal, as the V2V's own initialiser
+            fan = m.weight[0].numel() + m.weight[:, 0].numel()
+            m.weight.normal_(0.0, math.sqrt(2.0 / fan), generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, nn.ConvTranspose2d):
             m.weight.normal_(0.0, 0.001, generator=generator)
         elif isinstance(m, nn.Conv2d):
             if name.endswith("final_layer"):

@@ -1,6 +1,12 @@
 """CDRNet stereo fine-tune loop (MADS_3d). Port of
 fast3dhpe_tpu/train/loop_cdr.py (:47-503, its epoch path).
 
+MODEL.TYPE "volumetric" trains the volumetric model
+(models/volumetric.py) through the same loop, loaders, caches and step
+graphs, with its own steps (train/steps.py make_train_epoch_vol and its
+kin): its loss is 3D from the first step, and MPJPE2D is that of its 3D
+joints projected into the crops.
+
 Reference semantics, as in the JAX package: 2D-only warmup for
 TRAIN.WARMUP epochs (use_3d from `epoch >= warmup`), then loss =
 LOSS_3D_WEIGHT * loss(0.1 * 3D) + the 2D losses with the gradient norm
@@ -9,12 +15,12 @@ clipped at 100; the best checkpoint by val MPJPE3D, only after the warmup
 epoch (and once a --log_every window); the best metric is kept beside
 `latest` so that --resume does not overwrite a better best.
 
-The epochs run as loop2d describes: segments (make_segment_cdr, the
+The epochs run as loop2d describes: segments (make_segment_stereo, the
 best selected on the device only after the warmup) when both caches
 hold their datasets, else stacked epochs through make_train_epoch_cdr /
-make_eval_epoch_cdr when the train cache does, else the loader's
-batches, and under a mesh on every path, as loop2d describes (each
-rank's loaders cache and stack its own shard). A segment keys an epoch's
+make_eval_epoch_cdr (or the _vol pair) when the train cache does, else
+the loader's batches, and under a mesh on every path, as loop2d
+describes (each rank's loaders cache and stack its own shard). A segment keys an epoch's
 occlusion by its global index, seed * 10007 + epoch, so a resumed run
 goes on with the draws where it stopped, as the JAX package's default
 (segment) path does. Stacked epochs and batches key it by the loader's
@@ -34,6 +40,7 @@ from ..data.loader import load_data
 from ..models.cdrnet import CDRNet
 from ..models.layers import init_weights
 from ..models.losses import make_loss
+from ..models.volumetric import VolumetricNet
 from ..parallel.mesh import barrier, mesh_device, replicate
 from ..utils.interrupt import interruptible
 from ..utils.logging import setup_logger
@@ -45,16 +52,23 @@ from .loop2d import (_best_snapshot, _compute_dtype, _fetch, _fetch_arrays,
                      _segments_on, _stack_segment, _tree_add, _try_stacked,
                      segment_plan)
 from .state import TrainState
-from .steps import (make_eval_epoch_cdr, make_eval_step_cdr,
-                    make_segment_cdr, make_train_epoch_cdr,
-                    make_train_step_cdr)
+from .steps import (make_eval_epoch_cdr, make_eval_epoch_vol,
+                    make_eval_step_cdr, make_eval_step_vol,
+                    make_segment_stereo, make_train_epoch_cdr,
+                    make_train_epoch_vol, make_train_step_cdr,
+                    make_train_step_vol)
 
 SCALE_3D = 0.1      # [ref: train_cdr.py:74]
 BASE_JOINT = 1      # [ref: train_cdr.py:73]
 
 
-def _init_model(config, seed: int) -> CDRNet:
-    model = CDRNet.from_config(config)
+def _volumetric(config) -> bool:
+    return config.MODEL.TYPE == "volumetric"
+
+
+def _init_model(config, seed: int):
+    model = (VolumetricNet if _volumetric(config) else
+             CDRNet).from_config(config)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model
 
@@ -125,30 +139,50 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
         # loop trains them
         replicate(mesh, model, spatial=False)
 
-    loss_fn = make_loss(config.LOSS.TYPE, config.LOSS.USE_TARGET_WEIGHT)
-    kw = dict(loss_3d_weight=config.TRAIN.LOSS_3D_WEIGHT, scale_3d=SCALE_3D,
-              base_joint=BASE_JOINT, num_joints=config.MODEL.NUM_JOINTS)
     mesh_kw = {} if mesh is None else {"mesh": mesh}
-    train_step = make_train_step_cdr(loss_fn, **kw, **mesh_kw)
-    eval_step = make_eval_step_cdr(loss_fn, **kw, **mesh_kw)
+    image_size = tuple(config.MODEL.IMAGE_SIZE)
+    occlusion = config.DATASET.OCCLUSION
+    # the one choice of the model's steps: the volumetric model's take
+    # CDRNet's calls (steps.py)
+    if _volumetric(config):
+        kw = dict(scale_3d=SCALE_3D, base_joint=BASE_JOINT, **mesh_kw)
+        vol_step = make_train_step_vol(**kw)
+        angles = torch.Generator(device=dev).manual_seed(seed)
+
+        def train_step(state, batch, use_3d):
+            return vol_step(state, batch, use_3d, angles)
+
+        eval_step = make_eval_step_vol(**kw)
+
+        def epochs():
+            return (make_train_epoch_vol(image_size, occlusion=occlusion,
+                                         **kw),
+                    make_eval_epoch_vol(image_size, **kw))
+    else:
+        loss_fn = make_loss(config.LOSS.TYPE, config.LOSS.USE_TARGET_WEIGHT)
+        kw = dict(loss_3d_weight=config.TRAIN.LOSS_3D_WEIGHT,
+                  scale_3d=SCALE_3D, base_joint=BASE_JOINT,
+                  num_joints=config.MODEL.NUM_JOINTS, **mesh_kw)
+        train_step = make_train_step_cdr(loss_fn, **kw)
+        eval_step = make_eval_step_cdr(loss_fn, **kw)
+
+        def epochs():
+            return (make_train_epoch_cdr(loss_fn, image_size,
+                                         occlusion=occlusion, **kw),
+                    make_eval_epoch_cdr(loss_fn, image_size, **kw))
 
     scan_allowed = _scan_allowed(logger, scan_epochs, segments, log_every,
                                  trace_dir)
     train_epoch_fn = eval_epoch_fn = segment_fn = None
-    image_size = tuple(config.MODEL.IMAGE_SIZE)
     if scan_allowed and (scan_epochs or config.DATASET.DEVICE_CACHE_BYTES):
-        train_epoch_fn = make_train_epoch_cdr(
-            loss_fn, image_size, occlusion=config.DATASET.OCCLUSION, **kw,
-            **mesh_kw)
-        eval_epoch_fn = make_eval_epoch_cdr(loss_fn, image_size, **kw,
-                                            **mesh_kw)
+        train_epoch_fn, eval_epoch_fn = epochs()
     whole, epoch_rows = _plan(mesh, (train_loader, valid_loader),
                               train_epoch_fn is not None,
                               max_steps_per_epoch)
     if _segments_on(segments, train_epoch_fn, whole):
-        segment_fn = make_segment_cdr(
-            loss_fn, image_size, occlusion=config.DATASET.OCCLUSION,
-            warmup=config.TRAIN.WARMUP, seed=seed, **kw, **mesh_kw)
+        segment_fn = make_segment_stereo(*epochs(),
+                                         warmup=config.TRAIN.WARMUP,
+                                         seed=seed)
     _log_path(logger, mesh, segment_fn, train_epoch_fn, whole)
     # the pairs of the global batch a local one counts
     shards = 1 if mesh is None else mesh.size
@@ -291,11 +325,13 @@ def _train(config, train_loader, valid_loader, model_path, dev, logger,
                             mm = _fetch(m)   # the window's one sync
                             meter.step(pending)
                             pending = 0
+                            parts = " ".join(
+                                f"{k[5:]} {mm[k]:.5f}" for k in
+                                ("loss_2d", "loss_3d", "loss_ce") if k in mm)
                             logger.info(
-                                "  step %d/%d loss %.5f (2d %.5f 3d %.5f) "
+                                "  step %d/%d loss %.5f (%s) "
                                 "|grad| %.2f lr %.2e  %.1f pairs/s",
-                                i + 1, steps_per_epoch, mm["loss"],
-                                mm["loss_2d"], mm["loss_3d"],
+                                i + 1, steps_per_epoch, mm["loss"], parts,
                                 mm["grad_norm"], state.schedule(global_step),
                                 meter.samples_per_sec)
                     tracer.finish(m)

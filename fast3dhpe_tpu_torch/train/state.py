@@ -39,18 +39,27 @@ def make_optimizer(cfg, steps_per_epoch: int, params: Iterable):
     as optax.adam(multistep_lr(...)). torch's Adam adds eps outside the
     square root of the bias-corrected second moment, as optax does with
     eps_root = 0. On CUDA parameters it is capturable, its LR a device
-    tensor (module docstring). Returns (optimizer, schedule)."""
+    tensor (module docstring). `params` may be parameter groups, each
+    with an "lr_scale": the group then runs at the schedule's LR times its
+    scale (the volumetric model's, models/volumetric.py param_groups).
+    Returns (optimizer, schedule)."""
     schedule = multistep_lr(cfg.TRAIN.LR, cfg.TRAIN.LR_STEP,
                             cfg.TRAIN.LR_FACTOR, steps_per_epoch)
     params = list(params)
-    dev = params[0].device if params else torch.device("cpu")
-    if dev.type == "cuda":
-        lr = torch.tensor(schedule(0), dtype=torch.float32, device=dev)
-        opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                               capturable=True)
-    else:
-        opt = torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999),
-                               eps=1e-8)
+    groups = bool(params) and isinstance(params[0], dict)
+    first = params[0]["params"][0] if groups else (params or [None])[0]
+    dev = first.device if first is not None else torch.device("cpu")
+    cuda = dev.type == "cuda"
+
+    def lr(scale=1.0):
+        v = schedule(0) * scale
+        return (torch.tensor(v, dtype=torch.float32, device=dev) if cuda
+                else v)
+
+    if groups:
+        params = [dict(g, lr=lr(g.get("lr_scale", 1.0))) for g in params]
+    opt = torch.optim.Adam(params, lr=lr(), betas=(0.9, 0.999), eps=1e-8,
+                           **({"capturable": True} if cuda else {}))
     return opt, schedule
 
 
@@ -97,8 +106,9 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, cfg,
                steps_per_epoch: int) -> "TrainState":
-        opt, schedule = make_optimizer(cfg, steps_per_epoch,
-                                       model.parameters())
+        params = (model.param_groups() if hasattr(model, "param_groups")
+                  else model.parameters())
+        opt, schedule = make_optimizer(cfg, steps_per_epoch, params)
         return cls(model, opt, schedule)
 
     def grads(self) -> List[torch.Tensor]:
@@ -115,10 +125,11 @@ class TrainState:
         if lr == self._lr:
             return
         for group in self.optimizer.param_groups:
+            v = lr * group.get("lr_scale", 1.0)
             if isinstance(group["lr"], torch.Tensor):
-                group["lr"].fill_(lr)
+                group["lr"].fill_(v)
             else:
-                group["lr"] = lr
+                group["lr"] = v
         self._lr = lr
 
     def apply_gradients(self):
@@ -140,7 +151,8 @@ class TrainState:
         for g in sd["param_groups"]:
             lr = g["lr"]
             if isinstance(lr, torch.Tensor):
-                lr = self._lr if self._lr is not None else float(lr)
+                lr = (self._lr * g.get("lr_scale", 1.0)
+                      if self._lr is not None else float(lr))
             groups.append(dict(g, lr=lr, capturable=False))
         state = {i: {k: (v.detach().to("cpu", copy=True) if k == "step"
                          else v) for k, v in s.items()}
@@ -164,5 +176,6 @@ class TrainState:
                 g["lr"] = lr
             else:
                 g["lr"] = float(value)
-            self._lr = float(value)
+        if loaded:
+            self._lr = float(loaded[0]) / own[0].get("lr_scale", 1.0)
         self.version += 1

@@ -1,5 +1,9 @@
 """Train and eval steps and epochs for CDRNet and PoseResNet. Port of
-fast3dhpe_tpu/train/steps.py (:37-571).
+fast3dhpe_tpu/train/steps.py (:37-571). Beside them, the volumetric
+model's (models/volumetric.py; the JAX package has none): its loss (L1
+on the 3D joints plus the volumetric cross-entropy), steps and stacked
+epochs, taking CDRNet's calls, so that the stereo epochs, segments
+(make_segment_stereo) and train/loop_cdr.py run either model.
 
 Each step factory returns a step that takes a TrainState (train/state.py)
 and a batch dict. The batch goes to the model's device; nothing falls
@@ -41,7 +45,7 @@ An epoch function runs S batches from a device frame cache
 epoch as one lax.scan, the port replays a CUDA graph of the whole step,
 preprocessing included, once a batch (train/graphs.py); on the CPU the
 steps run eagerly. The per-step metrics are summed on the device, with
-no host sync inside the loop. A segment (make_segment_cdr /
+no host sync inside the loop. A segment (make_segment_stereo /
 make_segment_2d) runs E epochs of train and eval with the best state
 selected on the device, as the JAX package's one-dispatch segment does.
 """
@@ -239,6 +243,145 @@ def make_eval_step_cdr(loss_fn, loss_3d_weight: float = 4.0,
     return eval_step
 
 
+def _vol_loss(model, batch, theta, scale_3d: float, base_joint: int,
+              train: bool, rows=None, mesh=None):
+    """The volumetric model's loss, as the public recipe computes it: the
+    L1 of the 3D joints scaled by scale_3d, summed over the valid (joint,
+    coordinate) entries over 3 x max(1, valid joints), plus CE_WEIGHT
+    (models/volumetric.py) x the volumetric cross-entropy: -log(p + 1e-6)
+    of the softmax volume p at the voxel nearest each valid joint, over
+    the joints of the valid rows. The cuboid is centred on the
+    ground-truth base joint and turned by theta (B,). Under a mesh the
+    loss is this rank's share of the global batch's (rows: the global row
+    counts), so that the ranks' shares sum to it."""
+    # imported here, so that the CDRNet and 2D steps do not load them
+    from ..geometry.volume import nearest_voxel
+    from ..models.volumetric import CE_WEIGHT
+    mask = batch.get("row_valid")
+    target = batch["target_3d"]
+    root = target[:, base_joint]
+    kw = {}
+    if train:
+        kw = dict(row_valid=mask, valid_rows=None if rows is None
+                  else rows[0])
+    pred, logits = model(batch["image"], batch["proj"], root, theta,
+                         return_logits=True, **kw)
+    B, J = target.shape[:2]
+    w = batch["target_weight"].float()
+    n_rows = _masked_count(mask, B, w.device)
+    if mask is not None:
+        w = w * mask.float()[:, None]
+    w_sum = w.sum()
+    if mesh is not None:
+        w_sum, = _global(mesh, [w_sum.reshape(1)])
+        w_sum, n_rows = w_sum.reshape(()), rows[0]
+    l1 = ((pred * scale_3d - target * scale_3d).abs()
+          * w[..., None]).sum() / (3.0 * w_sum.clamp_min(1.0))
+    idx = nearest_voxel(target, root, theta, model.volume_size,
+                        model.cuboid_side)
+    flat = logits.view(B, -1, J)
+    at = flat.gather(1, idx[:, None]).squeeze(1)
+    p = torch.exp(at - torch.logsumexp(flat, dim=1))
+    ce = (-torch.log(p + 1e-6) * w).sum() / (n_rows.clamp_min(1.0) * J)
+    return l1 + CE_WEIGHT * ce, {"pred_3d": pred, "loss_3d": l1,
+                                 "loss_ce": ce}
+
+
+def _angles(gen, rows: int, device) -> torch.Tensor:
+    """The cuboids' turns of a train step: one a row, uniform in
+    [0, 2 pi), drawn from gen. Every rank of a mesh draws its rows' from
+    the same seed, as it draws its occlusion."""
+    return 2.0 * np.pi * torch.rand((rows,), generator=gen, device=device)
+
+
+def _train_core_vol(scale_3d: float = 0.1, base_joint: int = 1,
+                    mesh=None) -> Callable:
+    """core(state, batch, gen, update) -> metrics: the volumetric train
+    step, the cuboids turned by _angles drawn from gen (after the
+    pipeline's occlusion draws), and the optimizer update as `update()`
+    (see _train_core_cdr). No clip: the recipe has none."""
+
+    def core(state: TrainState, batch, gen, update):
+        model = state.model
+        model.train()
+        dev = _device_of(model)
+        batch = _on_device(batch, dev)
+        B = batch["image"].shape[0]
+        rows = row_counts(mesh, batch.get("row_valid"), B, dev)
+        theta = _angles(gen, B, dev)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, aux = _vol_loss(model, batch, theta, scale_3d, base_joint,
+                              True, rows, mesh)
+        loss.backward()
+        _sync_grads(mesh, state)
+        grad_norm = global_grad_norm(state.grads())
+        update()
+        loss, l3, ce = _global(mesh, [loss.detach(), aux["loss_3d"].detach(),
+                                      aux["loss_ce"].detach()])
+        return {"loss": loss, "loss_3d": l3, "loss_ce": ce,
+                "grad_norm": grad_norm}
+
+    return core
+
+
+def make_train_step_vol(scale_3d: float = 0.1, base_joint: int = 1,
+                        mesh=None) -> Callable:
+    """The volumetric model's train step: train_step(state, batch,
+    use_3d, gen) -> loss, loss_3d (the L1 term), loss_ce and grad_norm,
+    detached device scalars (of the global batch under a mesh). batch as
+    make_train_step_cdr's; use_3d is not read (the loss is 3D from the
+    first step; the argument keeps make_train_step_cdr's call); gen: the
+    torch.Generator on the model's device that draws the cuboids'
+    angles."""
+    core = _train_core_vol(scale_3d, base_joint, mesh)
+
+    def train_step(state: TrainState, batch, use_3d: bool = True, gen=None):
+        return core(state, batch, gen, state.apply_gradients)
+
+    return train_step
+
+
+def make_eval_step_vol(scale_3d: float = 0.1, base_joint: int = 1,
+                       mesh=None) -> Callable:
+    """The volumetric model's eval step, the cuboid unturned on the
+    ground-truth base joint: the keys of make_eval_step_cdr's, the 2D
+    error that of the 3D joints projected into the crops."""
+    from ..geometry.camera import project_points
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch, use_3d: bool = True):
+        model = state.model
+        model.eval()
+        dev = _device_of(model)
+        batch = _on_device(batch, dev)
+        mask = batch.get("row_valid")
+        B = batch["image"].shape[0]
+        rows = row_counts(mesh, mask, B, dev)
+        theta = torch.zeros((B,), device=dev)
+        loss, aux = _vol_loss(model, batch, theta, scale_3d, base_joint,
+                              False, rows, mesh)
+        pred_2d = project_points(aux["pred_3d"][:, None], batch["proj"])
+        t2d = batch["target_2d"]
+        e2_s, e3_s = per_sample_mpjpe(pred_2d, aux["pred_3d"],
+                                      batch["target_3d"], t2d[:, 0],
+                                      t2d[:, 1], batch["target_weight"])
+        if mask is not None:
+            m = mask.float()
+            e2_s, e3_s = e2_s * m, e3_s * m
+        e2_sum, e3_sum = e2_s.sum(), e3_s.sum()
+        if mesh is None:
+            n = _masked_count(mask, B, dev)
+        else:
+            n = rows[0]
+            loss, e2_sum, e3_sum = _global(mesh, [loss, e2_sum, e3_sum])
+        denom = n.clamp_min(1.0)
+        return {"loss": loss, "mpjpe_2d": e2_sum / denom,
+                "mpjpe_3d": e3_sum / denom, "loss_sum": loss * n,
+                "e2_sum": e2_sum, "e3_sum": e3_sum, "n": n}
+
+    return eval_step
+
+
 def _train_core_2d(loss_fn, mesh=None) -> Callable:
     """core(state, batch, update) -> metrics: the PoseResNet train step
     with the optimizer update as `update()` (see _train_core_cdr)."""
@@ -352,6 +495,62 @@ _EVAL_KEYS_CDR = ("loss_sum", "e2_sum", "e3_sum", "n")
 _EVAL_KEYS_2D = ("loss_sum", "hits", "cnt", "n")
 
 
+def _stereo_batch(frames, x, image_size, gen, occlusion, train: bool):
+    batch = preprocess_stereo_batch_cached(
+        gen, frames, x["idx_l"], x["idx_r"], x["trans"], x["P_l"], x["P_r"],
+        x["pose_3d"], x["joints_vis"], image_size=image_size,
+        occlusion=occlusion, train=train)
+    batch["row_valid"] = x["row_valid"]
+    return batch
+
+
+def _stereo_train_epoch(core, image_size, occlusion, graphed, mesh,
+                        draws: bool) -> Callable:
+    """A stereo model's training over an epoch of cached batches
+    (make_train_epoch_cdr's contract). core(state, batch, use_3d, gen,
+    update) -> metrics; step i's generator is seeded step_seed(epoch_seed,
+    i) where the occlusion draws, or the core does (`draws`), else None."""
+    image_size = tuple(image_size)
+    graphs = StepGraphs(graphed, mesh)
+
+    def epoch(state: TrainState, frames, xs, epoch_seed: int,
+              use_3d: bool = True):
+        xs = _stacked_on_device(state, frames, xs)
+
+        def step(x, gen, update):
+            batch = _stereo_batch(frames, x, image_size, gen, occlusion, True)
+            return core(state, batch, use_3d, gen, update)
+
+        n = xs["idx_l"].shape[0]
+        seeds = ([step_seed(epoch_seed, i) for i in range(n)]
+                 if draws or _occludes(occlusion) else None)
+        return graphs.epoch(("train", use_3d, _frames_key(frames)), state,
+                            xs, step, state=state, seeds=seeds)
+
+    epoch.graphs = graphs
+    return epoch
+
+
+def _stereo_eval_epoch(step_fn, image_size, mesh) -> Callable:
+    """A stereo model's evaluation over an epoch of cached batches
+    (make_eval_epoch_cdr's contract); step_fn(state, batch, use_3d)."""
+    image_size = tuple(image_size)
+    graphs = StepGraphs(mesh=mesh)
+
+    def epoch(state: TrainState, frames, xs, use_3d: bool = True):
+        xs = _stacked_on_device(state, frames, xs)
+
+        def step(x, gen, update):
+            return step_fn(state, _stereo_batch(frames, x, image_size, None,
+                                                None, False), use_3d)
+
+        return graphs.epoch(("eval", use_3d, _frames_key(frames)), state, xs,
+                            step, sum_keys=_EVAL_KEYS_CDR)
+
+    epoch.graphs = graphs
+    return epoch
+
+
 def make_train_epoch_cdr(loss_fn, image_size, occlusion=None,
                          graphed: bool = True, **step_kwargs) -> Callable:
     """CDR training over an epoch of cached batches (steps.py:255-299).
@@ -375,28 +574,24 @@ def make_train_epoch_cdr(loss_fn, image_size, occlusion=None,
     collectives are captured with them under NCCL (graphs.py).
     """
     core = _train_core_cdr(loss_fn, **step_kwargs)
-    image_size = tuple(image_size)
-    graphs = StepGraphs(graphed, step_kwargs.get("mesh"))
+    return _stereo_train_epoch(
+        lambda state, batch, use_3d, gen, update: core(state, batch, use_3d,
+                                                       update),
+        image_size, occlusion, graphed, step_kwargs.get("mesh"), False)
 
-    def epoch(state: TrainState, frames, xs, epoch_seed: int, use_3d: bool):
-        xs = _stacked_on_device(state, frames, xs)
 
-        def step(x, gen, update):
-            batch = preprocess_stereo_batch_cached(
-                gen, frames, x["idx_l"], x["idx_r"], x["trans"], x["P_l"],
-                x["P_r"], x["pose_3d"], x["joints_vis"],
-                image_size=image_size, occlusion=occlusion, train=True)
-            batch["row_valid"] = x["row_valid"]
-            return core(state, batch, use_3d, update)
-
-        n = xs["idx_l"].shape[0]
-        seeds = ([step_seed(epoch_seed, i) for i in range(n)]
-                 if _occludes(occlusion) else None)
-        return graphs.epoch(("train", use_3d, _frames_key(frames)), state,
-                            xs, step, state=state, seeds=seeds)
-
-    epoch.graphs = graphs
-    return epoch
+def make_train_epoch_vol(image_size, occlusion=None, graphed: bool = True,
+                         **step_kwargs) -> Callable:
+    """The volumetric model's training over an epoch of cached batches:
+    make_train_epoch_cdr's epoch, its metrics loss, loss_3d, loss_ce and
+    grad_norm, use_3d not read. Step i draws its occlusion, then its
+    cuboids' angles, from step_seed(epoch_seed, i). step_kwargs:
+    make_train_step_vol's."""
+    core = _train_core_vol(**step_kwargs)
+    return _stereo_train_epoch(
+        lambda state, batch, use_3d, gen, update: core(state, batch, gen,
+                                                       update),
+        image_size, occlusion, graphed, step_kwargs.get("mesh"), True)
 
 
 def make_eval_epoch_cdr(loss_fn, image_size, **step_kwargs) -> Callable:
@@ -404,26 +599,15 @@ def make_eval_epoch_cdr(loss_fn, image_size, **step_kwargs) -> Callable:
     epoch(state, frames, xs, use_3d) -> loss_sum, e2_sum, e3_sum and n
     summed over the S batches (of the global batch under a mesh), no
     augmentation; replayed as make_train_epoch_cdr's steps are."""
-    step_fn = make_eval_step_cdr(loss_fn, **step_kwargs)
-    image_size = tuple(image_size)
-    graphs = StepGraphs(mesh=step_kwargs.get("mesh"))
+    return _stereo_eval_epoch(make_eval_step_cdr(loss_fn, **step_kwargs),
+                              image_size, step_kwargs.get("mesh"))
 
-    def epoch(state: TrainState, frames, xs, use_3d: bool):
-        xs = _stacked_on_device(state, frames, xs)
 
-        def step(x, gen, update):
-            batch = preprocess_stereo_batch_cached(
-                None, frames, x["idx_l"], x["idx_r"], x["trans"], x["P_l"],
-                x["P_r"], x["pose_3d"], x["joints_vis"],
-                image_size=image_size, occlusion=None, train=False)
-            batch["row_valid"] = x["row_valid"]
-            return step_fn(state, batch, use_3d)
-
-        return graphs.epoch(("eval", use_3d, _frames_key(frames)), state, xs,
-                            step, sum_keys=_EVAL_KEYS_CDR)
-
-    epoch.graphs = graphs
-    return epoch
+def make_eval_epoch_vol(image_size, **step_kwargs) -> Callable:
+    """The volumetric model's evaluation over an epoch of cached batches:
+    make_eval_epoch_cdr's epoch (use_3d not read)."""
+    return _stereo_eval_epoch(make_eval_step_vol(**step_kwargs), image_size,
+                              step_kwargs.get("mesh"))
 
 
 def _mono_batch(frames, x, image_size, heatmap_size, sigma):
@@ -534,13 +718,12 @@ def _stack_epochs(rows):
             for k, v in first.items()}
 
 
-def make_segment_cdr(loss_fn, image_size, occlusion=None,
-                     warmup: int = 0, seed: int = 0,
-                     loss_3d_weight: float = 4.0, scale_3d: float = 0.1,
-                     base_joint: int = 1, num_joints: int = 19,
-                     clip_norm: float = 100.0, mesh=None) -> Callable:
-    """A SEGMENT of E epochs, each a train epoch then an eval epoch, with
-    the best state selected on the device (steps.py:333-453).
+def make_segment_stereo(train_epoch, eval_epoch, warmup: int = 0,
+                        seed: int = 0) -> Callable:
+    """A SEGMENT of E epochs of a stereo model, each a train epoch then an
+    eval epoch, with the best state selected on the device
+    (steps.py:333-453). train_epoch, eval_epoch: the model's epochs
+    (make_train_epoch_cdr and make_eval_epoch_cdr, or the _vol pair).
 
     segment(state, best_state, best_err, t_frames, v_frames, xs_seq,
             vxs, epoch0, epoch_valid) -> (state, best_state, best_err, ms)
@@ -561,24 +744,15 @@ def make_segment_cdr(loss_fn, image_size, occlusion=None,
       ms: per-epoch stacked metrics {"train": sums over S, "eval":
         {loss_sum, e2_sum, e3_sum, n}, "improved": (E,) bool}, device
         tensors that the host fetches once a segment.
-    The state is updated in place and returned, as is best_state. The
-    epochs run through make_train_epoch_cdr / make_eval_epoch_cdr, so
-    on CUDA every step is a replay of their graphs, and the best state's
-    masked copy one more graph an epoch; nothing waits for the host
-    inside the segment. Under a mesh xs_seq and vxs hold this rank's rows
-    (shard_stacked(mesh, ..., lead=2) of a global stack, or the rank's
-    own loaders'), and the best is chosen from the global eval sums, so
-    every rank takes the same `improved` and the same best state.
-    `segment.graphs` is the train epoch's StepGraphs.
+    The state is updated in place and returned, as is best_state. On
+    CUDA every step is a replay of the epochs' graphs, and the best
+    state's masked copy one more graph an epoch; nothing waits for the
+    host inside the segment. Under a mesh (the epochs') xs_seq and vxs
+    hold this rank's rows (shard_stacked(mesh, ..., lead=2) of a global
+    stack, or the rank's own loaders'), and the best is chosen from the
+    global eval sums, so every rank takes the same `improved` and the
+    same best state. `segment.graphs` is the train epoch's StepGraphs.
     """
-    kw = dict(loss_3d_weight=loss_3d_weight, scale_3d=scale_3d,
-              base_joint=base_joint, num_joints=num_joints)
-    if mesh is not None:
-        kw["mesh"] = mesh
-    train_epoch = make_train_epoch_cdr(loss_fn, image_size,
-                                       occlusion=occlusion,
-                                       clip_norm=clip_norm, **kw)
-    eval_epoch = make_eval_epoch_cdr(loss_fn, image_size, **kw)
     select = _make_select()
 
     def segment(state: TrainState, best_state, best_err, t_frames, v_frames,
@@ -604,9 +778,26 @@ def make_segment_cdr(loss_fn, image_size, occlusion=None,
     return segment
 
 
+def make_segment_cdr(loss_fn, image_size, occlusion=None,
+                     warmup: int = 0, seed: int = 0,
+                     loss_3d_weight: float = 4.0, scale_3d: float = 0.1,
+                     base_joint: int = 1, num_joints: int = 19,
+                     clip_norm: float = 100.0, mesh=None) -> Callable:
+    """make_segment_stereo over CDRNet's epochs (make_train_epoch_cdr and
+    make_eval_epoch_cdr with these step arguments)."""
+    kw = dict(loss_3d_weight=loss_3d_weight, scale_3d=scale_3d,
+              base_joint=base_joint, num_joints=num_joints)
+    if mesh is not None:
+        kw["mesh"] = mesh
+    return make_segment_stereo(
+        make_train_epoch_cdr(loss_fn, image_size, occlusion=occlusion,
+                             clip_norm=clip_norm, **kw),
+        make_eval_epoch_cdr(loss_fn, image_size, **kw), warmup, seed)
+
+
 def make_segment_2d(loss_fn, image_size, heatmap_size,
                     sigma: int = 3, mesh=None) -> Callable:
-    """2D counterpart of make_segment_cdr (steps.py:456-534): E epochs
+    """2D counterpart of make_segment_stereo (steps.py:456-534): E epochs
     (train then eval each), the best selected on the device by val PCK
     (maximised, no warmup gate [ref: train.py:150-155]).
 
@@ -615,7 +806,7 @@ def make_segment_2d(loss_fn, image_size, heatmap_size,
       epoch_valid: (E,) bools, padding rows skipped (zero metrics,
         improved False); ms per epoch: {"train": sums, "eval": {loss_sum,
         hits, cnt, n}, "val_acc": (E,), "improved": (E,) bool}.
-    Under a mesh as make_segment_cdr: the best from the global PCK.
+    Under a mesh as make_segment_stereo: the best from the global PCK.
     """
     args = (loss_fn, image_size, heatmap_size, sigma, mesh)
     train_epoch = make_train_epoch_2d(*args)
