@@ -12,22 +12,24 @@
     python3 chip_smoke.py --phase17   # steps 1, 2 and 17
     python3 chip_smoke.py --slice12   # steps 1, 2, the kernel timings, 18
                                       # and 19, four cards
+    python3 chip_smoke.py --train-bn  # steps 1 and 20
 
 1. Prints the card's name and power limit, builds the kernels
-   (csrc/softargmax.cu and csrc/fused_bottleneck.cu, one nvcc each, in
-   parallel), timing the build.
-2. Kernel phase: holds each kernel (K1 soft-argmax forward, K2 its
-   backward, K3 fused bottleneck) against its plain PyTorch version on the
-   card, at the shapes the main paths give it and at batch 32 pairs; K1
-   and K2 also at batch 1 pair, on a ragged plane, with one chunk's logits
-   120 above the rest, and (K1) at J = 2, and shows that their wrappers
-   refuse strided or misaligned logits; K3 also at batch 1 pair, at
-   layer1.1, on a plane that is not a multiple of its tile, and at P = 128
-   with a downsample, so that every variant of its launch plan runs (8x16
-   and 8x8 tiles, P = 64 and 128, with and without a downsample); each
-   K3 launch's plan is held against the kernel's own, and its SASS must
-   hold wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA) or
-   cp.async (LDGSTS). K1 and K2
+   (csrc/softargmax.cu, csrc/fused_bottleneck.cu and csrc/batchnorm.cu,
+   one nvcc each, in parallel), timing the build.
+2. Kernel phase (every run; --train-bn runs the train BN check alone): the
+   train BN kernels as in step 20's check; holds each kernel (K1
+   soft-argmax forward, K2 its backward, K3 fused bottleneck) against its
+   plain PyTorch version on the card, at the shapes the main paths give it and
+   at batch 32 pairs; K1 and K2 also at batch 1 pair, on a ragged plane,
+   with one chunk's logits 120 above the rest, and (K1) at J = 2, and
+   shows that their wrappers refuse strided or misaligned logits; K3 also
+   at batch 1 pair, at layer1.1, on a plane that is not a multiple of its
+   tile, and at P = 128 with a downsample, so that every variant of its
+   launch plan runs (8x16 and 8x8 tiles, P = 64 and 128, with and without
+   a downsample); each K3 launch's plan is held against the kernel's own,
+   and its SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG) and no
+   mma.sync (HMMA) or cp.async (LDGSTS). K1 and K2
    also at a 1-pair heatmap's rows under M = 2 and M = 4 ((2, 32, 64, 19),
    (2, 16, 64, 19)) and at the whole 192 px heatmap ((2, 48, 48, 19),
    (8, 48, 48, 19)), K3 on every haloed tile phase 13 gives it (layer1.0
@@ -66,8 +68,10 @@
    4 padded rows. Checks finite metrics, the loss arithmetic, that the
    parameters and BN statistics moved, that three BN sites updated their
    running statistics from the valid rows with the biased variance, and
-   that each step launched K1 and K2 once and K3 never. Times the step and
-   splits one step's device time by kernel group.
+   that each step launched K1 and K2 once, K3 never and the train BN
+   kernels 3 times a BN layer each way (112 layers) with no relayout of
+   dy. Times the step and splits one step's device time by kernel group,
+   the train BN kernels one group.
 6. Input pipeline: builds a DeviceFrameCache of 1024 seeded 768x1024
    uint8 frames (2.4 GB) on the card, and one at half the budget that
    must keep an even partial prefix; checks the pipeline's output there
@@ -315,7 +319,8 @@
       eagerly from the same weights with the same capturable Adam: the
       per-step metrics, the weights, the BN statistics and Adam's state
       bit-equal (or, d, within phase 12's S7_* bounds, the gaps printed),
-      1 K1 + 1 K2 a step counted through the replays; then one bf16 epoch
+      1 K1 + 1 K2 a step and 3 train BN launches a BN layer each way (no
+      relayout of dy) counted through the replays; then one bf16 epoch
       held the same way. Each way: a warm epoch's wall ms a step, the
       device-busy ms a step and the idle share (torch.profiler), host
       launches a step (the CUDA calls that put work on the device),
@@ -345,7 +350,8 @@
       per-step metrics, weights, BN statistics and Adam's state bit-equal;
       the collectives a step by kind (rows, a forward and a backward one
       a BN, gradient, metrics) counted through the replays, one capture
-      check, fewer than 10 host launches a step; each way's wall, busy,
+      check, fewer than 10 host launches a step, a's kernel launches;
+      each way's wall, busy,
       NCCL ms, idle share, host launches, capture s and memory; a step
       whose capture fails raises GraphCaptureError naming the rank;
    b. two gloo ranks sharing cuda:0 (`--s17-child`), loop_cdr.run at 16
@@ -362,7 +368,8 @@
    a. every rank's shard_stacked block of that epoch, the frames whole on
       its card: the CUTOUT epoch graphed against eager (bit-equal, or
       within S7_* with the gaps printed), the collectives a step by kind
-      through the replays, fewer than 10 host launches a step; then a
+      through the replays, fewer than 10 host launches a step, 16 a's
+      kernel launches; then a
       graphed epoch without occlusion or the 3D loss against one card's
       on the whole batch (step 0 within S7_WARMUP_RTOL / S7_2D_RTOL, the
       later losses within S7_POST_RTOL); beside one card's graphed step,
@@ -382,6 +389,20 @@
       logged path).
 19. Prints a {"kernels": [...]} line and, last, {"ok": true, ...} (the
     default run and --slice12).
+20. Train-mode BatchNorm (`--train-bn`; csrc/batchnorm.cu, which step 1
+    builds too; the check runs in every run): the kernels against the
+    plain version
+    (ops/batchnorm.py) at CDRNet-101's stem, layer3, layer4 and
+    CanonicalFusion shapes at 32 pairs, C = 19 and 300, and the V2V's
+    first and deepest levels, fp32 and bf16, with padded rows, without a
+    mask and (stem, V2V) with every row filler; each twice, bit-equal.
+    Times the stem, layer3, fusion and V2V shapes in fp32 (check_train_bn,
+    time_train_bn: device ms by kernel L2 cold and warm, the 8- and
+    5-pass bounds, the plain version, F.batch_norm as the yardstick), and
+    profiles one main-path CDRNet-101 train step at 32 pairs
+    (train_bn_step): 3 launches a layer each way, no relayout of dy, no
+    other BatchNorm kernel, the train_bn_ kernels' device ms beside all
+    kernels'. Prints {"train_bn": ...}.
 
 It needs one CUDA device, and four for --slice10 and --slice12. Without
 one, or when any phase fails, it exits non-zero and prints no result.
@@ -914,6 +935,39 @@ def kernel_counters():
             "fused_bottleneck": fused_bottleneck}
 
 
+def bn_counts():
+    """The train BN kernels' launches forward and backward, and the
+    backward's copies of a dy that arrived in another layout than x's
+    (ops/batchnorm.py), so far."""
+    from fast3dhpe_tpu_torch.ops import batchnorm as bn
+    return {"train_bn_forward": bn.train_bn_forward.launches,
+            "train_bn_backward": bn.train_bn_backward.launches,
+            "train_bn_relayouts": bn.train_bn_backward.relayouts}
+
+
+def bn_since(before):
+    now = bn_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def train_bn_layers(model):
+    """The model's BatchNorm layers (BatchNorm3d included): in train mode
+    each takes the train BN kernels once a forward and once a backward."""
+    from fast3dhpe_tpu_torch.models.layers import BatchNorm2d
+    return sum(isinstance(m, BatchNorm2d) for m in model.modules())
+
+
+def require_bn_counts(got, steps, layers, what):
+    """got (bn_since over `steps` train steps) holds 3 launches a BN layer
+    each way a step, and no relayout of dy."""
+    want = {"train_bn_forward": 3 * layers * steps,
+            "train_bn_backward": 3 * layers * steps,
+            "train_bn_relayouts": 0}
+    got = {k: got[k] for k in want}
+    require(got == want, f"{what}: {steps} train steps of {layers} BN layers "
+                         f"gave {got}, not {want}")
+
+
 def serve_counted(inf, requests, n_fused, what):
     """predict_batch(*request) for each request, with the kernels' launch
     counts set to 0 just before and read just after: each request must
@@ -1197,27 +1251,39 @@ def run_train(cfg, dev):
     counters = (soft_argmax_fused, soft_argmax_bwd_fused, fused_bottleneck)
     for c in counters:
         c.launches = 0
+    bn_layers = train_bn_layers(model)
+    require(bn_layers == BN_LAYERS_CDRNET,
+            f"CDRNet-101 has {bn_layers} BN layers, not {BN_LAYERS_CDRNET}")
+    bn_start = bn_counts()
     times, per_step, metrics = [], [], []
     for i, use_3d in enumerate(TRAIN_MODES):
         before = [c.launches for c in counters]
+        bn_before = bn_counts()
         t = time.perf_counter()
         m = step(state, db, use_3d)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-        per_step.append(tuple(c.launches - b for c, b in zip(counters, before)))
+        bn_step = bn_since(bn_before)
+        per_step.append(tuple(c.launches - b for c, b in zip(counters, before))
+                        + (bn_step["train_bn_forward"],
+                           bn_step["train_bn_backward"]))
         metrics.append({k: v.item() for k, v in m.items()})
         print(f"# train step {i} use_3d={use_3d}: {times[-1]:.1f} ms, "
-              f"launches K1/K2/K3 {per_step[-1]}, "
+              f"launches K1/K2/K3/BN fwd/BN bwd {per_step[-1]}, "
               + ", ".join(f"{k} {v:.6g}" for k, v in metrics[-1].items()))
         if i == 0:
             bn_err = bn_check.check()
     launches = {"soft_argmax": soft_argmax_fused.launches,
                 "soft_argmax_bwd": soft_argmax_bwd_fused.launches,
-                "fused_bottleneck": fused_bottleneck.launches}
+                "fused_bottleneck": fused_bottleneck.launches,
+                **bn_since(bn_start)}
+    require_bn_counts(launches, len(TRAIN_MODES), bn_layers, "train steps")
 
+    bn3 = 3 * bn_layers
     for i, (use_3d, m, n) in enumerate(zip(TRAIN_MODES, metrics, per_step)):
-        require(n == (1, 1, 0), f"train step {i} launched K1/K2/K3 {n} "
-                                f"times, not (1, 1, 0)")
+        require(n == (1, 1, 0, bn3, bn3),
+                f"train step {i} launched K1/K2/K3/BN fwd/BN bwd {n} times, "
+                f"not (1, 1, 0, {bn3}, {bn3})")
         require(all(np.isfinite(v) for v in m.values()),
                 f"train step {i}: non-finite metrics {m}")
         if use_3d:
@@ -1824,6 +1890,7 @@ def read_counts(counters):
 def require_counts(got, steps, k1, k2, k3, what):
     want = {"soft_argmax": k1 * steps, "soft_argmax_bwd": k2 * steps,
             "fused_bottleneck": k3 * steps}
+    got = {k: got[k] for k in want}
     require(got == want, f"{what}: {steps} steps or batches launched "
                          f"K1/K2/K3 {got}, not {want}")
 
@@ -6309,9 +6376,11 @@ def s16_epoch_run(cfg, frames, xs, dev, dtype, loss, kw, graphed,
     reserved = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
     COUNTS.clear()
+    bn_layers = train_bn_layers(state.model)
     counters = reset_counts()
+    bn_before = bn_counts()
     sums = epoch(state, frames, xs, SEED, use_3d)
-    launches = read_counts(counters)
+    launches = {**read_counts(counters), **bn_since(bn_before)}
     run = {"sums": {k: v.clone() for k, v in sums.items()},
            "steps": rec[:], "snap": s16_snapshot(state),
            "launches": launches, "collectives": dict(COUNTS),
@@ -6332,8 +6401,9 @@ def s16_epoch_run(cfg, frames, xs, dev, dtype, loss, kw, graphed,
     require(len(rec) == n and all(
         np.isfinite(float(v)) for m in rec for v in m.values()),
         f"{what}: non-finite metrics {rec}")
-    require_counts(launches, n, 1, 1, 0,
-                   f"{what}, {'graphed' if graphed else 'eager'}")
+    way = f"{what}, {'graphed' if graphed else 'eager'}"
+    require_counts(launches, n, 1, 1, 0, way)
+    require_bn_counts(launches, n, bn_layers, way)
     del state, epoch
     torch.cuda.empty_cache()
     return run
@@ -6641,7 +6711,9 @@ def run_slice11(dev, smi):
                           f"{e['idle']} / {g['idle']}, host launches "
                           f"{e['host_launches']:.1f} / "
                           f"{g['host_launches']:.1f} a step ({g['calls']}), "
-                          f"capture {g['capture_s']:.2f} s, reserved "
+                          f"kernel launches {e['launches']} / "
+                          f"{g['launches']}, capture "
+                          f"{g['capture_s']:.2f} s, reserved "
                           f"{e['reserved_gib']:.2f} / {g['reserved_gib']:.2f}"
                           f" GiB, peak {e['peak_gib']:.2f} / "
                           f"{g['peak_gib']:.2f} GiB")
@@ -7559,6 +7631,284 @@ def time_bottleneck(dev, gen):
     return total
 
 
+# ----------------------------------------------------------------- train BN
+
+# (what, shape, channels_last): the CDRNet-101 step's largest BN input at
+# 32 pairs (the stem; layer1's 256 x 64 x 64 is as large), its most
+# frequent (layer3, 24 of 112 layers), its smallest (CanonicalFusion's 400
+# channels at 8 x 8, one row a pair) and the V2V's first level (contiguous
+# NCDHW)
+BN_TIMED = (("stem", (64, 64, 128, 128), True),
+            ("layer3", (64, 1024, 16, 16), True),
+            ("fusion", (32, 400, 8, 8), True),
+            ("v2v", (10, 32, 64, 64, 64), False))
+# checked beside them: layer4 (4,096 rows x 2,048 channels), C not a
+# multiple of the vector width, the V2V's deepest level
+BN_CHECKED = BN_TIMED + (("layer4", (64, 2048, 8, 8), True),
+                         ("C 19", (6, 19, 12, 12), True),
+                         ("C 300", (6, 300, 6, 6), True),
+                         ("v2v deepest", (10, 128, 2, 2, 2), False))
+# a CDRNet-101 step in train mode: 112 BN layers, three launches each way
+BN_LAYERS_CDRNET = 112
+
+
+def _bn_inputs(gen, shape, channels_last, dtype, dev, mask_kind):
+    from fast3dhpe_tpu_torch.models.layers import bn_row_mask
+    x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dtype).to(dev)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last
+                         if len(shape) == 4 else torch.channels_last_3d)
+    c, n = shape[1], shape[0]
+    w = (1.0 + 0.2 * torch.randn(c, generator=gen)).to(dev)
+    b = (0.1 * torch.randn(c, generator=gen)).to(dev)
+    dy = torch.empty_like(x).copy_(
+        torch.randn(shape, generator=gen).to(dtype))
+    valid = torch.ones(n)
+    if mask_kind == "filler":
+        valid.zero_()
+    elif mask_kind == "zero_rows":
+        valid[1::3] = 0.0
+    mask = None if mask_kind is None else bn_row_mask(valid).to(dev)
+    return x, w, b, dy, mask
+
+
+def _bn_both(fwd, bwd, x, w, b, dy, mask):
+    y, mean, var, saved, count = fwd(x, w, b, mask, 1e-5, None)
+    dx, dw, db = bwd(dy, x, w, mask, saved, count, None)
+    return y, mean, var, dx, dw, db
+
+
+def check_train_bn(dev, gen):
+    """The kernels against the plain version on the card, relative to the
+    plain output's largest magnitude: fp32 within 1e-4 (the sums over up
+    to 1 M rows run in another order), bf16 y and dx within 2 bf16 ulps
+    (2^-7: a value on either side of a rounding step), the fp32 statistics
+    and parameter gradients within 1e-4 in both; each case run twice,
+    bit-equal; 3 launches each way."""
+    from fast3dhpe_tpu_torch.ops import batchnorm as bn
+    errs = {}
+    for what, shape, cl in BN_CHECKED:
+        for dt in (torch.float32, torch.bfloat16):
+            for mask_kind in ("zero_rows", None, "filler"):
+                if mask_kind == "filler" and what not in ("stem", "v2v"):
+                    continue
+                key = f"{what} {str(dt)[6:]} mask {mask_kind}"
+                ins = _bn_inputs(gen, shape, cl, dt, dev, mask_kind)
+                before = (bn.train_bn_forward.launches,
+                          bn.train_bn_backward.launches)
+                got = _bn_both(bn.train_bn_forward, bn.train_bn_backward,
+                               *ins)
+                again = _bn_both(bn.train_bn_forward, bn.train_bn_backward,
+                                 *ins)
+                ref = _bn_both(bn.plain_forward, bn.plain_backward, *ins)
+                torch.cuda.synchronize()
+                require((bn.train_bn_forward.launches - before[0],
+                         bn.train_bn_backward.launches - before[1]) ==
+                        (6, 6), f"train BN {key}: 3 launches each way")
+                row = {}
+                for name, g, a, r in zip(("y", "mean", "var", "dx",
+                                          "dweight", "dbias"), got, again,
+                                         ref):
+                    require(torch.equal(g, a),
+                            f"train BN {key}: {name} not deterministic")
+                    require(g.dtype == r.dtype and g.shape == r.shape and
+                            g.stride() == r.stride(),
+                            f"train BN {key}: {name} dtype/shape/strides")
+                    scale = float(r.float().abs().max().clamp_min(1e-6))
+                    err = float((g.float() - r.float()).abs().max()) / scale
+                    tol = (1e-4 if dt == torch.float32 or g.dim() == 1
+                           else 2 ** -7)
+                    require(err <= tol, f"train BN {key}: {name} {err:.3g} "
+                            f"of max|plain| > {tol:.3g}")
+                    row[name] = err
+                errs[key] = row
+                del ins, got, again, ref
+    for d, worst in bn_worst(errs).items():
+        print(f"# train BN check {d}: worst " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()) + " of max|plain|")
+    return errs
+
+
+def bn_worst(errs):
+    """check_train_bn's worst error of each output, by dtype."""
+    out = {}
+    for d in ("float32", "bfloat16"):
+        rows = [r for k, r in errs.items() if f" {d} " in k]
+        out[d] = {"cases": len(rows),
+                  **{k: max(r[k] for r in rows) for k in rows[0]}}
+    return out
+
+
+def _bn_kernel_ms(fn, cold, iters=20):
+    """Median device ms of each train_bn_* kernel a call of fn() launches,
+    by name, under torch.profiler (L2 cold: a 128 MiB read before each
+    call; warm: back to back). A name launched twice a call (the finish,
+    forward and backward) counts each launch."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = (torch.zeros(L2_FLUSH_BYTES // 4, device="cuda") if cold
+             else None)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        m = re.search(r"(train_bn_\w+)<", e.name)
+        if e.device_type == DeviceType.CUDA and m:
+            by_name.setdefault(m.group(1), []).append(
+                (e.time_range.end - e.time_range.start) / 1e3)
+    require(by_name, "train BN timing: the profile holds no train_bn_ "
+                     "kernel")
+    return {k: statistics.median(v) * round(len(v) / iters)
+            for k, v in by_name.items()}
+
+
+def time_train_bn(dev, gen):
+    """Each BN_TIMED shape, fp32 (the training cells' type), channels_last
+    or NCDHW as the networks hold it: the kernels' device ms forward (stats,
+    finish, norm) and backward (grad_reduce, finish, grad), L2 cold and
+    warm, beside the 8-pass bound (the fused design's floor: x read twice
+    and y written forward, dy and x read twice and dx written backward),
+    the 5-pass bound (each input read once, each output written once), the
+    wrappers' call ms, the plain version's call ms, and
+    F.batch_norm(training=True) forward and backward as the library's
+    yardstick (the port never calls it)."""
+    import torch.nn.functional as F
+    from fast3dhpe_tpu_torch.ops import batchnorm as bn
+    rows = []
+    for what, shape, cl in BN_TIMED:
+        x, w, b, dy, mask = _bn_inputs(gen, shape, cl, torch.float32, dev,
+                                       "zero_rows")
+        y, mean, var, saved, count = bn.train_bn_forward(x, w, b, mask,
+                                                         1e-5, None)
+
+        def fwd():
+            return bn.train_bn_forward(x, w, b, mask, 1e-5, None)
+
+        def bwd():
+            return bn.train_bn_backward(dy, x, w, mask, saved, count, None)
+
+        def plain_fwd():
+            return bn.plain_forward(x, w, b, mask, 1e-5, None)
+
+        p_saved, p_count = plain_fwd()[3:]
+
+        def plain_bwd():
+            return bn.plain_backward(dy, x, w, mask, p_saved, p_count, None)
+
+        xl = x.detach().requires_grad_(True)
+        wl, bl = w.clone().requires_grad_(True), b.clone().requires_grad_(
+            True)
+
+        def lib_fwd():
+            return F.batch_norm(xl, None, None, wl, bl, True, 0.0, 1e-5)
+
+        def lib_both():
+            xl.grad = wl.grad = bl.grad = None
+            lib_fwd().backward(dy)
+
+        nbytes = x.numel() * x.element_size()
+        row = {"shape": f"{shape} fp32 "
+                        f"{'channels_last' if cl else 'contiguous'}",
+               "mbytes": nbytes / 1e6,
+               "bound8_ms": (3 + 5) * nbytes / HBM_BPS * 1e3,
+               "bound5_ms": (2 + 3) * nbytes / HBM_BPS * 1e3}
+        for way, fn in (("fwd", fwd), ("bwd", bwd)):
+            cold, warm = _bn_kernel_ms(fn, True), _bn_kernel_ms(fn, False)
+            row[way] = {"device_ms_cold": sum(cold.values()),
+                        "device_ms_warm": sum(warm.values()),
+                        "kernels_cold": cold, "call_ms": call_ms(fn)}
+        row["device_ms_cold"] = (row["fwd"]["device_ms_cold"]
+                                 + row["bwd"]["device_ms_cold"])
+        row["device_ms_warm"] = (row["fwd"]["device_ms_warm"]
+                                 + row["bwd"]["device_ms_warm"])
+        row["share_of_bound8"] = row["bound8_ms"] / row["device_ms_cold"]
+        row["share_of_bound5"] = row["bound5_ms"] / row["device_ms_cold"]
+        row["plain_ms"] = {"fwd": call_ms(plain_fwd),
+                           "bwd": call_ms(plain_bwd)}
+        row["library_ms"] = {"fwd": call_ms(lib_fwd),
+                             "fwd_bwd": call_ms(lib_both)}
+        print(f"# train BN {what} {row['shape']} ({row['mbytes']:.1f} MB): "
+              f"device fwd {row['fwd']['device_ms_cold']:.4f} / "
+              f"{row['fwd']['device_ms_warm']:.4f} ms, bwd "
+              f"{row['bwd']['device_ms_cold']:.4f} / "
+              f"{row['bwd']['device_ms_warm']:.4f} ms (L2 cold / warm), "
+              f"{100 * row['share_of_bound8']:.1f}% of the 8-pass bound "
+              f"{row['bound8_ms']:.4f} ms cold, "
+              f"{100 * row['share_of_bound5']:.1f}% of the 5-pass "
+              f"{row['bound5_ms']:.4f}; call fwd {row['fwd']['call_ms']:.4f}"
+              f" bwd {row['bwd']['call_ms']:.4f}; plain fwd "
+              f"{row['plain_ms']['fwd']:.4f} bwd {row['plain_ms']['bwd']:.4f}"
+              f"; F.batch_norm fwd {row['library_ms']['fwd']:.4f} fwd+bwd "
+              f"{row['library_ms']['fwd_bwd']:.4f}; by kernel (cold) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in
+                          {**{f'fwd {k}': v for k, v in
+                              row['fwd']['kernels_cold'].items()},
+                           **{f'bwd {k}': v for k, v in
+                              row['bwd']['kernels_cold'].items()}}.items()))
+        rows.append(row)
+        del x, dy, y, saved, xl
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_bn_step(cfg, dev):
+    """One main-path CDRNet-101 train step (train_step_fn, use_3d, fp32,
+    32 pairs, 4 padded) after a warm one, under torch.profiler: every BN
+    layer takes the kernels, 3 launches each way (BN_LAYERS_CDRNET layers)
+    and no relayout of dy, and the profile holds train_bn_* kernels and
+    no other BatchNorm kernel; their summed device ms beside all the
+    kernels'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fast3dhpe_tpu_torch.train.state import TrainState
+    batch = on_device(train_batch(np.random.RandomState(SEED + 2),
+                                  TRAIN_PAIRS, TRAIN_PAD,
+                                  cfg.MODEL.IMAGE_SIZE[0]), dev)
+    model = seeded_train_model(cfg).to(dev)
+    calibrate_train_head(model, batch)
+    state = TrainState.create(model, cfg, steps_per_epoch=1)
+    train_step = train_step_fn(cfg)
+
+    def step():
+        train_step(state, batch, True)
+
+    step()
+    torch.cuda.synchronize()
+    before = bn_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    counts = bn_since(before)
+    require_bn_counts(counts, 1, BN_LAYERS_CDRNET, "train BN step")
+    launches = (counts["train_bn_forward"], counts["train_bn_backward"])
+    spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = [n for n, _ in spans]
+    ours = sum("train_bn_" in n for n in names)
+    bn_ms = sum(ms for n, ms in spans if "train_bn_" in n)
+    device_ms = sum(ms for _, ms in spans)
+    other_bn = sorted({n for n in names if ("batch_norm" in n or "bn_" in n)
+                       and "train_bn_" not in n})
+    require(ours == 6 * BN_LAYERS_CDRNET,
+            f"train BN step: {ours} train_bn_ kernels in the profile")
+    require(not other_bn, f"train BN step: other BN kernels {other_bn}")
+    print(f"# train BN step: {launches[0]} + {launches[1]} launches, "
+          f"{ours} train_bn_ kernels in the profile ({bn_ms:.2f} ms of "
+          f"{device_ms:.2f} ms of kernel time), no other BN kernel")
+    return {"launches": launches, "kernels": ours, "bn_ms": bn_ms,
+            "device_ms": device_ms}
+
+
 def time_serving(inf, dev):
     """predict_batch's wall at 1-64 pairs, its geometry graphed (the
     default: geometry/graphed.py) and eager (engagement patched off), the
@@ -7669,6 +8019,7 @@ TRAIN_GROUPS = (  # (group, substrings of the CUDA kernel's name)
     ("K1 soft-argmax", ("softargmax_fwd",)),
     ("K2 soft-argmax backward", ("softargmax_bwd",)),
     ("cuDNN/cuBLAS conv and matmul", CONV_KERNELS),
+    ("train BN kernels", ("train_bn_",)),
 )
 # CPU ranges whose kernels are train-mode BN: the forward, wrapped in a
 # record_function range while profiling, and the backward node
@@ -7677,11 +8028,12 @@ BN_RANGES = ("train_bn", "MaskedBatchNormBackward")
 
 def profile_train(train, wall_ms):
     """Device time of one use_3d train step by kernel group, and the
-    device's idle share against the unprofiled median step. Train-mode BN
-    runs as elementwise and reduction kernels, so it is told apart by the
-    CPU range that launched them: each kernel is linked to the CPU op that
-    launched it, and that op to the BN forward or backward range around it
-    on the same thread."""
+    device's idle share against the unprofiled median step. The train BN
+    kernels are a group by name; the other kernels of train-mode BN (the
+    running statistics' update) are told apart by the CPU range that
+    launched them: each kernel is linked to the CPU op that launched it,
+    and that op to the BN forward or backward range around it on the same
+    thread."""
     import bisect
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -7762,11 +8114,12 @@ def profile_train(train, wall_ms):
             linked += k.duration / 1e3
             if in_bn and group(k.name) is None:
                 bn += k.duration / 1e3
-    groups["train-mode BN (elementwise, reductions)"] = bn
+    groups["train-mode BN, other kernels (running statistics)"] = bn
     groups["other (elementwise, copies, reductions, geometry)"] = rest - bn
     busy = sum(groups.values())
     require(busy > 0, "the profiler recorded no device time")
-    for name in ("K1 soft-argmax", "K2 soft-argmax backward"):
+    for name in ("K1 soft-argmax", "K2 soft-argmax backward",
+                 "train BN kernels"):
         require(groups[name] > 0, f"no kernel of the group {name} in the "
                                   f"profile of a train step")
     print(f"# profile train step ({TRAIN_PAIRS} pairs, use_3d): device busy "
@@ -7835,10 +8188,11 @@ def main():
                          out)
     if args not in ([], ["--kernels"], ["--slice6"], ["--slice7"],
                     ["--slice8"], ["--slice9"], ["--slice10"],
-                    ["--slice11"], ["--slice12"], ["--phase17"]):
+                    ["--slice11"], ["--slice12"], ["--phase17"],
+                    ["--train-bn"]):
         sys.exit("usage: python3 chip_smoke.py [--kernels | --slice6 | "
                  "--slice7 | --slice8 | --slice9 | --slice10 | --slice11 | "
-                 "--slice12 | --phase17]")
+                 "--slice12 | --phase17 | --train-bn]")
     kernels_only = args == ["--kernels"]
     many = args in (["--slice10"], ["--slice12"])
     if not torch.cuda.is_available():
@@ -7871,7 +8225,7 @@ def main():
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
-    logs = build(["fused_bottleneck", "softargmax"])
+    logs = build(["fused_bottleneck", "softargmax", "batchnorm"])
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -7887,6 +8241,16 @@ def main():
         return out
 
     gen = torch.Generator().manual_seed(SEED)
+    bn_errs = phase("train BN check", check_train_bn, dev, gen)
+    if args == ["--train-bn"]:
+        bn_times = phase("train BN timing", time_train_bn, dev, gen)
+        bn_step = phase("train BN step", train_bn_step,
+                        load_config("configs/mads_3d.yaml"), dev)
+        print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in phases.items()))
+        print(json.dumps({"train_bn": {"errors": bn_errs, "step": bn_step,
+                                       "times": bn_times, "card": smi}}))
+        return
     err_k1 = phase("K1 check", check_softargmax, dev, gen)
     err_k2 = phase("K2 check", check_softargmax_bwd, dev, gen)
     err_k3 = phase("K3 check", check_bottleneck, dev, gen)
@@ -7897,7 +8261,8 @@ def main():
                  "K3": phase("K3 timing", time_bottleneck, dev, gen)}
         print("# phases (s): " + ", ".join(f"{k} {v:.1f}"
                                            for k, v in phases.items()))
-        print(json.dumps({"kernel_times": times}))
+        print(json.dumps({"kernel_times": times,
+                          "train_bn_worst": bn_worst(bn_errs)}))
         return
     if args == ["--slice12"]:
         k1 = phase("K1 timing", time_softargmax, dev, gen)
@@ -8062,7 +8427,8 @@ def main():
     print(json.dumps({"serving": {str(k): v for k, v in serving.items()},
                       "profile": prof}))
     print(json.dumps({"train": train_summary, "train_profile": train_prof,
-                      "train_vs_cpu": vs_cpu}))
+                      "train_vs_cpu": vs_cpu,
+                      "train_bn_worst": bn_worst(bn_errs)}))
     print(json.dumps({"cache": cache_info, "pipeline_checks": pipe_checks,
                       "pipeline_training": pipe,
                       "raw_serving": {k: v for k, v in raw.items()

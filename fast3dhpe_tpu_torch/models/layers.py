@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.mesh import all_reduce
+from ..ops.batchnorm import train_bn_backward, train_bn_forward
 from ..parallel.spatial import deconv_rows, window_rows
 
 
@@ -65,14 +65,6 @@ def bn_row_mask(row_valid, valid_rows=None):
     return (m | ~any_valid).float()
 
 
-def _bn_axes(x):
-    """The reduced dims of an (N, C, ...) tensor, and the view shapes of a
-    per-channel and of a per-row vector."""
-    lead = (1,) * (x.dim() - 2)
-    return ((0,) + tuple(range(2, x.dim())), (1, x.shape[1]) + lead,
-            (x.shape[0], 1) + lead)
-
-
 class _MaskedBatchNorm(torch.autograd.Function):
     """Train-mode BN over NCHW (NCDHW for BatchNorm3d) with batch
     statistics from the masked rows, as flax's BatchNorm computes them
@@ -100,70 +92,27 @@ class _MaskedBatchNorm(torch.autograd.Function):
     dbias stay the local rank's share, which the step's gradient
     all-reduce sums. At world size 1 every reduction is an identity, so
     the arithmetic is the one without a group, bit for bit.
+
+    The arithmetic is ops/batchnorm.py's: on CPU tensors its plain version
+    in eager PyTorch, on CUDA tensors the kernels of csrc/batchnorm.cu
+    (three launches each way), which raise on a layout they do not take.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias, mask, eps, group):
-        B, C = x.shape[:2]
-        dims, ch, rows = _bn_axes(x)
-        xf = x.float()
-        if mask is None:
-            count = x.numel() // C
-            s1, s2 = xf.sum(dims), (xf * xf).sum(dims)
-        else:
-            xm = xf * mask.view(rows)
-            count = mask.sum() * (x.numel() // (B * C))
-            s1, s2 = xm.sum(dims), (xm * xf).sum(dims)
-        if group is not None:
-            if mask is None:
-                # a fill: a CUDA graph of the step captures it
-                count = torch.full((), float(count), dtype=torch.float32,
-                                   device=x.device)
-            s1, s2, count = all_reduce(group, [s1, s2, count.reshape(1)],
-                                       "bn forward")
-            count = count.reshape(())
-        mean = s1 / count
-        mu2 = s2 / count
-        var_raw = mu2 - mean * mean
-        var = var_raw.clamp_min(0.0)
-        r = torch.rsqrt(var + eps)
-        y = ((xf - mean.view(ch)) * (r * weight).view(ch) + bias.view(ch))
-        ctx.save_for_backward(x, weight, mean, r, var_raw > 0, mask)
+        y, mean, var, saved, count = train_bn_forward(x, weight, bias, mask,
+                                                      eps, group)
+        ctx.save_for_backward(x, weight, mask, *saved)
         ctx.count = count
         ctx.group = group
         ctx.mark_non_differentiable(mean, var)
-        return y.to(x.dtype), mean, var
+        return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
-        x, weight, mean, r, var_pos, mask = ctx.saved_tensors
-        dims, shape, rows = _bn_axes(x)
-        xf, dy = x.float(), dy.float()
-
-        def ch(v):
-            return v.view(shape)
-
-        s = (dy * (xf - ch(mean))).sum(dims)
-        dbias = dy.sum(dims)
-        dweight = s * r
-        if ctx.group is not None:
-            # dx takes the whole batch's sums; dweight and dbias the rank's
-            dbias_local = dbias
-            s, dbias = all_reduce(ctx.group, [s, dbias], "bn backward")
-        g = weight * r
-        # through var = max(mu2 - mean^2, 0) into mean and mu2 = E[x^2]
-        dvar = torch.where(var_pos, -0.5 * s * weight * r * r * r, 0.0)
-        dmean = -dbias * g - 2.0 * mean * dvar
-        stat = ch(dmean / ctx.count) + xf * ch(2.0 * dvar / ctx.count)
-        if mask is not None:
-            stat = stat * mask.view(rows)
-        direct = dy * ch(g)
-        if x.dtype == torch.float32:
-            dx = direct + stat
-        else:
-            dx = direct.to(x.dtype) + stat.to(x.dtype)
-        if ctx.group is not None:
-            dbias = dbias_local
+        x, weight, mask, *saved = ctx.saved_tensors
+        dx, dweight, dbias = train_bn_backward(dy, x, weight, mask, saved,
+                                               ctx.count, ctx.group)
         return dx, dweight, dbias, None, None, None
 
 

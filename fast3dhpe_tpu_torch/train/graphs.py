@@ -11,8 +11,9 @@ TrainState.apply_gradients. On CUDA by default a variant (the caller's
 key: train or eval, use_3d, the frames) goes through three stages:
 
 1. its first step runs eagerly on a side stream. It is a real step of
-   the epoch, and it warms the variant up: K1 and K2 are built
-   (ops/_build.py) and set their shared-memory attributes, the
+   the epoch, and it warms the variant up: K1, K2 and the train BN
+   kernels are built (ops/_build.py), K1 and K2 set their shared-memory
+   attributes, the
    optimizer's state exists, cuDNN has chosen its algorithms;
 2. its next step is captured into a CUDA graph (torch.cuda.graph on the
    same side stream), which the capture does not run;
@@ -80,9 +81,11 @@ class GraphCaptureError(RuntimeError):
 
 
 def _counters():
+    from ..ops.batchnorm import train_bn_backward, train_bn_forward
     from ..ops.bottleneck import fused_bottleneck
     from ..ops.softargmax import soft_argmax_bwd_fused, soft_argmax_fused
-    return (soft_argmax_fused, soft_argmax_bwd_fused, fused_bottleneck)
+    return (soft_argmax_fused, soft_argmax_bwd_fused, fused_bottleneck,
+            train_bn_forward, train_bn_backward)
 
 
 _POOLS = {}
