@@ -416,6 +416,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -926,13 +927,18 @@ def normalized(img_l, img_r, device):
                         for i in (img_l, img_r)], dim=1)
 
 
+def _launch_counters(bn: bool):
+    """The kernel wrappers of the counters that a CUDA graph's replay
+    carries (fast3dhpe_tpu_torch/cuda_graphs.py), by name: the train BN
+    kernels' (bn) or the others'."""
+    from fast3dhpe_tpu_torch import cuda_graphs
+    from fast3dhpe_tpu_torch.ops import batchnorm  # noqa: F401 (registers)
+    return {k: c for k, c in cuda_graphs.CARRIED.items()
+            if not isinstance(c, Counter) and k.startswith("train_bn") == bn}
+
+
 def kernel_counters():
-    from fast3dhpe_tpu_torch.ops.bottleneck import fused_bottleneck
-    from fast3dhpe_tpu_torch.ops.softargmax import (soft_argmax_bwd_fused,
-                                                    soft_argmax_fused)
-    return {"soft_argmax": soft_argmax_fused,
-            "soft_argmax_bwd": soft_argmax_bwd_fused,
-            "fused_bottleneck": fused_bottleneck}
+    return _launch_counters(bn=False)
 
 
 def bn_counts():
@@ -940,8 +946,7 @@ def bn_counts():
     backward's copies of a dy that arrived in another layout than x's
     (ops/batchnorm.py), so far."""
     from fast3dhpe_tpu_torch.ops import batchnorm as bn
-    return {"train_bn_forward": bn.train_bn_forward.launches,
-            "train_bn_backward": bn.train_bn_backward.launches,
+    return {**{k: c.launches for k, c in _launch_counters(bn=True).items()},
             "train_bn_relayouts": bn.train_bn_backward.relayouts}
 
 
@@ -6282,7 +6287,6 @@ def s16_profile(fn, steps):
     counts once), the NCCL kernels' summed ms (which hold the wait for the
     peers), kernels and host launches (the CUDA calls that put work on the
     device) a step; busy None where the profile holds no device time."""
-    from collections import Counter
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()

@@ -16,22 +16,19 @@ runs each call (`run(name, fn, args, capturable)`) in one of two ways:
 - otherwise by shape. The key is the call's name, whether inference mode
   is on, and each input's shape, strides, dtype and device. A key's
   first call runs eagerly, which is also the warm-up a capture needs; its
-  second is captured into a CUDA graph on a side stream from static
+  second is captured into a CUDA graph (cuda_graphs.py) from static
   copies of the inputs, then replayed; every later call copies its
   inputs into those buffers, replays, and returns a clone of the static
-  output, which the next call overwrites. A shape seen once, such as a
-  movement's last partial batch, is never captured.
+  output, made before any other graph of the device's pool replays. A
+  shape seen once, such as a movement's last partial batch, is never
+  captured. A capture that fails raises GraphCaptureError; it does not
+  fall back.
 
 `fn` is what the eager call would run, resolved by the caller when it
 calls, so a capture holds whatever the geometry's modules held then: a
 function replaced before a model's first calls of a shape is the one its
 graphs replay. A replay runs the captured kernels on the same layouts,
 so its output is bit-equal to the eager call's.
-
-The graphs of one instance share one memory pool. A graph's output is
-cloned right after its replay, before any other graph of the pool
-replays, since their temporaries may share memory. A capture that fails
-raises GraphCaptureError (train/graphs.py); it does not fall back.
 
 `COUNTS` counts, for the whole process as the kernels' launch counters
 do: "captures", "replays", and "eager", the calls that ran eagerly on
@@ -44,7 +41,7 @@ from collections import Counter
 
 import torch
 
-from ..train.graphs import GraphCaptureError
+from .. import cuda_graphs
 
 COUNTS = Counter()
 
@@ -61,30 +58,15 @@ def engages(capturable: bool, tensors) -> bool:
             and not torch.cuda.is_current_stream_capturing())
 
 
-class _Graph:
-    def __init__(self, ins, replay, out):
-        self.ins, self.replay, self.out = ins, replay, out
-
-    def __call__(self, args):
-        for buf, a in zip(self.ins, args):
-            buf.copy_(a)
-        self.replay()
-        COUNTS["replays"] += 1
-        return self.out.clone()
-
-
 class GraphedGeometry:
     """One model instance's geometry graphs (module docstring). `capture`
-    stands in for the CUDA capture in tests: capture(fn, static_inputs)
-    returns (replay, static output), where replay() recomputes the
-    output in place."""
+    stands in for the CUDA capture in tests (cuda_graphs.capture's
+    `record`)."""
 
     def __init__(self, capture=None):
-        self._capture = capture or self._cuda_capture
+        self._capture = capture
         self._seen = set()
         self._graphs = {}
-        self._pool = None
-        self._streams = {}
 
     def run(self, name: str, fn, args, capturable: bool = True):
         """fn(*args), eagerly or through the graph of the call's key; fn
@@ -99,31 +81,13 @@ class GraphedGeometry:
                 self._seen.add(key)
                 COUNTS["eager"] += 1
                 return fn(*args)
-            g = self._graphs[key] = self._make(name, fn, args)
-        return g(args)
-
-    def _make(self, name, fn, args):
-        ins = [a.clone() for a in args]
-        try:
-            replay, out = self._capture(fn, ins)
-        except Exception as e:
-            raise GraphCaptureError(
-                f"capturing the geometry's {name} into a CUDA graph failed: "
-                f"{type(e).__name__}: {e}") from e
-        COUNTS["captures"] += 1
-        return _Graph(ins, replay, out)
-
-    def _cuda_capture(self, fn, ins):
-        dev = ins[0].device
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        if dev not in self._streams:
-            self._streams[dev] = torch.cuda.Stream(dev)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread's CUDA calls (NCCL's watchdog under
-        # a mesh) do not break this thread's capture
-        with torch.cuda.device(dev), torch.cuda.graph(
-                graph, pool=self._pool, stream=self._streams[dev],
-                capture_error_mode="thread_local"):
-            out = fn(*ins)
-        return graph.replay, out
+            ins = [a.clone() for a in args]
+            g = self._graphs[key] = (ins, *cuda_graphs.capture(
+                fn, ins, f"the geometry's {name}", record=self._capture))
+            COUNTS["captures"] += 1
+        ins, replay, out = g
+        for buf, a in zip(ins, args):
+            buf.copy_(a)
+        replay()
+        COUNTS["replays"] += 1
+        return out.clone()

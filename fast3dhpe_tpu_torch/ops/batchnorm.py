@@ -39,6 +39,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from .. import cuda_graphs
 from ..parallel.mesh import all_reduce
 from ._build import load_library
 
@@ -392,6 +393,6 @@ def train_bn_backward(dy, x, weight, mask, saved, count, group):
     return dx, dweight, dbias
 
 
-train_bn_forward.launches = 0
-train_bn_backward.launches = 0
+cuda_graphs.carry("train_bn_forward", train_bn_forward)
+cuda_graphs.carry("train_bn_backward", train_bn_backward)
 train_bn_backward.relayouts = 0

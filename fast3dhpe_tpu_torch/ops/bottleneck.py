@@ -27,6 +27,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import cuda_graphs
 from ._build import load_library
 
 _SMEM_LIMIT = 232448          # bytes of shared memory one H100 block may use
@@ -361,4 +362,4 @@ def fused_bottleneck(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
                         device=x.device))
 
 
-fused_bottleneck.launches = 0
+cuda_graphs.carry("fused_bottleneck", fused_bottleneck)

@@ -37,6 +37,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .. import cuda_graphs
 from ._build import load_library
 from .heatmap import soft_argmax, soft_argmax_bwd
 
@@ -353,5 +354,5 @@ def soft_argmax_fused(heatmaps):
     return _k1_op(heatmaps)[0]
 
 
-soft_argmax_fused.launches = 0
-soft_argmax_bwd_fused.launches = 0
+cuda_graphs.carry("soft_argmax", soft_argmax_fused)
+cuda_graphs.carry("soft_argmax_bwd", soft_argmax_bwd_fused)

@@ -34,6 +34,8 @@ from typing import List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..device import resolve_device
+
 # The device this process drives, recorded by init_distributed for
 # make_mesh: a process belongs to one group and one device, as
 # torch.distributed's own default group is process-wide.
@@ -41,16 +43,9 @@ _RANK_DEVICE: Optional[torch.device] = None
 
 
 def _rank_device(device, local_rank: int) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
+    dev = resolve_device("cuda" if device is None else device)
     if dev.type == "cpu":
         return dev
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {device!r}: use 'cuda' or "
-                         f"'cpu'")
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA was requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the ranks on the CPU")
     if dev.index is None:
         dev = torch.device("cuda", local_rank)
     if dev.index >= torch.cuda.device_count():

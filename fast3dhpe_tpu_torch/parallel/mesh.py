@@ -84,18 +84,19 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from .. import cuda_graphs
 from . import distributed
 
 #: collectives issued since a caller last cleared it, by kind ("bn
 #: forward", "bn backward", "rows", "gradients", "metrics", "broadcast",
 #: "barrier", "plan", "capture"; on a spatial mesh "halo", "keypoints",
 #: "gather"), as the kernel wrappers count their launches; a CUDA graph
-#: adds its step's at each replay (train/graphs.py)
-COUNTS: Counter = Counter()
+#: adds its capture's at each replay (cuda_graphs.py)
+COUNTS: Counter = cuda_graphs.carry("collectives", Counter())
 #: the bytes this rank hands to those collectives, by the same kinds: an
 #: all_reduce's or broadcast's whole packed tensor, what a neighbour
 #: exchange sends to the two neighbours, an all_gather's own part
-COUNTS_BYTES: Counter = Counter()
+COUNTS_BYTES: Counter = cuda_graphs.carry("collective_bytes", Counter())
 
 #: Mesh.exchange: the spatial exchanges' form by the process group's
 #: backend (parallel/spatial.py)

@@ -13,7 +13,7 @@ CUDA context: every later call in the process fails, so an in-process
 retry cannot succeed, and only a new process (`--resume`) recovers. Out
 of memory and every numerical or programming error come from the work
 itself and would fail the same way again, and so does a step that
-cannot be captured into a CUDA graph (train/graphs.py
+cannot be captured into a CUDA graph (cuda_graphs.py
 GraphCaptureError). What passes is what leaves the context usable and
 comes from outside the work: the card held by another process ("busy or
 unavailable"), and host I/O errors while reading the data or writing a
@@ -38,7 +38,7 @@ from typing import Callable
 import torch
 
 from ..parallel.distributed import process_count
-from .graphs import GraphCaptureError
+from ..cuda_graphs import GraphCaptureError
 
 _RETRYABLE_CUDA = ("busy or unavailable",)
 _RETRYABLE_ERRNO = (errno.EIO, errno.ESTALE, errno.ETIMEDOUT)

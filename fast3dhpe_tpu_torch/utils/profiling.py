@@ -16,42 +16,37 @@ from typing import Optional
 
 import torch
 
+from .. import cuda_graphs
+from ..device import resolve_device
+
 
 def measure_scan_floor(iters: int = 50, device="cuda") -> float:
     """Fixed cost (seconds) an iteration of a trivial step, as the JAX
     package measures its scan's (profiling.py:30-52): on CUDA a CUDA graph
-    of one (8, 128) multiply-add, replayed `iters` times after a warm
-    replay, timed from the first replay to a synchronisation; on the CPU
-    the same op called `iters` times in a loop. What a replayed train step
-    pays besides its work (train/graphs.py)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"measure_scan_floor: {device} asked for, but "
-                           f"torch.cuda.is_available() is False")
+    of one (8, 128) multiply-add (cuda_graphs.py), replayed `iters` times
+    after a warm replay, timed from the first replay to a
+    synchronisation; on the CPU the same op called `iters` times in a
+    loop. What a replayed train step pays besides its work
+    (train/graphs.py)."""
+    device = resolve_device(device)
     x = torch.zeros((8, 128), dtype=torch.float32, device=device)
 
-    def body():
+    def body(x):
         x.mul_(1.0000001).add_(1e-9)
 
     if device.type != "cuda":
-        body()
+        body(x)
         t0 = time.perf_counter()
         for _ in range(iters):
-            body()
+            body(x)
         return (time.perf_counter() - t0) / iters
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        body()
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        body()
-    graph.replay()
+    cuda_graphs.warm_up(lambda: body(x), x.device)
+    replay, _ = cuda_graphs.capture(body, (x,), "the replay floor's step")
+    replay()
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     for _ in range(iters):
-        graph.replay()
+        replay()
     torch.cuda.synchronize(device)
     return (time.perf_counter() - t0) / iters
 

@@ -50,8 +50,9 @@ def _dlt(projs, kp):
 
 
 def _stand_in(log):
-    """A capture that records itself and recomputes on replay."""
-    def capture(fn, ins):
+    """A capture (cuda_graphs.capture's `record`) that records itself and
+    recomputes on replay."""
+    def capture(fn, ins, generator=None):
         log.append(tuple(tuple(x.shape) for x in ins))
         out = fn(*ins)
         return (lambda: out.copy_(fn(*ins))), out
@@ -142,10 +143,10 @@ def test_per_shape_rule(monkeypatch):
 def test_a_failed_capture_raises(monkeypatch):
     """A capture that fails raises GraphCaptureError naming the call; the
     next call of the key tries again, and nothing falls back."""
-    from fast3dhpe_tpu_torch.train.graphs import GraphCaptureError
+    from fast3dhpe_tpu_torch.cuda_graphs import GraphCaptureError
     _as_if_cuda(monkeypatch)
 
-    def refuse(fn, ins):
+    def refuse(fn, ins, generator=None):
         raise RuntimeError("operation not permitted when stream is "
                            "capturing")
     geo = GraphedGeometry(capture=refuse)

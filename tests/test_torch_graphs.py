@@ -1,21 +1,26 @@
 """The pieces around the port's one-dispatch training, on the CPU:
 train/graphs.py (its eager form here; CUDA refused without CUDA), the
-optimizer's checkpoint forms (train/state.py), measure_scan_floor
-(utils/profiling.py), run_with_retries' degrade ladder against the JAX
-package's (train/resilience.py), and the training CLIs' --no_segments,
---segment_epochs and --per_batch (apps/_train_cli.py) against the JAX
-CLIs' mapping."""
+one capture's carried counters (cuda_graphs.py, through a stand-in for
+the CUDA capture), the optimizer's checkpoint forms (train/state.py),
+measure_scan_floor (utils/profiling.py), run_with_retries' degrade
+ladder against the JAX package's (train/resilience.py), and the
+training CLIs' --no_segments, --segment_epochs and --per_batch
+(apps/_train_cli.py) against the JAX CLIs' mapping."""
 
 import os
+from collections import Counter
 
 import pytest
 import torch
 
 from fast3dhpe_tpu.train import resilience as jax_resilience
+from fast3dhpe_tpu_torch import cuda_graphs
 from fast3dhpe_tpu_torch.apps import _train_cli
+from fast3dhpe_tpu_torch.device import resolve_device
+from fast3dhpe_tpu_torch.ops.softargmax import soft_argmax_fused
+from fast3dhpe_tpu_torch.parallel import mesh as pmesh
 from fast3dhpe_tpu_torch.train import resilience
-from fast3dhpe_tpu_torch.train.graphs import (GraphCaptureError, StepGraphs,
-                                              check_device)
+from fast3dhpe_tpu_torch.train.graphs import GraphCaptureError, StepGraphs
 from fast3dhpe_tpu_torch.train.state import TrainState, multistep_lr
 from fast3dhpe_tpu_torch.utils.profiling import measure_scan_floor
 
@@ -63,13 +68,84 @@ def test_step_graphs_run_eagerly_on_the_cpu():
 def test_graphs_refuse_cuda_without_cuda():
     """A CUDA device where CUDA is missing raises, naming it; the CPU
     passes."""
-    assert check_device("cpu") == torch.device("cpu")
+    assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
     with pytest.raises(RuntimeError, match="is_available"):
-        check_device("cuda")
+        resolve_device("cuda")
     with pytest.raises(RuntimeError, match="is_available"):
         measure_scan_floor(5, "cuda")
+
+
+def _counted():
+    return (soft_argmax_fused.launches, Counter(pmesh.COUNTS),
+            Counter(pmesh.COUNTS_BYTES))
+
+
+@pytest.mark.parametrize("case", ["replays", "fails"])
+def test_one_capture_carries_the_counters(case):
+    """cuda_graphs.capture through a stand-in for the CUDA capture, of a
+    step that counts a K1 launch and a halo exchange of 8 bytes: the
+    capture leaves the counters as they were and each replay adds the
+    step's counts again; a capture that raises gives GraphCaptureError
+    naming the call, the counters as before it."""
+    x = torch.zeros(3)
+    gen = torch.Generator()
+    seen = []
+
+    def step(x):
+        soft_argmax_fused.launches += 1
+        pmesh.COUNTS["halo"] += 1
+        pmesh.COUNTS_BYTES["halo"] += 8
+        if case == "fails":
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+        return x + 1
+
+    def record(fn, args, generator):
+        seen.append(generator)
+        out = fn(*args)
+        return (lambda: out.add_(1)), out
+
+    before = _counted()
+    if case == "fails":
+        with pytest.raises(GraphCaptureError,
+                           match="the halo step.*RuntimeError.*capturing"):
+            cuda_graphs.capture(step, (x,), "the halo step", gen, record)
+        assert _counted() == before
+        return
+    replay, out = cuda_graphs.capture(step, (x,), "the halo step", gen,
+                                      record)
+    assert seen == [gen] and _counted() == before
+    for i in (1, 2):
+        replay()
+        k1, counts, nbytes = _counted()
+        assert k1 == before[0] + i
+        assert torch.equal(out, torch.full((3,), 1.0 + i))
+        assert counts - before[1] == Counter(halo=i)
+        assert nbytes - before[2] == Counter(halo=8 * i)
+
+
+def test_a_device_pool_is_renewed_once_its_graphs_are_freed(monkeypatch):
+    """The graphs of a device share its pool while any of them lives; the
+    graph after the last one is freed starts a new pool, which PyTorch
+    needs when a block of the old one outlives its graphs."""
+    handles = iter(range(10))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: next(handles))
+    monkeypatch.setattr(cuda_graphs, "_POOLS", {})
+    dev = torch.device("cuda", 0)
+
+    class Graph:                        # stands in for torch.cuda.CUDAGraph
+        pass
+
+    a, b = Graph(), Graph()
+    assert cuda_graphs._pool(dev, a) == cuda_graphs._pool(dev, b) == 0
+    del a
+    c = Graph()
+    assert cuda_graphs._pool(dev, c) == 0
+    del b, c
+    assert cuda_graphs._pool(dev, Graph()) == 1
 
 
 def test_measure_scan_floor_on_the_cpu():
